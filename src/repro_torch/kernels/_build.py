@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Every `csrc/<name>.cu` exposes a plain C interface and includes no
+PyTorch header, so one nvcc call per source takes seconds. A source is
+compiled at first use into `_build/` beside this file (listed in
+`.gitignore`); the library's file name carries a hash of the source and
+the flags, so an edited source is never served a stale build. A missing
+nvcc or a failed build raises: there is no fallback.
+
+`build(names)` starts one nvcc per missing library, all at once, and
+waits for them; `load(name)` builds on demand and returns the
+`ctypes.CDLL`. Nothing here runs when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# sm_90a (not sm_90): the Hopper-only instructions later kernels use
+# (wgmma, setmaxnreg) exist only for the "a" target. -Xptxas=-v puts each
+# kernel's registers, shared memory and spills into the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The nvcc to build with: $CUDA_HOME/bin, then PATH, then the
+    toolkit's default install prefix. Raises when there is none."""
+    candidates = [Path(os.environ[v]) / "bin" / "nvcc"
+                  for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are compiled from "
+        f"{CSRC} at first use. Install the CUDA toolkit or set CUDA_HOME.")
+
+
+def library_path(name: str) -> Path:
+    """Where the build of `csrc/<name>.cu` lives (content-hashed)."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named source that has no current library: one nvcc
+    per source, all started together. Returns {name: compiler log} for
+    the sources it compiled. Raises RuntimeError naming each failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        # compile to a private name, then rename: a concurrent builder of
+        # the same source never sees a half-written library
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib

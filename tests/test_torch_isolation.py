@@ -1,0 +1,76 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+`import repro_torch` (and every module of it) in a fresh interpreter must
+leave `jax` and `repro` out of `sys.modules`, and no source file of the
+port nor chip_smoke.py may import them. Importing the port builds no
+kernel. chip_smoke.py turns TF32 off for matmuls and cuDNN convs.
+"""
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PKG = os.path.join(ROOT, "src", "repro_torch")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.fl",
+           "repro_torch.core.driver", "repro_torch.core.server",
+           "repro_torch.core.treemath", "repro_torch.core.weighting",
+           "repro_torch.kernels.weighted_agg",
+           "repro_torch.kernels.round_stats", "repro_torch.models.small",
+           "repro_torch.data.synthetic"]
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro\b(?!_torch))", re.MULTILINE)
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield SMOKE
+
+
+def test_import_leaves_jax_and_repro_out():
+    prog = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
+              "m.startswith('jax.') or m == 'repro' or "
+              "m.startswith('repro.'))\n"
+              "from repro_torch.kernels import _build\n"
+              "assert not _build._LIBS, 'importing built a kernel'\n"
+              "print('LEAKED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", prog], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_no_source_imports_jax_or_repro():
+    files = list(_sources())
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        hit = _FORBIDDEN.search(text)
+        assert hit is None, f"{path}: {hit.group(0).strip()}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for bad in ("import jax", "from jax import numpy", "import repro",
+                "from repro.core import fl", "  import jax.numpy as jnp"):
+        assert _FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.core import fl",
+               "# see repro/core/fl.py", "import jaxlib_free"):
+        assert not _FORBIDDEN.search(ok), ok
+
+
+def test_chip_smoke_turns_tf32_off():
+    with open(SMOKE) as f:
+        text = f.read()
+    assert "torch.backends.cuda.matmul.allow_tf32 = False" in text
+    assert "torch.backends.cudnn.allow_tf32 = False" in text
