@@ -6,19 +6,24 @@
 It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`
 with nvcc, checks and times each against its plain torch version, drives
 the main path (the synchronous FedAdp round of the flat engine through
-`repro_torch.FedServer`, at the full width of the paper's CNN), and
-checks the algorithm on the MLR golden task. Each phase prints one JSON
-line; any failure raises and the script exits non-zero. It imports
-nothing of jax or of the JAX package `repro`.
+`repro_torch.FedServer`, at the full width of the paper's CNN) on every
+uplink wire (f32, bf16, int8, int4), and checks the algorithm on the MLR
+golden task. Each phase prints one JSON line; any failure raises and the
+script exits non-zero. It imports nothing of jax or of the JAX package
+`repro`.
 
-Phases: device, build, kernels (correctness at the main path's shape and
-at edge shapes, then timing), slice (3 CNN rounds with eval; 2
-weighted_agg + 1 round_stats launches per round; flat == tree on the
-card; one more round under torch.profiler for the device-time
-breakdown), algorithm (fedadp reaches 85% on MLR in no more rounds than
-fedavg). Then, on lines of their own: the kernel table as one JSON
-object, the card's name and power limit as nvidia-smi reports them, and
-last `{"ok": true, "device": {...}}`.
+Phases: device, build (all four sources at once), kernels (correctness
+of the f32 kernels on f32 and bf16 input and of the int8 / int4 wire
+kernels at the main path's shape and at edge shapes, then timing of
+every kernel variant), wire (the quantizer on the card equals the
+quantizer on the CPU bit for bit), slice (per wire: 3 CNN rounds with
+eval, with 2 aggregation + 1 statistics launches of the wire's kernels
+per round, the quantizer's time, flat == tree on the card, one more round
+under torch.profiler; and one int8 run with error feedback), algorithm
+(fedadp reaches 85% on MLR in no more rounds than fedavg, per uplink f32,
+int8 and int4). Then, on lines of their own: the kernel table as one
+JSON object, the card's name and power limit as nvidia-smi reports them,
+and last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 prints no result and exits non-zero. TF32 is off for matmuls and cuDNN
@@ -39,14 +44,25 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks: HBM3 bandwidth and f32 outside the tensor
-# cores (both kernels are f32 elementwise-and-reduce work).
+# cores (all kernels are f32 elementwise-and-reduce work).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL = 1e-5
 MAIN_K, MAIN_N = 10, 1_663_370  # K clients x the CNN's parameter count
 EDGE_KS = (1, 3, 37, 128)
-EDGE_NS = (7_850, 16_385, 1_000_003)
+EDGE_NS = (7_850, 16_385, 1_000_003)  # the two odd N give int4 a pad nibble
+# int4 group sizes checked: 2 and 8 give each byte (or every other byte)
+# of a thread its own scale, the others one scale for a thread's columns
+GROUP_SIZES = (2, 8, 32, 512, 16_384)
+MAIN_GS = 512  # FLConfig's default int4 group size
+WIDE_K = 128  # a second timing of each kernel, at 12.8x the main K
 REPS = 50
+SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: the host's head start
+WIRES = ("f32", "bf16", "int8", "int4")
+SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q")
+# device kernels of the ported sources, by name, for the profile
+PORTED = ("agg_kernel", "agg_q8_kernel", "agg_q4_kernel", "stats_stage",
+          "stats_q8_stage", "stats_q4_stage")
 
 
 def emit(obj) -> None:
@@ -66,11 +82,16 @@ def time_us(fn, flush: torch.Tensor) -> float:
     warm-up. Before each launch the 256 MB `flush` buffer is summed: a
     read, so it evicts the 50 MB L2 without leaving dirty lines for the
     timed launch to write back, and every launch reads its inputs from
-    HBM; it also keeps the GPU busy while the host enqueues the launch."""
+    HBM. A sleep kernel first holds the device back while the host
+    enqueues every launch, so no timed interval waits on the host (a
+    wrapper that launches two kernels with Python between them would
+    otherwise be timed with the host's delay on a busy host)."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     for s, e in zip(starts, ends):
         flush.sum()
         s.record()
@@ -112,7 +133,32 @@ def stats_err(got, ref, x, g, mask) -> tuple[float, float]:
     return abs_err, norm_err
 
 
-def phase_kernels(wa, rs, dev) -> dict:
+def spread(x: torch.Tensor, block: int) -> torch.Tensor:
+    """x with its magnitude changed by orders of magnitude from one block
+    of columns to the next, so a kernel that reads the wrong scale column
+    fails loudly."""
+    cols = torch.arange(x.shape[1], device=x.device) // block % 5
+    return x * (10.0 ** cols.float())[None]
+
+
+def check_wire(name, agg, agg_plain, stats, stats_plain, q, x, w, g, mask,
+               **kw):
+    """One wire kernel pair against its plain versions: (worst abs error,
+    worst normalised error) per wrapper name."""
+    akw = dict(kw, n=x.shape[1]) if "group_size" in kw else {}
+    a, na = agg_err(agg(w, q.values, q.scales, **akw),
+                    agg_plain(w, q.values, q.scales, **akw), w, x)
+    s_abs = ns = 0.0
+    for m in (None, mask):
+        sa, nm = stats_err(stats(q.values, q.scales, g, m, **kw),
+                           stats_plain(q.values, q.scales, g, m, **kw),
+                           x, g, m)
+        s_abs, ns = max(s_abs, sa), max(ns, nm)
+    return {f"weighted_agg_{name}": (a, na), f"round_stats_{name}": (s_abs,
+                                                                    ns)}
+
+
+def phase_kernels(wa, rs, tq, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def inputs(k, n):
@@ -123,59 +169,65 @@ def phase_kernels(wa, rs, dev) -> dict:
         return x, g, w, mask
 
     shapes = [(MAIN_K, MAIN_N)] + [(k, n) for k in EDGE_KS for n in EDGE_NS]
-    worst = {"weighted_agg": 0.0, "round_stats": 0.0}
-    main_abs = {}
+    worst, main_abs = {}, {}
     for k, n in shapes:
         x, g, w, mask = inputs(k, n)
-        a, na = agg_err(wa.weighted_agg(w, x), wa.weighted_agg_plain(w, x),
-                        w, x)
-        worst["weighted_agg"] = max(worst["weighted_agg"], na)
-        s_abs = ns = 0.0
-        for m in (None, mask):
-            sa, nm = stats_err(rs.round_stats(x, g, m),
-                               rs.round_stats_plain(x, g, m), x, g, m)
-            s_abs, ns = max(s_abs, sa), max(ns, nm)
-        worst["round_stats"] = max(worst["round_stats"], ns)
-        if (k, n) == (MAIN_K, MAIN_N):
-            main_abs = {"weighted_agg": a, "round_stats": s_abs}
+        errs = {}
+        # the f32 kernels on f32 and on bf16 input (the bf16 wire)
+        for tag, xin in (("", x), ("_bf16", x.to(torch.bfloat16))):
+            xf = xin.float()
+            errs["weighted_agg" + tag] = agg_err(
+                wa.weighted_agg(w, xin, out_dtype=torch.float32),
+                wa.weighted_agg_plain(w, xin, torch.float32), w, xf)
+            s_abs = ns = 0.0
+            for m in (None, mask):
+                sa, nm = stats_err(rs.round_stats(xin, g, m),
+                                   rs.round_stats_plain(xin, g, m), xf, g, m)
+                s_abs, ns = max(s_abs, sa), max(ns, nm)
+            errs["round_stats" + tag] = (s_abs, ns)
+        # the int8 and int4 wire kernels
+        q8 = tq.quantize(spread(x, tq.CHUNK), "int8")
+        errs.update(check_wire("q", wa.weighted_agg_q,
+                               wa.weighted_agg_q_plain, rs.round_stats_q,
+                               rs.round_stats_q_plain, q8, tq.dequantize(q8),
+                               w, g, mask))
+        for gs in GROUP_SIZES:
+            q4 = tq.quantize(spread(x, gs), "int4", group_size=gs)
+            for key, v in check_wire(
+                    "q4", wa.weighted_agg_q4, wa.weighted_agg_q4_plain,
+                    rs.round_stats_q4, rs.round_stats_q4_plain, q4,
+                    tq.dequantize(q4), w, g, mask, group_size=gs).items():
+                old = errs.get(key, (0.0, 0.0))
+                errs[key] = (max(old[0], v[0]), max(old[1], v[1]))
         torch.cuda.synchronize()
         emit({"phase": "kernels", "check": [k, n],
-              "weighted_agg_err": na, "round_stats_err": ns})
-        for name, err in (("weighted_agg", na), ("round_stats", ns)):
-            if not err <= TOL:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at K={k}, N={n}: {err}")
+              "norm_err": {key: v[1] for key, v in errs.items()}})
+        for key, (a, e) in errs.items():
+            worst[key] = max(worst.get(key, 0.0), e)
+            if (k, n) == (MAIN_K, MAIN_N):
+                main_abs[key] = a
+            if not e <= TOL:
+                raise AssertionError(f"{key} disagrees with its plain "
+                                     f"version at K={k}, N={n}: {e}")
 
-    # timing at the main path's shape (the round's inputs: f32, no mask)
-    x, g, w, _ = inputs(MAIN_K, MAIN_N)
+    # timing at the main path's shape and dtypes (no mask, as the round),
+    # and of the kernels alone at WIDE_K clients: ~13x the bytes, so a
+    # kernel whose time grows less than that is held back by a fixed cost
+    # (launch, the one wave of blocks), not by the memory rate
     flush = torch.zeros(64 << 20, device=dev)
-    k, n = MAIN_K, MAIN_N
-    rows = {
-        "weighted_agg": dict(
-            kernel=lambda: wa.weighted_agg(w, x),
-            plain=lambda: wa.weighted_agg_plain(w, x),
-            library=lambda: w @ x,
-            nbytes=4 * (k * n + k + n), flops=2 * k * n,
-            replaces="src/repro/kernels/weighted_agg.py:187",
-            launches_per_round=2),
-        "round_stats": dict(
-            kernel=lambda: rs.round_stats(x, g),
-            plain=lambda: rs.round_stats_plain(x, g),
-            library=None,  # no single torch call returns dots, sqs, ||g||^2
-            nbytes=4 * (k * n + n + 2 * k + 1), flops=4 * k * n + 2 * n,
-            replaces="src/repro/kernels/round_stats.py:157",
-            launches_per_round=1),
-    }
+    rows = timing_rows(wa, rs, tq, *inputs(MAIN_K, MAIN_N)[:3])
+    wide = timing_rows(wa, rs, tq, *inputs(WIDE_K, MAIN_N)[:3])
     table = {}
     for name, r in rows.items():
         us = time_us(r["kernel"], flush)
         plain_us = time_us(r["plain"], flush)
         lib_us = time_us(r["library"], flush) if r["library"] else None
+        wide_us = time_us(wide[name]["kernel"], flush)
         b_us, b_by = bound_us(r["nbytes"], r["flops"])
         table[name] = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": r["replaces"],
+            "source": f"src/repro_torch/kernels/csrc/{r['source']}.cu",
+            "replaces": r["replaces"], "wire": r["wire"],
             "max_abs_err": main_abs[name], "max_err": worst[name],
             "tol": TOL,
             "us": us, "ms": us / 1e3, "plain_us": plain_us,
@@ -183,13 +235,121 @@ def phase_kernels(wa, rs, dev) -> dict:
             "bound_ms": b_us / 1e3, "bound_by": b_by,
             "library_us": lib_us,
             "library_ms": None if lib_us is None else lib_us / 1e3,
-            "launches_per_round": r["launches_per_round"],
-            "shape": [k, n], "bytes": r["nbytes"],
+            "shape": [MAIN_K, MAIN_N], "bytes": r["nbytes"],
             "hbm_share_of_peak": b_us / us,
+            "wide_k": WIDE_K, "wide_us": wide_us,
+            "wide_hbm_share_of_peak": bound_us(wide[name]["nbytes"],
+                                               wide[name]["flops"])[0]
+            / wide_us,
         }
         emit({"phase": "kernels", "timing": table[name]})
     del flush
     return table
+
+
+def timing_rows(wa, rs, tq, x, g, w) -> dict:
+    """Every kernel variant of the round at x's shape: the kernel, its
+    plain version, a PyTorch call of the same function where one exists,
+    and the bytes and flops of its bound."""
+    xb = x.to(torch.bfloat16)
+    q8 = tq.quantize(x, "int8")
+    q4 = tq.quantize(x, "int4", group_size=MAIN_GS)
+    k, n = x.shape
+    c8, c4, nb = q8.scales.shape[1], q4.scales.shape[1], q4.values.shape[1]
+    stats_out = 4 * (2 * k + 1)
+    f32 = torch.float32
+    return {
+        "weighted_agg": dict(
+            kernel=lambda: wa.weighted_agg(w, x),
+            plain=lambda: wa.weighted_agg_plain(w, x),
+            library=lambda: w @ x,
+            nbytes=4 * (k * n + k + n), flops=2 * k * n,
+            replaces="src/repro/kernels/weighted_agg.py:187",
+            source="weighted_agg", wire="f32"),
+        "weighted_agg_bf16": dict(
+            kernel=lambda: wa.weighted_agg(w, xb, out_dtype=f32),
+            plain=lambda: wa.weighted_agg_plain(w, xb, f32),
+            # no single call: matmul wants one dtype, and a bf16 matmul
+            # returns a bf16 sum
+            library=None,
+            nbytes=2 * k * n + 4 * (k + n), flops=2 * k * n,
+            replaces="src/repro/kernels/weighted_agg.py:187",
+            source="weighted_agg", wire="bf16"),
+        "round_stats": dict(
+            kernel=lambda: rs.round_stats(x, g),
+            plain=lambda: rs.round_stats_plain(x, g),
+            library=None,  # no single torch call returns dots, sqs, ||g||^2
+            nbytes=4 * (k * n + n) + stats_out, flops=4 * k * n + 2 * n,
+            replaces="src/repro/kernels/round_stats.py:157",
+            source="round_stats", wire="f32"),
+        "round_stats_bf16": dict(
+            kernel=lambda: rs.round_stats(xb, g),
+            plain=lambda: rs.round_stats_plain(xb, g),
+            library=None,
+            nbytes=2 * k * n + 4 * n + stats_out, flops=4 * k * n + 2 * n,
+            replaces="src/repro/kernels/round_stats.py:157",
+            source="round_stats", wire="bf16"),
+        # the wire kernels: no PyTorch call dequantizes and reduces in one
+        "weighted_agg_q": dict(
+            kernel=lambda: wa.weighted_agg_q(w, q8.values, q8.scales),
+            plain=lambda: wa.weighted_agg_q_plain(w, q8.values, q8.scales),
+            library=None,
+            nbytes=k * n + 4 * (k * c8 + k + n), flops=2 * k * n + k * c8,
+            replaces="src/repro/kernels/weighted_agg.py:236",
+            source="weighted_agg_q", wire="int8"),
+        "weighted_agg_q4": dict(
+            kernel=lambda: wa.weighted_agg_q4(w, q4.values, q4.scales, n=n,
+                                              group_size=MAIN_GS),
+            plain=lambda: wa.weighted_agg_q4_plain(
+                w, q4.values, q4.scales, n=n, group_size=MAIN_GS),
+            library=None,
+            nbytes=k * nb + 4 * (k * c4 + k + n), flops=2 * k * n + k * c4,
+            replaces="src/repro/kernels/weighted_agg.py:298",
+            source="weighted_agg_q", wire="int4"),
+        "round_stats_q": dict(
+            kernel=lambda: rs.round_stats_q(q8.values, q8.scales, g),
+            plain=lambda: rs.round_stats_q_plain(q8.values, q8.scales, g),
+            library=None,
+            nbytes=k * n + 4 * (k * c8 + n) + stats_out,
+            flops=5 * k * n + 2 * n,
+            replaces="src/repro/kernels/round_stats.py:402",
+            source="round_stats_q", wire="int8"),
+        "round_stats_q4": dict(
+            kernel=lambda: rs.round_stats_q4(q4.values, q4.scales, g,
+                                             group_size=MAIN_GS),
+            plain=lambda: rs.round_stats_q4_plain(q4.values, q4.scales, g,
+                                                  group_size=MAIN_GS),
+            library=None,
+            nbytes=k * nb + 4 * (k * c4 + n) + stats_out,
+            flops=5 * k * n + 2 * n,
+            replaces="src/repro/kernels/round_stats.py:293",
+            source="round_stats_q", wire="int4"),
+    }
+
+
+def phase_wire(tq, dev) -> dict:
+    """The quantizer on the card against the quantizer on the CPU, bit for
+    bit, at the main path's shape."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = spread(torch.randn(MAIN_K, MAIN_N, device=dev, generator=gen),
+               MAIN_GS) * 1e-3
+    x[-1, :tq.CHUNK + 5] = 0.0  # all-zero chunks and groups
+    x_cpu = x.cpu()
+    out = {"phase": "wire", "shape": [MAIN_K, MAIN_N]}
+    for transport in ("bf16", "int8", "int4"):
+        a = tq.quantize(x, transport, group_size=MAIN_GS)
+        b = tq.quantize(x_cpu, transport, group_size=MAIN_GS)
+        same = torch.equal(a.values.cpu().view(torch.uint8),
+                           b.values.view(torch.uint8)) and (
+            b.scales is None or torch.equal(a.scales.cpu().view(torch.int32),
+                                            b.scales.view(torch.int32)))
+        if not same:
+            raise AssertionError(f"{transport}: the card's wire differs "
+                                 "from the CPU's")
+        out[transport] = {"values_bytes": a.values.numel()
+                          * a.values.element_size(), "bit_equal": True}
+    emit(out)
+    return out
 
 
 def image_task():
@@ -202,14 +362,39 @@ def image_task():
     return nodes, test
 
 
-def phase_slice(wa, rs, dev, nodes, test) -> dict:
+def slice_config(transport: str, **kw):
+    import repro_torch
+
+    return repro_torch.FLConfig(num_clients=10, clients_per_round=10,
+                                local_steps=12, method="fedadp",
+                                engine="flat", base_lr=0.05,
+                                transport=transport, **kw)
+
+
+def counters(wa, rs) -> dict:
+    return {"weighted_agg": wa.weighted_agg, "round_stats": rs.round_stats,
+            "weighted_agg_q": wa.weighted_agg_q,
+            "weighted_agg_q4": wa.weighted_agg_q4,
+            "round_stats_q": rs.round_stats_q,
+            "round_stats_q4": rs.round_stats_q4}
+
+
+def expected_launches(transport: str, rounds: int) -> dict:
+    suffix = {"int8": "_q", "int4": "_q4"}.get(transport, "")
+    want = {name: 0 for name in ("weighted_agg", "round_stats",
+                                 "weighted_agg_q", "weighted_agg_q4",
+                                 "round_stats_q", "round_stats_q4")}
+    want["weighted_agg" + suffix] = 2 * rounds
+    want["round_stats" + suffix] = rounds
+    return want
+
+
+def phase_slice(wa, rs, tq, dev, nodes, test, transport) -> dict:
     import repro_torch
     from repro_torch.core import fl as fl_mod
     from repro_torch.models import small
 
-    cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
-                               local_steps=12, method="fedadp", engine="flat",
-                               base_lr=0.05)
+    cfg = slice_config(transport)
     server = repro_torch.FedServer("cnn", cfg, nodes, test, batch_size=50,
                                    device=dev)
     n_params = fl_mod.param_count(server.params)
@@ -219,9 +404,10 @@ def phase_slice(wa, rs, dev, nodes, test) -> dict:
     server.reset()
     torch.cuda.synchronize()
 
-    # the main path, counted: every launch of both kernels in these rounds
-    wa.weighted_agg.launches = 0
-    rs.round_stats.launches = 0
+    # the main path, counted: every launch of every wrapper in these rounds
+    wrappers = counters(wa, rs)
+    for fn in wrappers.values():
+        fn.launches = 0
     round_ms, accs = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -234,11 +420,25 @@ def phase_slice(wa, rs, dev, nodes, test) -> dict:
         if abs(float(np.sum(m["weights"])) - 1.0) > 1e-6:
             raise AssertionError(f"weights sum to {np.sum(m['weights'])}")
         accs.append(float(m["accuracy"]))
-    launches = {"weighted_agg": wa.weighted_agg.launches,
-                "round_stats": rs.round_stats.launches}
-    if launches != {"weighted_agg": 6, "round_stats": 3}:
-        raise AssertionError(f"3 rounds launched {launches}, want 2 + 1 "
-                             "per round")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if launches != expected_launches(transport, 3):
+        raise AssertionError(f"{transport}: 3 rounds launched {launches}, "
+                             "want 2 aggregations + 1 statistics per round "
+                             "of the wire's kernels")
+
+    # the quantizer's share of a round: one quantize of the round's (K, N)
+    # f32 buffer (and the dequantize that error feedback and the tree
+    # engine run), timed alone with CUDA events
+    quant = {}
+    if transport != "f32":
+        buf = torch.randn(MAIN_K, MAIN_N, device=dev) * 1e-2
+        flush = torch.zeros(64 << 20, device=dev)
+        wire = tq.quantize(buf, transport)
+        quant = {"quantize_us": time_us(lambda: tq.quantize(buf, transport),
+                                        flush),
+                 "dequantize_us": time_us(lambda: tq.dequantize(wire),
+                                          flush)}
+        del buf, flush, wire
 
     # flat == tree on the card, from the same state and batches
     from repro_torch.core import driver
@@ -273,21 +473,93 @@ def phase_slice(wa, rs, dev, nodes, test) -> dict:
         excess[key] = float(d.max())
     worst = max(excess, key=excess.get)
     if excess[worst] > 1e-5:
-        raise AssertionError(f"flat and tree rounds differ: {excess}")
+        raise AssertionError(f"{transport}: flat and tree rounds differ: "
+                             f"{excess}")
 
-    out = {"phase": "slice", "model": "cnn", "params": n_params,
-           "clients": 10, "local_steps": 12, "batch": 50,
-           "round_ms": round_ms, "accuracy": accs, "launches": launches,
+    out = {"phase": "slice", "model": "cnn", "transport": transport,
+           "params": n_params, "clients": 10, "local_steps": 12,
+           "batch": 50, "round_ms": round_ms, "accuracy": accs,
+           "launches": launches, **quant,
            "flat_vs_tree_excess_err": excess[worst],
            "flat_vs_tree_worst": worst, "profile": profile_round(server)}
     emit(out)
     return launches
 
 
+def phase_error_feedback(nodes, test, dev) -> dict:
+    """int8 with and without error feedback from the same seed: the same
+    round 1 (the residual starts at zero), different rounds from 2 on;
+    the carried residual is finite and nonzero. Deterministic cuDNN, so
+    the two runs train the same deltas until the residual enters."""
+    import repro_torch
+
+    torch.backends.cudnn.deterministic = True
+    servers = {ef: repro_torch.FedServer(
+        "cnn", slice_config("int8", error_feedback=ef), nodes, test,
+        batch_size=50, device=dev) for ef in (False, True)}
+    gaps = []
+    for _ in range(3):
+        for s in servers.values():
+            s.step(eval_every=0)
+        gaps.append(max(float((servers[True].params[k]
+                               - servers[False].params[k]).abs().max())
+                        for k in servers[True].params))
+    torch.backends.cudnn.deterministic = False
+    ef = servers[True].state.ef
+    ef_abs = float(ef.abs().max())
+    if servers[False].state.ef is not None:
+        raise AssertionError("a config without error_feedback carries ef")
+    if not (math.isfinite(ef_abs) and ef_abs > 0
+            and bool(torch.isfinite(ef).all())):
+        raise AssertionError(f"state.ef is not finite and nonzero: {ef_abs}")
+    if not (gaps[0] <= 1e-6 and min(gaps[1:]) > 10 * max(gaps[0], 1e-7)):
+        raise AssertionError(f"EF trajectory gaps per round {gaps}: want "
+                             "the same round 1 and a gap from round 2 on")
+    out = {"phase": "error_feedback", "transport": "int8",
+           "param_gap_per_round": gaps, "ef_abs_max": ef_abs}
+    emit(out)
+    return out
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy
+
+
+def overlaps(events, top: int = 8) -> list:
+    """The pairs of device events that overlap in time most: each event
+    against the one that, of those started before it, ends last."""
+    pairs, last = [], None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if last is not None and e.time_range.start < last.time_range.end:
+            pairs.append((min(e.time_range.end, last.time_range.end)
+                          - e.time_range.start, last, e))
+        if last is None or e.time_range.end > last.time_range.end:
+            last = e
+    pairs.sort(key=lambda p: -p[0])
+    return [{"us": us, "first": a.name[:60], "first_stream": stream_of(a),
+             "second": b.name[:60], "second_stream": stream_of(b)}
+            for us, a, b in pairs[:top]]
+
+
+def stream_of(event) -> str:
+    # a device event's resource id is the CUDA stream it ran on
+    return str(getattr(event, "device_resource_id", None))
+
+
 def profile_round(server) -> dict:
     """Where one CNN round's device time goes (torch.profiler): the GPU
-    kernels by name, the two ported kernels' share, and the share of the
-    round's wall time the device was busy."""
+    kernels by name, the ported kernels' share, and how busy the device
+    was. Busy time is given two ways, the sum of the device events' times
+    and the union of their intervals; they differ only where events
+    overlap in time. Each is given per stream too, with the events that
+    overlap most, so that an overlap can be told apart: work on two
+    streams at once, or events of one stream. Events that only mark a
+    user annotation on the device's timeline are counted apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,34 +573,61 @@ def profile_round(server) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    ported = sum(r[0] for r in rows
-                 if "agg_kernel" in r[1] or "stats_stage" in r[1])
-    return {"wall_us": wall_us, "device_busy_us": busy,
-            "device_idle_share": 1.0 - busy / wall_us,
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in device
+              if not getattr(e, "is_user_annotation", False)]
+
+    def span(e):
+        return e.time_range.start, e.time_range.end
+
+    busy_sum = sum(hi - lo for lo, hi in map(span, events))
+    busy_union = union_us(map(span, events))
+    streams = {}
+    for e in events:
+        streams.setdefault(stream_of(e), []).append(e)
+    ported = sum(r[0] for r in rows if any(p in r[1] for p in PORTED))
+    return {"wall_us": wall_us,
+            "device_busy_sum_us": busy_sum,
+            "device_busy_union_us": busy_union,
+            "device_idle_share_sum": 1.0 - busy_sum / wall_us,
+            "device_idle_share_union": 1.0 - busy_union / wall_us,
+            "kernel_time_sum_us": sum(r[0] for r in rows),
+            "device_events": len(events),
+            "device_events_distinct": len({(e.name, *span(e))
+                                           for e in events}),
+            "annotation_events": len(device) - len(events),
+            "streams": {s: {"events": len(es),
+                            "sum_us": sum(hi - lo for lo, hi in map(span, es)),
+                            "union_us": union_us(map(span, es))}
+                        for s, es in streams.items()},
+            "overlaps": overlaps(events),
             "ported_kernels_us": ported,
             "top": [{"us": u, "kernel": k[:90], "calls": c}
-                    for u, k, c in rows[:10]]}
+                    for u, k, c in rows[:12]]}
 
 
 def phase_algorithm(dev, nodes, test) -> dict:
     import repro_torch
 
     rounds = {}
-    for method in ("fedadp", "fedavg"):
-        cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
-                                   local_steps=12, method=method,
-                                   engine="flat", base_lr=0.05)
-        server = repro_torch.FedServer("mlr", cfg, nodes, test,
-                                       batch_size=50, device=dev)
-        t0 = time.perf_counter()
-        hist = server.run(60, target_acc=0.85, eval_every=1)
-        rounds[method] = hist.rounds_to_target
-        rounds[f"{method}_s"] = time.perf_counter() - t0
-    adp = rounds["fedadp"]
-    avg = rounds["fedavg"] if rounds["fedavg"] is not None else math.inf
-    if adp is None or adp > avg:
-        raise AssertionError(f"fedadp {adp} rounds vs fedavg {avg}")
+    for transport in ("f32", "int8", "int4"):
+        for method in ("fedadp", "fedavg"):
+            cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
+                                       local_steps=12, method=method,
+                                       engine="flat", base_lr=0.05,
+                                       transport=transport)
+            server = repro_torch.FedServer("mlr", cfg, nodes, test,
+                                           batch_size=50, device=dev)
+            t0 = time.perf_counter()
+            hist = server.run(60, target_acc=0.85, eval_every=1)
+            rounds[f"{transport}/{method}"] = hist.rounds_to_target
+            rounds[f"{transport}/{method}_s"] = time.perf_counter() - t0
+        adp = rounds[f"{transport}/fedadp"]
+        avg = rounds[f"{transport}/fedavg"]
+        avg = math.inf if avg is None else avg
+        if adp is None or adp > avg:
+            raise AssertionError(f"uplink {transport}: fedadp {adp} rounds "
+                                 f"vs fedavg {avg}")
     out = {"phase": "algorithm", "model": "mlr", "target": 0.85,
            "rounds_to_target": rounds}
     emit(out)
@@ -341,6 +640,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        from repro_torch import transport as tq
         from repro_torch.kernels import _build
         from repro_torch.kernels import round_stats as rs
         from repro_torch.kernels import weighted_agg as wa
@@ -360,20 +660,27 @@ def main() -> int:
           "cuda": torch.version.cuda, "tf32": False})
 
     t0 = time.perf_counter()
-    logs = _build.build(["weighted_agg", "round_stats"])
+    logs = _build.build(SOURCES)  # one nvcc per source, all at once
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
-    table = phase_kernels(wa, rs, dev)
+    table = phase_kernels(wa, rs, tq, dev)
+    phase_wire(tq, dev)
     nodes, test = image_task()
-    launches = phase_slice(wa, rs, dev, nodes, test)
+    launches = {t: phase_slice(wa, rs, tq, dev, nodes, test, t)
+                for t in WIRES}
+    phase_error_feedback(nodes, test, dev)
     phase_algorithm(dev, nodes, test)
 
     for name, row in table.items():
-        row["launches"] = launches[name]
+        # each row's launches: its wrapper's count on its own wire's path
+        wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
+        row["launches"] = launches[row["wire"]][wrapper]
+        if row["launches"] == 0:
+            raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": list(table.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

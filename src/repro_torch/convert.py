@@ -35,14 +35,25 @@ def params_to_numpy(params):
 
 
 def round_state_from_numpy(fl: fl_mod.FLConfig, params, angle_smoothed,
-                           angle_count, round: int = 0,
-                           device=None) -> fl_mod.RoundState:
+                           angle_count, round: int = 0, device=None,
+                           ef=None) -> fl_mod.RoundState:
     """A RoundState from numpy params and Eq. 9 angle state (smoothed
-    (num_clients,) f32, count (num_clients,) int), at round `round`."""
+    (num_clients,) f32, count (num_clients,) int), at round `round`.
+    `ef`, a (num_clients, N) array, replaces the uplink error-feedback
+    residual (zeros when None and `fl.error_feedback` is set)."""
     dev = _device(device)
     state = fl_mod.init_round_state(fl, params_from_numpy(params, dev))
     angle = AngleState(
-        smoothed=torch.as_tensor(np.asarray(angle_smoothed, np.float32),
-                                 device=dev),
-        count=torch.as_tensor(np.asarray(angle_count, np.int32), device=dev))
-    return state._replace(angle=angle, round=int(round))
+        smoothed=torch.tensor(np.asarray(angle_smoothed, np.float32),
+                              device=dev),
+        count=torch.tensor(np.asarray(angle_count, np.int32), device=dev))
+    state = state._replace(angle=angle, round=int(round))
+    if ef is not None:
+        if state.ef is None:
+            raise ValueError("ef given but fl.error_feedback is not set")
+        ef = torch.tensor(np.asarray(ef, np.float32), device=dev)
+        if ef.shape != state.ef.shape:
+            raise ValueError(f"ef must be {tuple(state.ef.shape)}, got "
+                             f"{tuple(ef.shape)}")
+        state = state._replace(ef=ef)
+    return state

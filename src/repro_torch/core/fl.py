@@ -11,12 +11,18 @@ one round:
 * the K clients run tau SGD steps each, batched over clients with
   `torch.func.vmap` over `torch.func.grad_and_value` of the functional
   loss (the tau steps are a Python loop);
-* engine="flat": the deltas are raveled once into a contiguous (K, N)
-  f32 buffer and three passes stream over it through the port's CUDA
-  kernels: `weighted_agg(psi_avg, x)` (the FedAvg global delta g),
+* the uplink: the deltas are raveled once into a contiguous (K, N) f32
+  buffer; on a quantized wire (transport="bf16" | "int8" | "int4") it is
+  compressed once by `transport.quantize`, with the error-feedback
+  residual replayed in and carried out when `error_feedback` is set;
+* engine="flat": three passes stream over the wire buffer through the
+  port's CUDA kernels, each dequantizing in registers:
+  `weighted_agg(psi_avg, x)` (the FedAvg global delta g),
   `round_stats(x, g, mask)` (dots, squared norms, ||g||^2), and
   `weighted_agg(w, x)` with the FedAdp weights (fedavg/fedprox reuse g);
-* engine="tree": the same math as plain per-leaf torch, the port's own
+  on the int8 / int4 wire the `_q` / `_q4` variants of both;
+* engine="tree": the same math as plain per-leaf torch on the
+  dequantized wire (it never reads the wire buffer), the port's own
   cross-check of the flat engine;
 * between the passes, O(K) scalar math: the Eq. 8 angles, the Eq. 9
   scatter and the Eq. 10-11 weights (`weighting`).
@@ -36,28 +42,22 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import transport
 from repro_torch.core import treemath, weighting
 from repro_torch.core.weighting import AngleState
-from repro_torch.kernels.round_stats import round_stats
-from repro_torch.kernels.weighted_agg import weighted_agg
+from repro_torch.kernels.round_stats import (
+    round_stats,
+    round_stats_q,
+    round_stats_q4,
+)
+from repro_torch.kernels.weighted_agg import (
+    weighted_agg,
+    weighted_agg_q,
+    weighted_agg_q4,
+)
+from repro_torch.transport import DOWNLINKS, GROUP_SIZE, TRANSPORTS
 
 Tree = Any
-
-# The wire formats the reference knows (repro/transport/quantize.py), kept
-# here so that validate() rejects the same configs; the port runs only the
-# f32 wire in both directions so far.
-TRANSPORTS = ("f32", "bf16", "int8", "int4")
-DOWNLINKS = ("f32", "bf16", "int8")
-CHUNK = 128 * 128  # int8 scale chunk of the reference wire
-GROUP_SIZE = 512
-
-
-def _validate_group_size(group_size: int) -> None:
-    if (not isinstance(group_size, int) or not 2 <= group_size <= CHUNK
-            or group_size % 2 or CHUNK % group_size):
-        raise ValueError(
-            f"int4 group_size must be an even divisor of CHUNK={CHUNK} in "
-            f"[2, {CHUNK}]; got {group_size!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +124,7 @@ class FLConfig:
                 f"unknown downlink {self.downlink!r} (expected one of "
                 f"{DOWNLINKS})")
         if self.transport == "int4":
-            _validate_group_size(self.group_size)
+            transport.validate_group_size(self.group_size)
         if self.error_feedback and self.transport == "f32":
             raise ValueError(
                 "error_feedback carries the quantization residual; "
@@ -213,8 +213,6 @@ def check_in_slice(fl: FLConfig) -> None:
          "engine='flat_sharded' (ROADMAP Queue 1 item 13)"),
         (fl.mode == "sequential",
          "mode='sequential' (ROADMAP Queue 1 item 10)"),
-        (fl.transport != "f32" or fl.error_feedback,
-         "a quantized uplink / error_feedback (ROADMAP Queue 1 item 8)"),
         (fl.downlink != "f32" or fl.downlink_delta
          or fl.downlink_error_feedback,
          "a quantized or delta downlink (ROADMAP Queue 1 item 9)"),
@@ -231,8 +229,8 @@ def check_in_slice(fl: FLConfig) -> None:
 
 class RoundState(NamedTuple):
     """The server-side carry of a round: the reference's RoundState for
-    the f32 sync path (the EF, broadcast and buffer fields arrive with
-    their slices).
+    the sync path with the uplink wire (the downlink and buffer fields
+    arrive with their slices).
 
     `rng` is the driver's `torch.Generator`; it advances in place as the
     driver draws selections and batches (round_fn never touches it).
@@ -241,6 +239,7 @@ class RoundState(NamedTuple):
     params: Tree  # the server's master model
     angle: AngleState  # Eq. 9 smoothed angles + participation counts
     prev_delta: Tree  # last FedAvg-weighted global delta, f32 leaves
+    ef: Optional[torch.Tensor] = None  # (num_clients, N) uplink EF residual
     rng: Optional[torch.Generator] = None
     round: int = 0
 
@@ -260,7 +259,8 @@ def init_round_state(fl: FLConfig, params: Tree,
                      seed: "int | torch.Generator" = 0) -> RoundState:
     """Fresh RoundState for `params` under `fl`, on the params' device.
     `seed` is an int (a new generator on that device is seeded with it)
-    or an existing `torch.Generator`."""
+    or an existing `torch.Generator`. The uplink EF residual is allocated
+    only when `fl.error_feedback` is set."""
     fl.validate()
     check_in_slice(fl)
     device = treemath.tree_leaves(params)[0].device
@@ -268,9 +268,13 @@ def init_round_state(fl: FLConfig, params: Tree,
         rng = seed
     else:
         rng = torch.Generator(device=device).manual_seed(int(seed))
+    ef = (transport.init_error_feedback(fl.num_clients, param_count(params),
+                                        device)
+          if fl.error_feedback else None)
     return RoundState(params=params,
                       angle=AngleState.init(fl.num_clients, device),
-                      prev_delta=init_prev_delta(params), rng=rng, round=0)
+                      prev_delta=init_prev_delta(params), ef=ef, rng=rng,
+                      round=0)
 
 
 def local_update(loss_fn: Callable, params: Tree, batches: Tree, lr,
@@ -341,6 +345,28 @@ def _lr_at(fl: FLConfig, round_idx: int) -> float:
     return float(np.float32(fl.base_lr) * np.float32(fl.lr_decay) ** r)
 
 
+def _agg_wire(w: torch.Tensor,
+              wire: transport.QuantizedDelta) -> torch.Tensor:
+    """The f32 aggregate over the wire buffer, by its format."""
+    if wire.scales is None:  # f32 or bf16: the f32 kernel loads both
+        return weighted_agg(w, wire.values, out_dtype=torch.float32)
+    if wire.transport == "int4":
+        return weighted_agg_q4(w, wire.values, wire.scales, n=wire.n,
+                               group_size=wire.group_size)
+    return weighted_agg_q(w, wire.values, wire.scales)
+
+
+def _stats_wire(wire: transport.QuantizedDelta, g: torch.Tensor,
+                mask: Optional[torch.Tensor]):
+    """(dots, sqs, sqg) over the wire buffer, by its format."""
+    if wire.scales is None:
+        return round_stats(wire.values, g, mask)
+    if wire.transport == "int4":
+        return round_stats_q4(wire.values, wire.scales, g, mask,
+                              group_size=wire.group_size)
+    return round_stats_q(wire.values, wire.scales, g, mask)
+
+
 def make_round_fn(loss_fn: Callable, fl: FLConfig,
                   angle_pred: Optional[Callable] = None) -> Callable:
     """Build the synchronous parallel round (engine "flat" or "tree").
@@ -349,7 +375,9 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     batches' leaves are (K, tau, B, ...), sel_idx (K,) integer population
     slots, data_sizes (K,) f32, all on the state's device. When
     `angle_pred` is None, `fl.angle_filter` picks the built-in predicate
-    ("dense_only" -> `moe_dense_only_pred`).
+    ("dense_only" -> `moe_dense_only_pred`). With `fl.error_feedback` the
+    round reads and rewrites `state.ef` (a new tensor: the input state is
+    left as it was).
     """
     fl.validate()
     check_in_slice(fl)
@@ -363,10 +391,36 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
             randomness="error")(batches)
 
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
+        if fl.error_feedback and state.ef is None:
+            raise ValueError(
+                "fl.error_feedback=True: state.ef is missing; build the "
+                "state with init_round_state (or pass an (num_clients, N) "
+                "f32 residual from transport.init_error_feedback)")
         params, angle_state = state.params, state.angle
         lr = _lr_at(fl, state.round)
         deltas, losses = clients(params, batches, lr)
         psi_avg = weighting.fedavg_weights(data_sizes)
+        new_ef = state.ef
+
+        # ---- the uplink: ravel once, compress once to the wire ----
+        if fl.engine == "flat" or fl.transport != "f32":
+            flat, unravel = treemath.tree_ravel_stacked(deltas)
+            sel = sel_idx.to(torch.int64)
+            if fl.error_feedback:
+                # EF-SGD: replay the carried residual into this round's
+                # signal, then carry what quantization drops this round
+                flat = flat + state.ef[sel]
+            wire = transport.quantize(flat, fl.transport,
+                                      group_size=fl.group_size)
+            if fl.error_feedback or fl.engine == "tree":
+                recon = transport.dequantize(wire)
+            if fl.error_feedback:
+                new_ef = state.ef.index_copy(0, sel, flat - recon)
+            if fl.engine == "tree":
+                # the tree engine never reads the wire buffer: it runs the
+                # per-leaf reductions on the dequantized f32 leaves
+                deltas = treemath.tree_unravel_stacked(deltas, recon,
+                                                       torch.float32)
 
         if fl.engine == "flat":
             maskv = None
@@ -376,9 +430,8 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                     masks[dev] = treemath.segment_mask(
                         params, angle_keep_list(params, angle_pred))
                 maskv = masks[dev]
-            flat, unravel = treemath.tree_ravel_stacked(deltas)
-            g_flat = weighted_agg(psi_avg, flat)
-            dots, sqs, sqg = round_stats(flat, g_flat, maskv)
+            g_flat = _agg_wire(psi_avg, wire)
+            dots, sqs, sqg = _stats_wire(wire, g_flat, maskv)
             g_avg = unravel(g_flat, torch.float32)
         else:
             angle_mask = (build_angle_mask(params, angle_pred)
@@ -401,7 +454,7 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
             w = psi_avg
         if fl.engine == "flat":
             # fedavg/fedprox aggregate with w == psi_avg: reuse g_flat
-            delta_flat = weighted_agg(w, flat) if fl.method == "fedadp" \
+            delta_flat = _agg_wire(w, wire) if fl.method == "fedadp" \
                 else g_flat
             delta = unravel(delta_flat)
         else:
@@ -423,7 +476,7 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
             "expected_contribution": weighting.expected_contribution(w, cos),
         }
         return state._replace(params=new_params, angle=new_angle,
-                              prev_delta=g_avg,
+                              prev_delta=g_avg, ef=new_ef,
                               round=state.round + 1), metrics
 
     return round_fn

@@ -186,6 +186,24 @@ def tree_ravel_stacked(stacked: Tree) -> tuple[torch.Tensor, Callable]:
     return buf, _cached_unravel(treedef, shapes, dtypes)
 
 
+def tree_unravel_stacked(template: Tree, buf: torch.Tensor,
+                         dtype=None) -> Tree:
+    """Map a (K, N) buffer back to a K-stacked tree shaped like `template`
+    (row k -> client k's leaves), the inverse of `tree_ravel_stacked`.
+    `dtype` overrides the leaf dtype (default: the template's). The tree
+    engine passes torch.float32 for the dequantized wire, so a bf16 leaf
+    does not put a second rounding on what the flat engine reads."""
+    leaves, treedef = tree_flatten(template)
+    k = buf.shape[0]
+    out, off = [], 0
+    for l in leaves:
+        size = math.prod(l.shape[1:])
+        out.append(buf[:, off:off + size].reshape((k,) + tuple(l.shape[1:]))
+                   .to(dtype or l.dtype))
+        off += size
+    return tree_unflatten(treedef, out)
+
+
 def segment_mask(tree: Tree, keep: list) -> torch.Tensor:
     """(N,) f32 0/1 mask over the ravel order, on the tree's device: 1
     where the leaf is kept. `keep` is one bool per leaf (flatten order)."""

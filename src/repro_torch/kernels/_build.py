@@ -51,8 +51,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of `csrc/<name>.cu` lives (content-hashed)."""
+    """Where the build of `csrc/<name>.cu` lives: the name hashes the
+    source, every shared header of `csrc/` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,9 +1,10 @@
 // Per-round angle statistics over the round's flat client-delta buffer:
 //   dots[k] = <x_k, g>,  sqs[k] = ||x_k||^2,  sqg = ||g||^2
-// for x (K, N) f32 row-major and the global delta g (N,), optionally
-// restricted to the 0/1 segment mask m (N,) (angle_filter="dense_only"):
-// then x_k and g are both multiplied by m first, as the reference does.
-// These 2K+1 numbers feed the FedAdp angles (paper Eq. 8).
+// for x (K, N) row-major, f32 or bf16 (the bf16 wire), and the f32 global
+// delta g (N,), optionally restricted to the f32 0/1 segment mask m (N,)
+// (angle_filter="dense_only"): then x_k and g are both multiplied by m
+// first, as the reference does. Sums are f32 whatever x's type. These 2K+1
+// numbers feed the FedAdp angles (paper Eq. 8).
 //
 // Replaces the Pallas kernels repro/kernels/round_stats.py::round_stats
 // (_stats_kernel and _stats_kernel_masked). Those accumulate into output
@@ -18,22 +19,36 @@
 //   Stage 2: one small launch reduces the partials over blocks, one block
 //   per statistic, in a fixed order.
 //
+// The f32 path is that of this file's f32-only version, written out: its
+// reductions and second stage are not taken from round_stats_q.cu's
+// stats_reduce.cuh, nor its f32 loads from load.cuh (used here for bf16
+// x only). Built on those, the f32 kernel of the main path needed 38 registers instead of
+// 32 (6 blocks of 256 threads per SM instead of 8) and took 40.5 us
+// instead of 35.6 at the main path's shape; block_sum_to, with its own
+// shared array, cost most of that (chip_ab.py, both builds in one
+// process, H100 80GB HBM3 at 700 W).
+//
 // No atomics anywhere, so the result is the same from run to run. Any K
 // (the chunk loop guards the ragged last chunk) and any N (the ragged
 // column edge is masked); no padded copy of x.
 //
-// What bounds it on Hopper: bytes. It reads K*N*4 bytes of x plus N*4 of
-// g (and N*4 of the mask) and does 4 flops per element of x, far below
-// the f32 ridge. The design streams x once with 16-byte loads where the
-// row stride allows (8- or 4-byte otherwise), keeps KC rows' loads in
-// flight per thread, and reads g once per block rather than once per
-// client chunk. The partials are (blocks, 2K+1) floats, 0.14 MB at the
-// main path's shape (K = 10, N = 1.66M), so the second launch is short.
+// What bounds it on Hopper: bytes. It reads K*N*sizeof(x) bytes of x plus
+// N*4 of g (and N*4 of the mask) and does 4 flops per element of x, far
+// below the f32 ridge. The design streams x once with the widest loads the
+// row stride allows (16, 8 or 4 bytes of f32; 8, 4 or 2 bytes of bf16),
+// keeps KC rows' loads in flight per thread, and reads g once per block
+// rather than once per client chunk. The partials are (blocks, 2K+1)
+// floats, 0.14 MB at the main path's shape (K = 10, N = 1.66M), so the
+// second launch is short. A bf16 row of the main path is 3,326,740 bytes
+// (4 mod 16), so bf16 x streams with 4-byte loads there.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "load.cuh"
+#include "stats_reduce.cuh"
 
 namespace {
 
@@ -45,9 +60,9 @@ constexpr int kTile = kThreads * kCols;
 // faster than 8 on an H100 at K = 10 and K = 37.
 constexpr int KC = 4;
 
-// kCols consecutive floats at base + col, zeros past the ragged edge
-// (ncols < kCols). Full tiles load VW floats at a time; base + col is then
-// aligned to VW * 4 bytes (the launcher picks VW so that it is).
+// kCols consecutive elements at base + col, zeros past the ragged edge
+// (ncols < kCols). Full tiles load VW elements at a time; base + col is
+// then aligned to VW elements (the launcher picks VW so that it is).
 template <int VW>
 __device__ __forceinline__ void load_cols(const float* __restrict__ base,
                                           long long col, int ncols,
@@ -71,23 +86,28 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ base,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The same for bf16 x.
+template <int VW, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ base,
+                                          long long col, int ncols,
+                                          float (&v)[kCols]) {
+  const T* p = base + col;
+  if (ncols == kCols) {
+    repro::load4<VW>(p, v);
+  } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+    for (int i = 0; i < kCols; ++i)
+      v[i] = i < ncols ? repro::load1(p + i) : 0.f;
+  }
 }
 
-template <int VW, bool MASKED>
+template <int VW, bool MASKED, typename T>
 __global__ void __launch_bounds__(kThreads)
-stats_stage1(const float* __restrict__ x, const float* __restrict__ g,
+stats_stage1(const T* __restrict__ x, const float* __restrict__ g,
              const float* __restrict__ mask, float* __restrict__ part,
              int K, long long N) {
   __shared__ float red[kWarps][2 * KC];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int S = 2 * K + 1;  // statistics per block: K dots, K sqs, sqg
-  float* out = part + static_cast<long long>(blockIdx.x) * S;
+  float* out = part + static_cast<long long>(blockIdx.x) * (2 * K + 1);
 
   // Threads past the edge keep ncols = 0 and contribute zeros: every
   // thread must reach the shuffles and barriers below.
@@ -108,8 +128,8 @@ stats_stage1(const float* __restrict__ x, const float* __restrict__ g,
   float sg = 0.f;
 #pragma unroll
   for (int i = 0; i < kCols; ++i) sg = fmaf(gv[i], gv[i], sg);
-  sg = warp_sum(sg);
-  if (lane == 0) red[warp][0] = sg;
+  sg = repro::warp_sum(sg);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32][0] = sg;
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.f;
@@ -138,14 +158,14 @@ stats_stage1(const float* __restrict__ x, const float* __restrict__ g,
     }
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
-      dot[j] = warp_sum(dot[j]);
-      sq[j] = warp_sum(sq[j]);
+      dot[j] = repro::warp_sum(dot[j]);
+      sq[j] = repro::warp_sum(sq[j]);
     }
-    if (lane == 0) {
+    if (threadIdx.x % 32 == 0) {
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
-        red[warp][j] = dot[j];
-        red[warp][KC + j] = sq[j];
+        red[threadIdx.x / 32][j] = dot[j];
+        red[threadIdx.x / 32][KC + j] = sq[j];
       }
     }
     __syncthreads();
@@ -182,8 +202,8 @@ stats_stage2(const float* __restrict__ part, float* __restrict__ out, int S,
   if (threadIdx.x == 0) out[j] = s[0];
 }
 
-template <int VW>
-cudaError_t launch(const float* x, const float* g, const float* mask,
+template <int VW, typename T>
+cudaError_t launch(const T* x, const float* g, const float* mask,
                    float* part, float* out, int K, long long N,
                    long long nblocks, cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>(nblocks);
@@ -198,6 +218,35 @@ cudaError_t launch(const float* x, const float* g, const float* mask,
   stats_stage2<<<2 * K + 1, kThreads, 0, stream>>>(part, out, 2 * K + 1,
                                                   nblocks);
   return cudaGetLastError();
+}
+
+// The widest load (in elements) that every row of x, g and mask allows.
+template <typename T>
+int load_width(const T* x, const float* g, const float* mask, long long N) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t fa = reinterpret_cast<uintptr_t>(g) |
+                       reinterpret_cast<uintptr_t>(mask);
+  for (int vw = 4; vw > 1; vw /= 2)
+    if (N % vw == 0 && xa % (vw * sizeof(T)) == 0 &&
+        fa % (vw * sizeof(float)) == 0)
+      return vw;
+  return 1;
+}
+
+template <typename T>
+int dispatch(const T* x, const float* g, const float* mask, float* part,
+             float* out, int K, long long N, long long nblocks,
+             cudaStream_t stream) {
+  if (K < 1 || N < 1 || K > (INT_MAX - 1) / 2 ||
+      nblocks != (N + kTile - 1) / kTile || nblocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  switch (load_width(x, g, mask, N)) {
+    case 4: e = launch<4>(x, g, mask, part, out, K, N, nblocks, stream); break;
+    case 2: e = launch<2>(x, g, mask, part, out, K, N, nblocks, stream); break;
+    default: e = launch<1>(x, g, mask, part, out, K, N, nblocks, stream);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -215,18 +264,14 @@ extern "C" int repro_round_stats_f32(const float* x, const float* g,
                                      const float* mask, float* part,
                                      float* out, int K, long long N,
                                      long long nblocks, cudaStream_t stream) {
-  if (K < 1 || N < 1 || K > (INT_MAX - 1) / 2 ||
-      nblocks != repro_round_stats_blocks(N) || nblocks > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(g) |
-                         reinterpret_cast<uintptr_t>(mask);
-  cudaError_t e;
-  if (N % 4 == 0 && addr % 16 == 0)
-    e = launch<4>(x, g, mask, part, out, K, N, nblocks, stream);
-  else if (N % 2 == 0 && addr % 8 == 0)
-    e = launch<2>(x, g, mask, part, out, K, N, nblocks, stream);
-  else
-    e = launch<1>(x, g, mask, part, out, K, N, nblocks, stream);
-  return static_cast<int>(e);
+  return dispatch(x, g, mask, part, out, K, N, nblocks, stream);
+}
+
+// The same with x in bf16 (its raw 16-bit patterns); g and mask stay f32.
+extern "C" int repro_round_stats_bf16(const void* x, const float* g,
+                                      const float* mask, float* part,
+                                      float* out, int K, long long N,
+                                      long long nblocks, cudaStream_t stream) {
+  return dispatch(static_cast<const uint16_t*>(x), g, mask, part, out, K, N,
+                  nblocks, stream);
 }

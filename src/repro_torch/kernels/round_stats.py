@@ -1,43 +1,103 @@
-"""Per-round angle statistics in one pass over the flat (K, N) f32
+"""Per-round angle statistics in one pass over the round's flat (K, N)
 client-delta buffer x and the global delta g (N,):
 dots[k] = <x_k, g>, sqs[k] = ||x_k||^2, sqg = ||g||^2, optionally over
-the subspace of an (N,) 0/1 segment mask (angle_filter="dense_only").
+the subspace of an (N,) 0/1 segment mask (angle_filter="dense_only"), on
+every wire of the uplink:
 
-The kernel is hand-written CUDA C++ for Hopper, `csrc/round_stats.cu`;
-it replaces the Pallas kernels `repro/kernels/round_stats.py::round_stats`
-(`_stats_kernel`, `_stats_kernel_masked`). It is bound by bytes: one
-read of x plus g (and the mask). Stage 1 reduces per column block into
-(blocks, 2K+1) partials, stage 2 reduces those in a fixed order, so the
-result is the same from run to run (the source file's header has the
-design).
+* `round_stats(x, g, mask)`: x f32 or bf16, CUDA source
+  `csrc/round_stats.cu`; it replaces the Pallas kernels
+  `repro/kernels/round_stats.py::round_stats` (`_stats_kernel`,
+  `_stats_kernel_masked`).
+* `round_stats_q(values, scales, g, mask)`: the int8 wire, and
+  `round_stats_q4(values, scales, g, mask, group_size=)`: the packed int4
+  wire, both dequantized in registers, CUDA source `csrc/round_stats_q.cu`;
+  they replace `round_stats_q` (`_stats_q_kernel{,_masked}`) and
+  `round_stats_q4` (`_stats_q4_kernel{,_masked}`) of the same file.
 
-`round_stats` takes the plain version `round_stats_plain` only for
-tensors that lie on the CPU. On a CUDA tensor it launches the kernel or
-raises. `round_stats.launches` counts the wrapper's launches (one per
+All are bound by bytes: one read of the wire plus g (and the mask). Stage
+1 reduces per column block into (blocks, 2K+1) partials, stage 2 reduces
+those in a fixed order, so the result is the same from run to run (the
+source files' headers have the designs). g and the mask are f32 and in
+logical columns; sums are f32.
+
+A wrapper takes its plain version (`*_plain`) only for tensors that lie
+on the CPU. On a CUDA tensor it launches the kernels or raises.
+`<wrapper>.launches` counts each wrapper's calls on the card (one per
 call: both stages together).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.weighted_agg import (
+    _check_cuda_wire,
+    _check_packed,
+    _check_wire_shapes,
+)
+from repro_torch.transport.quantize import (
+    QuantizedDelta,
+    dequantize,
+    num_chunks,
+    num_groups,
+)
 
-_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
-              ctypes.c_int)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # x, g, mask, part, out, K, N, blocks, stream
+    "repro_round_stats_f32": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
+    "repro_round_stats_bf16": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
+    # q, scales, g, mask, part, out, K, N, C, blocks, stream
+    "repro_round_stats_q8": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _P],
+    # q, scales, g, mask, part, out, K, n, G, log2(group_size), blocks,
+    # stream
+    "repro_round_stats_q4": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L,
+                             _P],
+}
+_BLOCKS = {"round_stats": "repro_round_stats_blocks",
+           "round_stats_q": "repro_round_stats_q_blocks"}
 
 
-def _lib():
-    lib = _build.load("round_stats")
-    fn = lib.repro_round_stats_f32
-    fn.argtypes, fn.restype = _SIGNATURE
-    blocks = lib.repro_round_stats_blocks
+def _lib(source: str, name: str):
+    lib = _build.load(source)
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = _SIGNATURES[name], ctypes.c_int
+    blocks = getattr(lib, _BLOCKS[source])
     blocks.argtypes, blocks.restype = [ctypes.c_longlong], ctypes.c_longlong
     return fn, blocks
+
+
+def _run(source: str, name: str, k: int, width: int, device, *args):
+    """Launch both stages with fresh scratch; returns (dots, sqs, sqg)."""
+    fn, blocks_for = _lib(source, name)
+    nblocks = blocks_for(width)
+    part = torch.empty(nblocks * (2 * k + 1), dtype=torch.float32,
+                       device=device)
+    out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
+    ptrs, sizes = args
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, part.data_ptr(), out.data_ptr(), *sizes, nblocks,
+                 stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"at K, N, ... = {sizes}")
+    return out[:k], out[k:2 * k], out[2 * k]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts if t is not None)
+
+
+# ---------------------------------------------------------------- f32 / bf16
 
 
 def round_stats_plain(x: torch.Tensor, g: torch.Tensor,
@@ -53,6 +113,10 @@ def round_stats_plain(x: torch.Tensor, g: torch.Tensor,
     return xf @ gf, torch.sum(xf * xf, dim=1), torch.dot(gf, gf)
 
 
+_WIRE_FN = {torch.float32: "repro_round_stats_f32",
+            torch.bfloat16: "repro_round_stats_bf16"}
+
+
 def _check(x, g, mask) -> None:
     named = [("x", x), ("g", g)] + ([("mask", mask)] if mask is not None
                                     else [])
@@ -62,9 +126,10 @@ def _check(x, g, mask) -> None:
                 f"round_stats: {name} on {t.device}, x on {x.device}; all "
                 "must be on one CUDA device (CPU tensors take the plain "
                 "version)")
-        if t.dtype != torch.float32:
-            raise TypeError(f"round_stats: the kernel takes f32, {name} is "
-                            f"{t.dtype}")
+        if t.dtype != torch.float32 and not (name == "x"
+                                             and t.dtype in _WIRE_FN):
+            raise TypeError(f"round_stats: the kernel takes f32 or bf16 x "
+                            f"and f32 g and mask, {name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"round_stats: {name} must be contiguous")
     if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
@@ -79,32 +144,104 @@ def _check(x, g, mask) -> None:
 
 def round_stats(x: torch.Tensor, g: torch.Tensor,
                 mask: Optional[torch.Tensor] = None):
-    """(dots (K,), sqs (K,), sqg ()) for x (K, N), g (N,), mask (N,) or
-    None, accumulated in f32.
+    """(dots (K,), sqs (K,), sqg ()) for x (K, N) f32 or bf16, g (N,),
+    mask (N,) or None, accumulated in f32.
 
     CPU tensors: the plain version. CUDA tensors: the kernel, on the
     current stream, without synchronising; anything it does not take
     raises."""
-    on_cpu = [t.device.type == "cpu" for t in (x, g, mask) if t is not None]
-    if all(on_cpu):
+    if _on_cpu(x, g, mask):
         return round_stats_plain(x, g, mask)
     _check(x, g, mask)
     k, n = x.shape
-    fn, blocks_for = _lib()
-    nblocks = blocks_for(n)
-    part = torch.empty(nblocks * (2 * k + 1), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty(2 * k + 1, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), g.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 part.data_ptr(), out.data_ptr(), k, n, nblocks, stream)
-    if err:
-        raise RuntimeError(f"round_stats kernel launch failed: CUDA error "
-                           f"{err} at K={k}, N={n}")
+    out = _run("round_stats", _WIRE_FN[x.dtype], k, n, x.device,
+               (x.data_ptr(), g.data_ptr(), _ptr(mask)), (k, n))
     round_stats.launches += 1
-    return out[:k], out[k:2 * k], out[2 * k]
+    return out
 
 
 round_stats.launches = 0
+
+
+# ---------------------------------------------------------------- int8 / int4
+
+
+def _check_vectors(name: str, n: int, g, mask) -> None:
+    for vname, t in (("g", g), ("mask", mask)):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"{name}: {vname} must be ({n},), got "
+                             f"{tuple(t.shape)}")
+
+
+def round_stats_q_plain(values: torch.Tensor, scales: torch.Tensor,
+                        g: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """`round_stats_plain` of the dequantized int8 wire."""
+    return round_stats_plain(
+        dequantize(QuantizedDelta(values, scales, "int8")), g, mask)
+
+
+def round_stats_q(values: torch.Tensor, scales: torch.Tensor,
+                  g: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """`round_stats` over the int8 wire: values (K, N) int8, scales
+    (K, ceil(N / CHUNK)) f32, g and mask (N,) f32. Matches round_stats of
+    the dequantized wire up to f32 summation order.
+
+    CPU tensors: the plain version. CUDA tensors: the kernels, on the
+    current stream, without synchronising, or a raise."""
+    _check_wire_shapes("round_stats_q", None, values, scales,
+                       num_chunks(values.shape[1]))
+    k, n = values.shape
+    _check_vectors("round_stats_q", n, g, mask)
+    if _on_cpu(values, scales, g, mask):
+        return round_stats_q_plain(values, scales, g, mask)
+    _check_cuda_wire("round_stats_q", values, scales, g,
+                     *([mask] if mask is not None else []))
+    out = _run("round_stats_q", "repro_round_stats_q8", k, n, values.device,
+               (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
+                _ptr(mask)), (k, n, scales.shape[1]))
+    round_stats_q.launches += 1
+    return out
+
+
+round_stats_q.launches = 0
+
+
+def round_stats_q4_plain(values: torch.Tensor, scales: torch.Tensor,
+                         g: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, *,
+                         group_size: int):
+    """`round_stats_plain` of the dequantized int4 wire (n = len(g))."""
+    q = QuantizedDelta(values, scales, "int4", g.shape[0], group_size)
+    return round_stats_plain(dequantize(q), g, mask)
+
+
+def round_stats_q4(values: torch.Tensor, scales: torch.Tensor,
+                   g: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                   group_size: int):
+    """`round_stats` over the packed int4 wire: values (K, ceil(n/2))
+    int8, two params per byte, low nibble first; scales
+    (K, ceil(n / group_size)) f32; g and mask (n,) f32 in logical columns
+    (n = len(g)); group_size an even divisor of CHUNK.
+
+    CPU tensors: the plain version. CUDA tensors: the kernels, on the
+    current stream, without synchronising, or a raise."""
+    n = g.shape[0] if g.ndim == 1 else -1
+    _check_packed("round_stats_q4", values, n, group_size)
+    _check_wire_shapes("round_stats_q4", None, values, scales,
+                       num_groups(n, group_size))
+    _check_vectors("round_stats_q4", n, g, mask)
+    if _on_cpu(values, scales, g, mask):
+        return round_stats_q4_plain(values, scales, g, mask,
+                                    group_size=group_size)
+    _check_cuda_wire("round_stats_q4", values, scales, g,
+                     *([mask] if mask is not None else []))
+    k, nb = values.shape
+    out = _run("round_stats_q", "repro_round_stats_q4", k, nb, values.device,
+               (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
+                _ptr(mask)),
+               (k, n, scales.shape[1], int(math.log2(group_size))))
+    round_stats_q4.launches += 1
+    return out
+
+
+round_stats_q4.launches = 0

@@ -2,24 +2,30 @@
 
 `import repro_torch` (and every module of it) in a fresh interpreter must
 leave `jax` and `repro` out of `sys.modules`, and no source file of the
-port nor chip_smoke.py may import them. Importing the port builds no
-kernel. chip_smoke.py turns TF32 off for matmuls and cuDNN convs.
+port nor the chip scripts (chip_smoke.py, chip_ab.py) may import them.
+Importing the port builds no kernel. chip_smoke.py turns TF32 off for
+matmuls and cuDNN convs, and both scripts refuse to run without a GPU.
 """
 import os
 import re
 import subprocess
 import sys
 
+import pytest
+import torch
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+AB = os.path.join(ROOT, "chip_ab.py")
 
 MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.fl",
            "repro_torch.core.driver", "repro_torch.core.server",
            "repro_torch.core.treemath", "repro_torch.core.weighting",
            "repro_torch.kernels.weighted_agg",
            "repro_torch.kernels.round_stats", "repro_torch.models.small",
-           "repro_torch.data.synthetic"]
+           "repro_torch.data.synthetic", "repro_torch.transport",
+           "repro_torch.transport.quantize"]
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
@@ -32,6 +38,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield SMOKE
+    yield AB
 
 
 def test_import_leaves_jax_and_repro_out():
@@ -74,3 +81,13 @@ def test_chip_smoke_turns_tf32_off():
         text = f.read()
     assert "torch.backends.cuda.matmul.allow_tf32 = False" in text
     assert "torch.backends.cudnn.allow_tf32 = False" in text
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="runs the scripts "
+                    "only where they must refuse: without a GPU")
+@pytest.mark.parametrize("argv", [[SMOKE], [AB, "--alt", ROOT]])
+def test_chip_scripts_refuse_without_a_gpu(argv):
+    out = subprocess.run([sys.executable, *argv], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "no CUDA device" in out.stderr and not out.stdout.strip()
