@@ -9,7 +9,8 @@ sources and their `.cuh` headers) with the same C interface, for example
 an earlier commit's, unpacked with `git archive`. Every kernel variant of
 the round (chip_smoke.py's timing rows, at the main path's shape) whose
 source DIR holds is timed in both builds, and so are the int4 wire kernels
-at group size 8. The two builds take turns: repo, DIR, DIR, repo, R
+at group size 8, batched_dot and grad_dot_stats at the CNN's shape, and
+flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN). The two builds take turns: repo, DIR, DIR, repo, R
 times over, each turn the median of chip_smoke.REPS launches on a cold L2
 (chip_smoke.time_us). It prints one JSON line per variant with every
 turn's time and the two medians, then the card's name and power limit.
@@ -72,6 +73,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch import transport as tq
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import grad_dot as gd
     from repro_torch.kernels import round_stats as rs
     from repro_torch.kernels import weighted_agg as wa
 
@@ -97,6 +100,16 @@ def main() -> int:
     rows[f"round_stats_q4_gs{gs}"] = dict(
         source="round_stats_q", kernel=lambda: rs.round_stats_q4(
             q4.values, q4.scales, g, group_size=gs))
+    rows["batched_dot"] = dict(source="batched_dot",
+                               kernel=lambda: wa.batched_dot(x, g))
+    rows["grad_dot_stats"] = dict(source="grad_dot",
+                                  kernel=lambda: gd.grad_dot_stats(x[0], g))
+    b, t, h, kv, hd = cs.FLASH_MAIN
+    q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn(b, t, kv, hd, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    rows["flash_attention"] = dict(source="flash_attn",
+                                   kernel=lambda: fa.gqa_flash(q, k, v))
 
     flush = torch.zeros(64 << 20, device=dev)
     for name, r in rows.items():

@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FedAdp round on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root
 
 It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`
-with nvcc, checks and times each against its plain torch version, drives
-the main path (the synchronous FedAdp round of the flat engine through
-`repro_torch.FedServer`, at the full width of the paper's CNN) on every
-uplink wire (f32, bf16, int8, int4), and checks the algorithm on the MLR
-golden task. Each phase prints one JSON line; any failure raises and the
-script exits non-zero. It imports nothing of jax or of the JAX package
-`repro`.
+with nvcc, checks and times each against its plain torch version, and
+drives the port's paths: the synchronous FedAdp round of the flat engine
+through `repro_torch.FedServer`, at the full width of the paper's CNN,
+on every uplink wire (f32, bf16, int8, int4); the algorithm on the MLR
+golden task; dense-LM serving (`launch.serve.generate`: gemma-2b at full
+width and depth in bf16, prefill on the flash-attention kernel, then
+greedy decode); and `kernels/ops.py` on a real CNN round's deltas. Each
+phase prints one JSON line; any failure raises and the script exits
+non-zero. It imports nothing of jax or of the JAX package `repro`.
 
-Phases: device, build (all four sources at once), kernels (correctness
+Phases: device, build (all seven sources at once), kernels (correctness
 of the f32 kernels on f32 and bf16 input and of the int8 / int4 wire
 kernels at the main path's shape and at edge shapes, then timing of
-every kernel variant), wire (the quantizer on the card equals the
+every kernel variant; batched_dot and grad_dot_stats the same; flash
+attention at the reference test's cases and at gemma-2b's prefill shape,
+timed against SDPA), wire (the quantizer on the card equals the
 quantizer on the CPU bit for bit), slice (per wire: 3 CNN rounds with
 eval, with 2 aggregation + 1 statistics launches of the wire's kernels
 per round, the quantizer's time, flat == tree on the card, one more round
 under torch.profiler; and one int8 run with error feedback), algorithm
 (fedadp reaches 85% on MLR in no more rounds than fedavg, per uplink f32,
-int8 and int4). Then, on lines of their own: the kernel table as one
-JSON object, the card's name and power limit as nvidia-smi reports them,
-and last `{"ok": true, "device": {...}}`.
+int8 and int4), serve (gemma-2b, B = 4, prompt 1024, 32 greedy steps:
+18 flash launches per prefill and none in decode, prefill and decode
+times, peak memory, the kernel's share of a profiled prefill; flash ==
+xla prefill logits on the f32 model), ops (tree_vdot_batched and
+tree_dot_and_norms on the tree view of a CNN round's (K, N) buffer equal
+that round's round_stats). Then, on lines of their own: the kernel table
+as one JSON object, the card's name and power limit as nvidia-smi
+reports them, and last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 prints no result and exits non-zero. TF32 is off for matmuls and cuDNN
@@ -43,10 +52,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM data-sheet peaks: HBM3 bandwidth and f32 outside the tensor
-# cores (all kernels are f32 elementwise-and-reduce work).
+# H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside the tensor
+# cores (the FL kernels are f32 elementwise-and-reduce work) and dense
+# bf16 on the tensor cores (where attention's products would run).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 TOL = 1e-5
 MAIN_K, MAIN_N = 10, 1_663_370  # K clients x the CNN's parameter count
 EDGE_KS = (1, 3, 37, 128)
@@ -59,10 +70,22 @@ WIDE_K = 128  # a second timing of each kernel, at 12.8x the main K
 REPS = 50
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: the host's head start
 WIRES = ("f32", "bf16", "int8", "int4")
-SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q")
+SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
+           "flash_attn", "batched_dot", "grad_dot")
 # device kernels of the ported sources, by name, for the profile
 PORTED = ("agg_kernel", "agg_q8_kernel", "agg_q4_kernel", "stats_stage",
-          "stats_q8_stage", "stats_q4_stage")
+          "stats_q8_stage", "stats_q4_stage", "flash_fwd_kernel",
+          "bdot_stage", "gdot_stage")
+# flash attention: the reference test's cases (BH, T, d, dtype, causal,
+# blk_q, blk_k) and gemma-2b's prefill shape (B, T, H, G, hd)
+FLASH_CASES = ((4, 256, 64, "float32", True, 64, 64),
+               (2, 256, 128, "float32", False, 128, 64),
+               (2, 512, 64, "float32", True, 128, 128),
+               (3, 128, 64, "bfloat16", True, 64, 32))
+FLASH_MAIN = (4, 1024, 8, 1, 256)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference test's
+SERVE_B, SERVE_T, SERVE_STEPS = 4, 1024, 32
+PARITY_B, PARITY_T, PARITY_TOL = 2, 512, 2e-4
 
 
 def emit(obj) -> None:
@@ -102,8 +125,9 @@ def time_us(fn, flush: torch.Tensor) -> float:
                             zip(starts, ends)])) * 1e3
 
 
-def bound_us(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_us(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -552,21 +576,26 @@ def stream_of(event) -> str:
 
 
 def profile_round(server) -> dict:
-    """Where one CNN round's device time goes (torch.profiler): the GPU
-    kernels by name, the ported kernels' share, and how busy the device
-    was. Busy time is given two ways, the sum of the device events' times
-    and the union of their intervals; they differ only where events
-    overlap in time. Each is given per stream too, with the events that
-    overlap most, so that an overlap can be told apart: work on two
-    streams at once, or events of one stream. Events that only mark a
-    user annotation on the device's timeline are counted apart."""
+    """Where one CNN round's device time goes (`profile_device`)."""
+    return profile_device(lambda: server.step(eval_every=0))
+
+
+def profile_device(fn) -> dict:
+    """Where one call of `fn`'s device time goes (torch.profiler): the
+    GPU kernels by name, the ported kernels' share, and how busy the
+    device was. Busy time is given two ways, the sum of the device
+    events' times and the union of their intervals; they differ only
+    where events overlap in time. Each is given per stream too, with the
+    events that overlap most, so that an overlap can be told apart: work
+    on two streams at once, or events of one stream. Events that only
+    mark a user annotation on the device's timeline are counted apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.step(eval_every=0)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = sorted(((e.self_device_time_total, e.key, e.count)
@@ -602,6 +631,9 @@ def profile_round(server) -> dict:
                         for s, es in streams.items()},
             "overlaps": overlaps(events),
             "ported_kernels_us": ported,
+            "ported_by_kernel_us": {
+                p: sum(r[0] for r in rows if p in r[1]) for p in PORTED
+                if any(p in r[1] for r in rows)},
             "top": [{"us": u, "kernel": k[:90], "calls": c}
                     for u, k, c in rows[:12]]}
 
@@ -634,6 +666,370 @@ def phase_algorithm(dev, nodes, test) -> dict:
     return out
 
 
+# ---- the dense-LM serving path and kernels/ops.py ----
+
+def timing_entry(name, source, replaces, kernel, plain, library, nbytes,
+                 flops, flush, max_abs_err, tol, shape,
+                 flops_per_s=F32_FLOPS_PER_S) -> dict:
+    """One kernel's row of the table: its time, its plain version's, a
+    library call's (None where no single call computes the function),
+    and its bound, all at `shape`."""
+    us = time_us(kernel, flush)
+    plain_us = time_us(plain, flush)
+    lib_us = time_us(library, flush) if library else None
+    b_us, b_by = bound_us(nbytes, flops, flops_per_s)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": replaces, "max_abs_err": max_abs_err, "tol": tol,
+            "us": us, "ms": us / 1e3, "plain_us": plain_us,
+            "plain_ms": plain_us / 1e3, "bound_us": b_us,
+            "bound_ms": b_us / 1e3, "bound_by": b_by, "library_us": lib_us,
+            "library_ms": None if lib_us is None else lib_us / 1e3,
+            "shape": list(shape), "bytes": nbytes, "flops": flops}
+
+
+def sums_err(got, ref, terms) -> tuple[float, float]:
+    """(max abs error, max error / sum of |terms|) over paired sums."""
+    abs_err = norm_err = 0.0
+    for a, b, t in zip(got, ref, terms):
+        d = (a.double() - b.double()).abs()
+        abs_err = max(abs_err, float(d.max()))
+        norm_err = max(norm_err, float((d / t.clamp_min(1e-30)).max()))
+    return abs_err, norm_err
+
+
+def dot_terms(a, b) -> list:
+    """The |terms| of (<a,b>, ||a||^2, ||b||^2), in float64."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return [(a * b).abs().sum(), (a * a).sum(), (b * b).sum()]
+
+
+def phase_ops_kernels(wa, gd, dev) -> dict:
+    """batched_dot and grad_dot_stats against their plain versions at
+    the edge shapes and the CNN's (K, N), f32 and bf16 input, then timed
+    at the CNN's shape in f32 (batched_dot: K = 10 rows against g;
+    grad_dot_stats: one client's delta against g)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, main_abs = {}, {}
+    for k, n in [(MAIN_K, MAIN_N)] + [(k, n) for k in EDGE_KS
+                                      for n in EDGE_NS]:
+        x = torch.randn(k, n, device=dev, generator=gen)
+        y = torch.randn(k, n, device=dev, generator=gen)
+        g = torch.randn(n, device=dev, generator=gen)
+        errs = {}
+        for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
+            xi, yi, gi = x.to(dt), y.to(dt), g.to(dt)
+            terms = [(xi.double().abs() * gi.double().abs()[None]).sum(1)]
+            errs["batched_dot" + tag] = sums_err(
+                [wa.batched_dot(xi, gi)], [wa.batched_dot_plain(xi, gi)],
+                terms)
+            errs["grad_dot_stats" + tag] = sums_err(
+                gd.grad_dot_stats(xi, yi), gd.grad_dot_stats_plain(xi, yi),
+                dot_terms(xi, yi))
+        torch.cuda.synchronize()
+        emit({"phase": "kernels", "check": [k, n],
+              "norm_err": {key: v[1] for key, v in errs.items()}})
+        for key, (a, e) in errs.items():
+            worst[key] = max(worst.get(key, 0.0), e)
+            if (k, n) == (MAIN_K, MAIN_N):
+                main_abs[key] = a
+            if not e <= TOL:
+                raise AssertionError(f"{key} disagrees with its plain "
+                                     f"version at K={k}, N={n}: {e}")
+        del x, y, g
+    emit({"phase": "kernels", "ops_worst_norm_err": worst})
+
+    flush = torch.zeros(64 << 20, device=dev)
+    x = torch.randn(MAIN_K, MAIN_N, device=dev, generator=gen)
+    g = torch.randn(MAIN_N, device=dev, generator=gen)
+    k, n = x.shape
+    table = {
+        "batched_dot": timing_entry(
+            "batched_dot", "batched_dot",
+            "src/repro/kernels/weighted_agg.py:347",
+            lambda: wa.batched_dot(x, g), lambda: wa.batched_dot_plain(x, g),
+            lambda: x @ g, 4 * (k * n + n + k), 2 * k * n, flush,
+            main_abs["batched_dot"], TOL, (k, n)),
+        # no single torch call returns all three sums
+        "grad_dot_stats": timing_entry(
+            "grad_dot_stats", "grad_dot", "src/repro/kernels/grad_dot.py:61",
+            lambda: gd.grad_dot_stats(x[0], g),
+            lambda: gd.grad_dot_stats_plain(x[0], g), None, 4 * 2 * n + 12,
+            6 * n, flush, main_abs["grad_dot_stats"], TOL, (n,)),
+    }
+    for row in table.values():
+        row["max_err"] = worst[row["name"]]
+        emit({"phase": "kernels", "timing": row})
+    return table
+
+
+def gqa_plain(fa, q, k, v):
+    """gqa_flash's plain version on (B, T, H, hd) / (B, T, G, hd)."""
+    b, t, h, hd = q.shape
+    rep = h // k.shape[2]
+
+    def flat(z):
+        return z.movedim(2, 1).reshape(-1, t, hd)
+
+    o = fa.flash_attention_plain(flat(q), flat(k.repeat_interleave(rep, 2)),
+                                 flat(v.repeat_interleave(rep, 2)), True)
+    return o.reshape(b, h, t, hd).movedim(1, 2)
+
+
+def allclose_err(got, want, tol) -> tuple[float, float]:
+    """(max |d|, max |d| / (tol + tol |want|)): <= 1 passes, the
+    reference test's assert_allclose(atol=tol, rtol=tol)."""
+    d = (got.double() - want.double()).abs()
+    return float(d.max()), float((d / (tol + tol * want.double().abs()))
+                                 .max())
+
+
+def phase_flash_kernel(fa, dev) -> dict:
+    """flash_attention against its plain version at the reference test's
+    cases, and gqa_flash at gemma-2b's prefill shape; timed there against
+    SDPA (KV repeated to H) and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    checks = {}
+    for bh, t, d, dtype, causal, bq, bk in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(bh, t, d, device=dev, generator=gen).to(dt)
+                   for _ in range(3))
+        got = fa.flash_attention(q, k, v, causal, bq, bk)
+        want = fa.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        checks[f"{bh}x{t}x{d}/{dtype}/causal={causal}/{bq}x{bk}"] = \
+            allclose_err(got, want, FLASH_TOL[dtype])
+    b, t, h, g, hd = FLASH_MAIN
+    q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn(b, t, g, hd, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    main = allclose_err(fa.gqa_flash(q, k, v), gqa_plain(fa, q, k, v),
+                        FLASH_TOL["bfloat16"])
+    checks[f"gemma-2b {b}x{t}x{h}/{g}x{hd}/bfloat16/causal"] = main
+    emit({"phase": "kernels", "flash_checks": checks})
+    bad = {key: e for key, e in checks.items() if not e[1] <= 1.0}
+    if bad:
+        raise AssertionError(f"flash attention disagrees with its plain "
+                             f"version: {bad}")
+
+    import torch.nn.functional as F
+
+    qh = q.movedim(2, 1).contiguous()  # (B, H, T, hd), SDPA's layout
+    kh, vh = (z.repeat_interleave(h // g, 2).movedim(2, 1).contiguous()
+              for z in (k, v))
+    flush = torch.zeros(64 << 20, device=dev)
+    nbytes = 2 * (2 * b * t * h * hd + 2 * b * t * g * hd)
+    flops = b * h * 2 * t * t * hd  # causal: half of 4 T^2 d per head
+    row = timing_entry(
+        "flash_attention", "flash_attn",
+        "src/repro/kernels/flash_attn.py:84",
+        lambda: fa.gqa_flash(q, k, v), lambda: gqa_plain(fa, q, k, v),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        nbytes, flops, flush, main[0], FLASH_TOL["bfloat16"],
+        FLASH_MAIN, flops_per_s=BF16_TC_FLOPS_PER_S)
+    row["bound_f32_cores_us"] = bound_us(nbytes, flops)[0]
+    row["max_err"] = max(e[1] for e in checks.values())
+    emit({"phase": "kernels", "timing": row})
+    return {"flash_attention": row}
+
+
+def phase_serve(fa, dev) -> dict:
+    """The dense-LM serving path at full width and depth: gemma-2b in
+    bf16 with flash attention, random weights from a seed, through
+    `launch.serve.generate` (B = 4, prompt 1024, 32 greedy steps). Then
+    the f32 model's prefill logits, flash against xla."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(registry.get("gemma-2b"),
+                              attention_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.init_params(gen, cfg)
+    n_params = transformer.count_params(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_T),
+                           generator=gen, device=dev)
+    serve.generate(params, cfg, tokens, 2)  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    def run(steps):
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        ids = serve.generate(params, cfg, tokens, steps)
+        torch.cuda.synchronize()
+        return ids, (time.perf_counter() - t0) * 1e3, \
+            fa.flash_attention.launches
+
+    # the main path, counted: every flash launch of one generate call
+    torch.cuda.reset_peak_memory_stats()
+    ids, total_ms, launches = run(SERVE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers:
+        raise AssertionError(f"generate launched flash attention "
+                             f"{launches} times, want {cfg.num_layers}: "
+                             "one per layer of the prefill, none in decode")
+    if ids.shape != (SERVE_B, SERVE_STEPS) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate returned {tuple(ids.shape)} ids "
+                             "outside the vocabulary")
+    pre = [run(1) for _ in range(3)]  # the prefill alone, three times
+    if any(p[2] != cfg.num_layers for p in pre) or not all(
+            torch.equal(p[0], ids[:, :1]) for p in pre):
+        raise AssertionError("a prefill alone launched another count or "
+                             "chose another first token")
+    prefill_ms = float(np.median([p[1] for p in pre]))
+    decode_ms = (total_ms - prefill_ms) / (SERVE_STEPS - 1)
+    prof = profile_device(lambda: serve.generate(params, cfg, tokens, 1))
+    flash_us = prof["ported_by_kernel_us"].get("flash_fwd_kernel", 0.0)
+    if not (flash_us > 0 and prof["kernel_time_sum_us"] > 0):
+        raise AssertionError("the profiled prefill shows no device time "
+                             "for the flash kernel")
+    # two decode steps from a prefilled cache, profiled: where decode's
+    # time goes (device events per step, idle share)
+    with torch.no_grad():
+        _, _, cache = transformer.forward(
+            params, cfg, {"tokens": tokens}, mode="prefill",
+            max_len=SERVE_T + SERVE_STEPS)
+        tok = ids[:, :1]
+        prof_decode = profile_device(lambda: [transformer.decode_step(
+            params, cfg, tok, cache, SERVE_T + i) for i in range(2)])
+    del cache
+
+    # bf16: the flash-vs-xla gap of the prefill logits, printed, not held
+    xcfg = dataclasses.replace(cfg, attention_impl="xla")
+    with torch.no_grad():
+        lf, _, _ = transformer.forward(params, cfg, {"tokens": tokens},
+                                       mode="prefill")
+        lx, _, _ = transformer.forward(params, xcfg, {"tokens": tokens},
+                                       mode="prefill")
+        bf16_gap = max(float((lf[i].float() - lx[i].float()).abs().max())
+                       for i in range(SERVE_B))
+        bf16_same_argmax = float((lf[:, -1].argmax(-1) == lx[:, -1].argmax(
+            -1)).float().mean())
+        logits_finite = bool(torch.isfinite(lf).all())
+    del params, lf, lx
+    torch.cuda.empty_cache()
+    if not logits_finite:
+        raise AssertionError("the bf16 prefill logits are not finite")
+
+    # f32: the flash path's prefill logits against xla's, held
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = transformer.init_params(gen, fcfg)
+    ptok = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_T),
+                         generator=gen, device=dev)
+    fa.flash_attention.launches = 0
+    with torch.no_grad():
+        lf, _, _ = transformer.forward(params, fcfg, {"tokens": ptok},
+                                       mode="prefill")
+        if fa.flash_attention.launches != cfg.num_layers:
+            raise AssertionError("the f32 flash prefill did not run the "
+                                 "kernel once per layer")
+        lx, _, _ = transformer.forward(
+            params, dataclasses.replace(fcfg, attention_impl="xla"),
+            {"tokens": ptok}, mode="prefill")
+        f32_abs, f32_excess = allclose_err(lf, lx, PARITY_TOL)
+    del params, lf, lx
+    torch.cuda.empty_cache()
+    if not f32_excess <= 1.0:
+        raise AssertionError(f"f32 prefill logits: flash vs xla max |d| "
+                             f"{f32_abs}, {f32_excess}x the tolerance")
+
+    out = {"phase": "serve", "model": cfg.name, "params": n_params,
+           "dtype": cfg.dtype, "batch": SERVE_B, "prompt": SERVE_T,
+           "steps": SERVE_STEPS, "flash_launches": launches,
+           "generate_ms": total_ms, "prefill_ms": prefill_ms,
+           "prefill_ms_runs": [p[1] for p in pre],
+           "decode_ms_per_step": decode_ms,
+           "prefill_tokens_per_s": SERVE_B * SERVE_T / prefill_ms * 1e3,
+           "decode_tokens_per_s": SERVE_B / decode_ms * 1e3,
+           "max_memory_allocated": peak,
+           "flash_share_of_prefill_kernel_time":
+               flash_us / prof["kernel_time_sum_us"],
+           "flash_us_in_prefill": flash_us,
+           "sample_ids": ids[0, :12].tolist(),
+           "bf16_flash_vs_xla_max_abs": bf16_gap,
+           "bf16_flash_vs_xla_same_last_argmax": bf16_same_argmax,
+           "f32_parity": {"batch": PARITY_B, "prompt": PARITY_T,
+                          "tol": PARITY_TOL, "max_abs": f32_abs,
+                          "excess": f32_excess},
+           "profile_prefill": prof, "profile_decode_2_steps": prof_decode}
+    emit(out)
+    return out
+
+
+def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
+    """kernels/ops.py on a real f32 CNN round: the tree view of the
+    (K, N) buffer that the round's flat engine passed to round_stats,
+    and its global delta g. tree_vdot_batched must give that round's
+    dots, and tree_dot_and_norms per client its squared norms and
+    ||g||^2, to 1e-5 normalised."""
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.core import treemath
+
+    server = repro_torch.FedServer("cnn", slice_config("f32"), nodes, test,
+                                   batch_size=50, device=dev)
+    seen = []
+    real = fl_mod.round_stats
+
+    def capture(x, g, mask=None):
+        out = real(x, g, mask)
+        seen.append((x, g, mask, out))
+        return out
+
+    fl_mod.round_stats = capture
+    try:
+        server.step(eval_every=0)
+    finally:
+        fl_mod.round_stats = real
+    torch.cuda.synchronize()
+    if len(seen) != 1 or seen[0][2] is not None:
+        raise AssertionError(f"captured {len(seen)} round_stats calls")
+    x, g, _, (dots, sqs, sqg) = seen[0]
+    template = {key: p[None] for key, p in server.params.items()}
+    xs = treemath.tree_unravel_stacked(template, x)
+    gs = treemath.tree_map(lambda z: z[0],
+                           treemath.tree_unravel_stacked(template, g[None]))
+    k = x.shape[0]
+
+    # the ops path, counted
+    wa.batched_dot.launches = gd.grad_dot_stats.launches = 0
+    u = ops.tree_vdot_batched(xs, gs)
+    per_client = [ops.tree_dot_and_norms(
+        treemath.tree_map(lambda z: z[i], xs), gs) for i in range(k)]
+    torch.cuda.synchronize()
+    launches = {"batched_dot": wa.batched_dot.launches,
+                "grad_dot_stats": gd.grad_dot_stats.launches}
+    leaves = len(treemath.tree_leaves(gs))
+    if launches != {"batched_dot": leaves, "grad_dot_stats": k * leaves}:
+        raise AssertionError(f"ops launched {launches} for {leaves} leaves "
+                             f"and K = {k}")
+    xd, gd64 = x.double(), g.double()
+    dot_scale = (xd.abs() * gd64.abs()[None]).sum(1)
+    errs = {
+        "vdot_vs_round_dots": sums_err([u], [dots], [dot_scale])[1],
+        "tree_dots_vs_round_dots": sums_err(
+            [torch.stack([c[0] for c in per_client])], [dots],
+            [dot_scale])[1],
+        "tree_sqs_vs_round_sqs": sums_err(
+            [torch.stack([c[1] for c in per_client])], [sqs],
+            [sqs.double().abs()])[1],
+        "tree_sqg_vs_round_sqg": max(
+            sums_err([c[2]], [sqg], [sqg.double().abs()])[1]
+            for c in per_client)}
+    out = {"phase": "ops", "model": "cnn", "clients": k,
+           "params": x.shape[1], "leaves": leaves, "launches": launches,
+           "norm_err": errs}
+    emit(out)
+    bad = {key: e for key, e in errs.items() if not e <= TOL}
+    if bad:
+        raise AssertionError(f"ops disagree with the round's round_stats: "
+                             f"{bad}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -642,6 +1038,9 @@ def main() -> int:
     try:
         from repro_torch import transport as tq
         from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attn as fa
+        from repro_torch.kernels import grad_dot as gd
+        from repro_torch.kernels import ops
         from repro_torch.kernels import round_stats as rs
         from repro_torch.kernels import weighted_agg as wa
     except ImportError as e:
@@ -668,17 +1067,27 @@ def main() -> int:
           "ptxas": ptxas})
 
     table = phase_kernels(wa, rs, tq, dev)
+    lm_table = {**phase_ops_kernels(wa, gd, dev), **phase_flash_kernel(fa,
+                                                                        dev)}
     phase_wire(tq, dev)
     nodes, test = image_task()
     launches = {t: phase_slice(wa, rs, tq, dev, nodes, test, t)
                 for t in WIRES}
     phase_error_feedback(nodes, test, dev)
     phase_algorithm(dev, nodes, test)
+    serve_out = phase_serve(fa, dev)
+    ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
 
     for name, row in table.items():
         # each row's launches: its wrapper's count on its own wire's path
         wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
         row["launches"] = launches[row["wire"]][wrapper]
+    # the LM kernels' launches: serving's generate call, and the ops path
+    lm_table["flash_attention"]["launches"] = serve_out["flash_launches"]
+    for name in ("batched_dot", "grad_dot_stats"):
+        lm_table[name]["launches"] = ops_launches[name]
+    table.update(lm_table)
+    for name, row in table.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": list(table.values())}))

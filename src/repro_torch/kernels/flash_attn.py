@@ -1,0 +1,160 @@
+"""Flash-attention forward: causal or non-causal online-softmax attention
+that never writes the (T, T) scores to device memory.
+
+* `flash_attention(q, k, v, causal, blk_q, blk_k)`: q/k/v (BH, T, d);
+* `gqa_flash(q, k, v, causal=, blk_q=, blk_k=)`: q (B, T, H, hd), k/v
+  (B, T, G, hd) -> (B, T, H, hd).
+
+Both replace `repro/kernels/flash_attn.py` (the Pallas `_kernel` through
+`_flash_fwd_impl`, and `gqa_flash`) with the reference's signatures;
+CUDA source `csrc/flash_attn.cu` (the design is in its header). `blk_q`
+and `blk_k` keep only the reference's divisibility asserts: the kernel's
+tiles are its own. Mismatched shapes raise ValueError (the reference
+asserts), so that no shape reaches the kernel unchecked under
+`python -O`. `gqa_flash` hands the kernel the KV head of each query head
+(h // (H / G)) instead of repeating k and v: the same function without
+the copy. Math is f32 whatever the input (f32 or bf16); the output is in
+q's dtype.
+
+A wrapper takes the plain version (`flash_attention_plain`, the naive
+softmax of `repro/kernels/ref.py::flash_attention`) only for tensors
+that lie on the CPU. On CUDA tensors it launches the kernel or raises;
+it also raises when an input requires grad, because the kernel has no
+backward yet (the reference's backward is a jnp recompute; it comes with
+the training slice). `flash_attention.launches` counts the kernel's
+launches from either wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash_attn.cu is built for
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+              ctypes.c_float, _P]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention (the reference oracle): q/k/v (BH, T, d),
+    f32 math, masked scores -1e30, output in q's dtype."""
+    t = q.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("btd,bsd->bts", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(t, device=q.device)[:, None])
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bts,bsd->btd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def _fn():
+    fn = _build.load("flash_attn").repro_flash_attn
+    fn.argtypes, fn.restype = _SIGNATURE, ctypes.c_int
+    return fn
+
+
+def _check_cuda(q, k, v) -> None:
+    for t in (q, k, v):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(
+                f"flash attention: q on {q.device}, k on {k.device}, v on "
+                f"{v.device}; all must be on one CUDA device (CPU tensors "
+                "take the plain version)")
+        if t.requires_grad:
+            raise RuntimeError(
+                "flash attention: the CUDA kernel has no backward yet; "
+                "call it under torch.no_grad() or on tensors that do not "
+                "require grad")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash attention: the kernel takes q, k, v all f32 "
+                        f"or all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (q, k, v):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                s * t.element_size() % 16 for s in t.stride()[:-1]):
+            raise ValueError(
+                "flash attention: the kernel wants the head dim contiguous "
+                "and every row 16-byte aligned")
+
+
+def _launch(q, k, v, o, strides, b, h, g, t, d, causal) -> None:
+    """Launch the kernel on (B, T, heads, d) arrays given by `strides`
+    (batch, head, time per tensor, in elements)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {d} is not one the "
+                         f"kernel is built for {HEAD_DIMS}")
+    arr = (ctypes.c_longlong * 12)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    ctypes.addressof(arr), b, h, g, t, d,
+                    int(q.dtype == torch.bfloat16), int(causal),
+                    1.0 / (d ** 0.5), stream)
+    if err:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {err} at B={b}, H={h}, G={g}, T={t}, "
+                           f"d={d}")
+    flash_attention.launches += 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, blk_q: int = 128,
+                    blk_k: int = 128) -> torch.Tensor:
+    """q/k/v: (BH, T, d) (heads pre-flattened). Returns (BH, T, d) in
+    q's dtype. T must divide by blk_q and blk_k (the reference's
+    asserts)."""
+    bh, t, d = q.shape
+    if not k.shape == v.shape == (bh, t, d):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
+    assert t % blk_q == 0 and t % blk_k == 0
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal)
+    _check_cuda(q, k, v)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = []
+    for x in (q, k, v, o):
+        strides += [x.stride(0), 0, x.stride(1)]
+    _launch(q, k, v, o, strides, bh, 1, 1, t, d, causal)
+    return o
+
+
+flash_attention.launches = 0
+
+
+def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, blk_q: int = 128,
+              blk_k: int = 128) -> torch.Tensor:
+    """GQA wrapper: q (B,T,H,hd), k/v (B,T,G,hd) -> (B,T,H,hd)."""
+    b, t, h, hd = q.shape
+    g = k.shape[2]
+    if not (k.shape == v.shape == (b, t, g, hd) and h % g == 0):
+        raise ValueError(f"gqa_flash: want q (B,T,H,hd) and k, v (B,T,G,hd) "
+                         f"with H % G == 0, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    assert t % blk_q == 0 and t % blk_k == 0
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        rep = h // g
+        kx = torch.repeat_interleave(k, rep, dim=2)
+        vx = torch.repeat_interleave(v, rep, dim=2)
+
+        def flat(x):
+            return x.movedim(2, 1).reshape(b * h, t, hd)
+
+        o = flash_attention_plain(flat(q), flat(kx), flat(vx), causal)
+        return o.reshape(b, h, t, hd).movedim(1, 2)
+    _check_cuda(q, k, v)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = []
+    for x in (q, k, v, o):
+        strides += [x.stride(0), x.stride(2), x.stride(1)]
+    _launch(q, k, v, o, strides, b, h, g, t, hd, causal)
+    return o

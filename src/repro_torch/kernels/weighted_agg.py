@@ -10,6 +10,10 @@ of the uplink:
   wire, both dequantized in registers, CUDA source `csrc/weighted_agg_q.cu`;
   they replace `weighted_agg_q` (`_agg_q_kernel`) and `weighted_agg_q4`
   (`_agg_q4_kernel`) of the same file.
+* `batched_dot(x, g)`: u[k] = <x_k, g>, x f32 or bf16 rows read in place
+  through their row stride, CUDA source `csrc/batched_dot.cu`; it
+  replaces `batched_dot` (`_bdot_kernel`) of the same file. It lies on no
+  round path: `kernels/ops.py::tree_vdot_batched` calls it.
 
 All of them are bound by bytes: one read of the wire and one write of y
 (the source files' headers have the designs). Sums are f32, y is f32 for
@@ -46,6 +50,8 @@ _SIGNATURES = {
     "repro_weighted_agg_q8": [_P, _P, _P, _I, _L, _I, _P],
     # ws, q, y, K, n, G, log2(group_size), stream
     "repro_weighted_agg_q4": [_P, _P, _P, _I, _L, _I, _I, _P],
+    # x, g, part, out, K, N, ld, x_bf16, g_bf16, blocks, stream
+    "repro_batched_dot": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _L, _P],
 }
 
 
@@ -251,3 +257,55 @@ def weighted_agg_q4(w: torch.Tensor, values: torch.Tensor,
 
 
 weighted_agg_q4.launches = 0
+
+
+# ---------------------------------------------------------------- batched dot
+
+
+def batched_dot_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """u (K,) f32 = x @ g in f32 (`repro/kernels/ref.py::batched_dot`)."""
+    return x.to(torch.float32) @ g.to(torch.float32)
+
+
+def batched_dot(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """u[k] = <x[k], g> in f32 for x (K, N) and g (N,), each f32 or bf16.
+    x's rows may be a view into a wider buffer (any row stride, columns
+    contiguous): the kernel reads them in place.
+
+    CPU tensors: the plain version. CUDA tensors: the kernel (two
+    launches, counted once), on the current stream, without
+    synchronising, or a raise."""
+    if x.ndim != 2 or g.shape != (x.shape[1],) or x.numel() == 0:
+        raise ValueError(f"batched_dot: want x (K, N) and g (N,), got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return batched_dot_plain(x, g)
+    for t in (x, g):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(
+                f"batched_dot: x on {x.device} and g on {g.device}; both "
+                "must be on one CUDA device (CPU tensors take the plain "
+                "version)")
+        if t.dtype not in _WIRE_FN:
+            raise TypeError(f"batched_dot: the kernel takes f32 or bf16, "
+                            f"got {t.dtype}")
+    k, n = x.shape
+    ld = x.stride(0) if k > 1 else n  # a single row's stride is moot
+    if x.stride(1) != 1 or ld < n or not g.is_contiguous():
+        raise ValueError("batched_dot: x's columns and g must be contiguous")
+    lib = _build.load("batched_dot")
+    blocks_for = lib.repro_batched_dot_blocks
+    blocks_for.argtypes, blocks_for.restype = [_L], _L
+    nblocks = blocks_for(n)
+    part = torch.empty(nblocks * k, dtype=torch.float32, device=x.device)
+    u = torch.empty(k, dtype=torch.float32, device=x.device)
+    name = "repro_batched_dot"
+    _launch(_fn("batched_dot", name), name, x.device, x.data_ptr(),
+            g.data_ptr(), part.data_ptr(), u.data_ptr(), k, n, ld,
+            int(x.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
+            nblocks)
+    batched_dot.launches += 1
+    return u
+
+
+batched_dot.launches = 0

@@ -25,7 +25,12 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.fl",
            "repro_torch.kernels.weighted_agg",
            "repro_torch.kernels.round_stats", "repro_torch.models.small",
            "repro_torch.data.synthetic", "repro_torch.transport",
-           "repro_torch.transport.quantize"]
+           "repro_torch.transport.quantize",
+           "repro_torch.kernels.flash_attn", "repro_torch.kernels.grad_dot",
+           "repro_torch.kernels.ops", "repro_torch.models.config",
+           "repro_torch.models.layers", "repro_torch.models.attention",
+           "repro_torch.models.transformer", "repro_torch.configs.registry",
+           "repro_torch.launch.serve"]
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
