@@ -2,18 +2,23 @@
 """Time the port's CUDA kernels against another version of their sources,
 in one process on one NVIDIA GPU.
 
-    python3 chip_ab.py --alt DIR [--rounds R]     # from the repository root
+    python3 chip_ab.py --alt DIR [--alt DIR ...] [--rounds R]
+
+from the repository root.
 
 DIR holds another version of `src/repro_torch/kernels/csrc/` (the `.cu`
 sources and their `.cuh` headers) with the same C interface, for example
-an earlier commit's, unpacked with `git archive`. Every kernel variant of
+an earlier commit's, unpacked with `git archive`; each DIR given is timed
+against the repository's sources in turn. Every kernel variant of
 the round (chip_smoke.py's timing rows, at the main path's shape) whose
 source DIR holds is timed in both builds, and so are the int4 wire kernels
 at group size 8, batched_dot and grad_dot_stats at the CNN's shape, and
-flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN). The two builds take turns: repo, DIR, DIR, repo, R
-times over, each turn the median of chip_smoke.REPS launches on a cold L2
-(chip_smoke.time_us). It prints one JSON line per variant with every
-turn's time and the two medians, then the card's name and power limit.
+flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN), in
+bf16 and in f32 (two kernels of one source). The two builds take turns:
+repo, DIR, DIR, repo, R times over, each turn the median of
+chip_smoke.REPS launches on a cold L2 (chip_smoke.time_us). It prints one
+JSON line per variant with every turn's time and the two medians, then
+the card's name and power limit.
 A source that DIR does not hold is not timed.
 """
 from __future__ import annotations
@@ -61,8 +66,8 @@ def build_alt(alt: Path, names, build_dir: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--alt", required=True, type=Path,
-                    help="directory of the other kernel sources")
+    ap.add_argument("--alt", required=True, type=Path, action="append",
+                    help="directory of other kernel sources (repeatable)")
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -81,10 +86,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi()
-    names = [s for s in cs.SOURCES if (args.alt / f"{s}.cu").is_file()]
+    alts = {}  # DIR -> {source: its build}
+    for d in args.alt:
+        held = [s for s in cs.SOURCES if (d / f"{s}.cu").is_file()]
+        alts[str(d)] = build_alt(d.resolve(), held, _build.BUILD_DIR / "alt")
+    names = sorted({s for libs in alts.values() for s in libs})
     _build.build(names)
     repo = {s: _build.load(s) for s in names}
-    alt = build_alt(args.alt.resolve(), names, _build.BUILD_DIR / "alt")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(cs.MAIN_K, cs.MAIN_N, device=dev, generator=gen)
@@ -102,41 +110,49 @@ def main() -> int:
             q4.values, q4.scales, g, group_size=gs))
     rows["batched_dot"] = dict(source="batched_dot",
                                kernel=lambda: wa.batched_dot(x, g))
-    rows["grad_dot_stats"] = dict(source="grad_dot",
+    rows["grad_dot_stats"] = dict(source="grad_dot", shape=[cs.MAIN_N],
                                   kernel=lambda: gd.grad_dot_stats(x[0], g))
     b, t, h, kv, hd = cs.FLASH_MAIN
     q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
     k, v = (torch.randn(b, t, kv, hd, device=dev, generator=gen).bfloat16()
             for _ in range(2))
     rows["flash_attention"] = dict(source="flash_attn",
+                                   shape=list(cs.FLASH_MAIN),
                                    kernel=lambda: fa.gqa_flash(q, k, v))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    rows["flash_attention_f32"] = dict(
+        source="flash_attn", shape=list(cs.FLASH_MAIN),
+        kernel=lambda: fa.gqa_flash(q32, k32, v32))
 
     flush = torch.zeros(64 << 20, device=dev)
     for name, r in rows.items():
         src = r["source"]
-        if src not in names:
-            continue
-        _build._LIBS[src] = alt[src]
-        try:
-            r["kernel"]()
-        except AttributeError as e:  # DIR's build lacks this entry point
+        for d, alt in alts.items():
+            if src not in alt:
+                continue
+            _build._LIBS[src] = alt[src]
+            try:
+                r["kernel"]()
+            except AttributeError as e:  # DIR's build lacks this entry point
+                _build._LIBS[src] = repo[src]
+                print(json.dumps({"variant": name, "alt": d,
+                                  "skipped": str(e)}))
+                continue
+            times = {"repo": [], "alt": []}
+            for _ in range(args.rounds):
+                for which in ("repo", "alt", "alt", "repo"):
+                    # the wrappers fetch their library through _build.load
+                    _build._LIBS[src] = repo[src] if which == "repo" else \
+                        alt[src]
+                    times[which].append(cs.time_us(r["kernel"], flush))
             _build._LIBS[src] = repo[src]
-            print(json.dumps({"variant": name, "skipped": str(e)}))
-            continue
-        times = {"repo": [], "alt": []}
-        for _ in range(args.rounds):
-            for which in ("repo", "alt", "alt", "repo"):
-                # the wrappers fetch their library through _build.load
-                _build._LIBS[src] = repo[src] if which == "repo" else alt[src]
-                times[which].append(cs.time_us(r["kernel"], flush))
-        _build._LIBS[src] = repo[src]
-        med = {k: float(np.median(v)) for k, v in times.items()}
-        print(json.dumps({
-            "variant": name, "source": f"{src}.cu",
-            "shape": [cs.MAIN_K, cs.MAIN_N], "repo_us": times["repo"],
-            "alt_us": times["alt"], "repo_median_us": med["repo"],
-            "alt_median_us": med["alt"],
-            "alt_over_repo": med["alt"] / med["repo"]}), flush=True)
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            print(json.dumps({
+                "variant": name, "alt": d, "source": f"{src}.cu",
+                "shape": r.get("shape", [cs.MAIN_K, cs.MAIN_N]),
+                "repo_us": times["repo"], "alt_us": times["alt"],
+                "repo_median_us": med["repo"], "alt_median_us": med["alt"],
+                "alt_over_repo": med["alt"] / med["repo"]}), flush=True)
     print(smi)
     return 0
 

@@ -14,25 +14,30 @@ greedy decode); and `kernels/ops.py` on a real CNN round's deltas. Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It imports nothing of jax or of the JAX package `repro`.
 
-Phases: device, build (all seven sources at once), kernels (correctness
-of the f32 kernels on f32 and bf16 input and of the int8 / int4 wire
-kernels at the main path's shape and at edge shapes, then timing of
-every kernel variant; batched_dot and grad_dot_stats the same; flash
-attention at the reference test's cases and at gemma-2b's prefill shape,
-timed against SDPA), wire (the quantizer on the card equals the
-quantizer on the CPU bit for bit), slice (per wire: 3 CNN rounds with
-eval, with 2 aggregation + 1 statistics launches of the wire's kernels
-per round, the quantizer's time, flat == tree on the card, one more round
-under torch.profiler; and one int8 run with error feedback), algorithm
-(fedadp reaches 85% on MLR in no more rounds than fedavg, per uplink f32,
-int8 and int4), serve (gemma-2b, B = 4, prompt 1024, 32 greedy steps:
-18 flash launches per prefill and none in decode, prefill and decode
-times, peak memory, the kernel's share of a profiled prefill; flash ==
-xla prefill logits on the f32 model), ops (tree_vdot_batched and
-tree_dot_and_norms on the tree view of a CNN round's (K, N) buffer equal
-that round's round_stats). Then, on lines of their own: the kernel table
-as one JSON object, the card's name and power limit as nvidia-smi
-reports them, and last `{"ok": true, "device": {...}}`.
+Phases: device, build (all seven sources at once; ptxas's registers and
+spills; the HMMA / HGMMA count in the SASS of the bf16 flash kernel,
+which must not be 0), kernels (correctness of the f32 kernels on f32 and
+bf16 input and of the int8 / int4 wire kernels at the main path's shape
+and at edge shapes, then timing of every kernel variant; batched_dot and
+grad_dot_stats the same; flash attention at the reference test's cases,
+at every head dim of the bf16 tensor-core kernel, causal and not, at a
+ragged T, through gqa_flash with grouped KV heads, and at gemma-2b's
+prefill shape, where the bf16 and the f32 kernel are timed against
+SDPA), wire (the quantizer on the card equals the quantizer on the CPU
+bit for bit), slice (per wire: 3 CNN rounds with eval, with 2
+aggregation + 1 statistics launches of the wire's kernels per round, the
+quantizer's time, flat == tree on the card, one more round under
+torch.profiler; and one int8 run with error feedback), algorithm (fedadp
+reaches 85% on MLR in no more rounds than fedavg, per uplink f32, int8
+and int4), serve (gemma-2b, B = 4, prompt 1024, 32 greedy steps: 18
+flash launches per prefill and none in decode, prefill and decode times,
+peak memory, the tensor-core kernel's share of a profiled prefill, where
+the f32 kernel must not appear; flash == xla prefill logits on the f32
+model, on the f32 kernel), ops (tree_vdot_batched and tree_dot_and_norms
+on the tree view of a CNN round's (K, N) buffer equal that round's
+round_stats). Then, on lines of their own: the kernel table as one JSON
+object, the card's name and power limit as nvidia-smi reports them, and
+last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 prints no result and exits non-zero. TF32 is off for matmuls and cuDNN
@@ -75,13 +80,27 @@ SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
 # device kernels of the ported sources, by name, for the profile
 PORTED = ("agg_kernel", "agg_q8_kernel", "agg_q4_kernel", "stats_stage",
           "stats_q8_stage", "stats_q4_stage", "flash_fwd_kernel",
-          "bdot_stage", "gdot_stage")
-# flash attention: the reference test's cases (BH, T, d, dtype, causal,
-# blk_q, blk_k) and gemma-2b's prefill shape (B, T, H, G, hd)
+          "flash_mma_kernel", "bdot_stage", "gdot_stage")
+# flash attention (BH, T, d, dtype, causal, blk_q, blk_k): the reference
+# test's cases, then the bf16 (tensor-core) kernel at every head dim,
+# causal and not, and at T = 96, not a multiple of its 128-row or 64-key
+# tiles
 FLASH_CASES = ((4, 256, 64, "float32", True, 64, 64),
                (2, 256, 128, "float32", False, 128, 64),
                (2, 512, 64, "float32", True, 128, 128),
-               (3, 128, 64, "bfloat16", True, 64, 32))
+               (3, 128, 64, "bfloat16", True, 64, 32),
+               (2, 256, 64, "bfloat16", False, 64, 64),
+               (2, 256, 128, "bfloat16", True, 128, 64),
+               (2, 256, 128, "bfloat16", False, 64, 64),
+               (2, 256, 256, "bfloat16", True, 128, 128),
+               (2, 256, 256, "bfloat16", False, 64, 64),
+               (3, 96, 64, "bfloat16", True, 32, 32),
+               (2, 96, 128, "bfloat16", False, 32, 32),
+               (2, 96, 256, "bfloat16", True, 32, 32),
+               (2, 96, 256, "float32", True, 32, 32))
+# gqa_flash in bf16 at (B, T, hd) with these (H, G), and gemma-2b's
+# prefill shape (B, T, H, G, hd)
+FLASH_GQA, FLASH_GQA_SHAPE = ((8, 1), (4, 2)), (2, 320, 256)
 FLASH_MAIN = (4, 1024, 8, 1, 256)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference test's
 SERVE_B, SERVE_T, SERVE_STEPS = 4, 1024, 32
@@ -673,13 +692,14 @@ def timing_entry(name, source, replaces, kernel, plain, library, nbytes,
                  flops_per_s=F32_FLOPS_PER_S) -> dict:
     """One kernel's row of the table: its time, its plain version's, a
     library call's (None where no single call computes the function),
-    and its bound, all at `shape`."""
+    and its bound, all at `shape`. `source`: the file of csrc/ that holds
+    the kernel."""
     us = time_us(kernel, flush)
     plain_us = time_us(plain, flush)
     lib_us = time_us(library, flush) if library else None
     b_us, b_by = bound_us(nbytes, flops, flops_per_s)
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "max_abs_err": max_abs_err, "tol": tol,
             "us": us, "ms": us / 1e3, "plain_us": plain_us,
             "plain_ms": plain_us / 1e3, "bound_us": b_us,
@@ -745,14 +765,15 @@ def phase_ops_kernels(wa, gd, dev) -> dict:
     k, n = x.shape
     table = {
         "batched_dot": timing_entry(
-            "batched_dot", "batched_dot",
+            "batched_dot", "batched_dot.cu",
             "src/repro/kernels/weighted_agg.py:347",
             lambda: wa.batched_dot(x, g), lambda: wa.batched_dot_plain(x, g),
             lambda: x @ g, 4 * (k * n + n + k), 2 * k * n, flush,
             main_abs["batched_dot"], TOL, (k, n)),
         # no single torch call returns all three sums
         "grad_dot_stats": timing_entry(
-            "grad_dot_stats", "grad_dot", "src/repro/kernels/grad_dot.py:61",
+            "grad_dot_stats", "grad_dot.cu",
+            "src/repro/kernels/grad_dot.py:61",
             lambda: gd.grad_dot_stats(x[0], g),
             lambda: gd.grad_dot_stats_plain(x[0], g), None, 4 * 2 * n + 12,
             6 * n, flush, main_abs["grad_dot_stats"], TOL, (n,)),
@@ -785,9 +806,13 @@ def allclose_err(got, want, tol) -> tuple[float, float]:
 
 
 def phase_flash_kernel(fa, dev) -> dict:
-    """flash_attention against its plain version at the reference test's
-    cases, and gqa_flash at gemma-2b's prefill shape; timed there against
-    SDPA (KV repeated to H) and the plain version."""
+    """flash_attention against its plain version at FLASH_CASES, gqa_flash
+    in bf16 at FLASH_GQA and at gemma-2b's prefill shape (bf16 and f32);
+    then both kernels timed at gemma's shape: bf16 (the tensor-core
+    kernel) and f32 (the CUDA-core kernel), each beside SDPA in its dtype
+    (KV repeated to H) and the plain version."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device=dev).manual_seed(4)
     checks = {}
     for bh, t, d, dtype, causal, bq, bk in FLASH_CASES:
@@ -799,38 +824,80 @@ def phase_flash_kernel(fa, dev) -> dict:
         torch.cuda.synchronize()
         checks[f"{bh}x{t}x{d}/{dtype}/causal={causal}/{bq}x{bk}"] = \
             allclose_err(got, want, FLASH_TOL[dtype])
+    b, t, hd = FLASH_GQA_SHAPE
+    for h, g in FLASH_GQA:
+        q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn(b, t, g, hd, device=dev,
+                            generator=gen).bfloat16() for _ in range(2))
+        checks[f"gqa {b}x{t}x{h}/{g}x{hd}/bfloat16/causal"] = allclose_err(
+            fa.gqa_flash(q, k, v, blk_q=64, blk_k=64),
+            gqa_plain(fa, q, k, v), FLASH_TOL["bfloat16"])
     b, t, h, g, hd = FLASH_MAIN
-    q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
-    k, v = (torch.randn(b, t, g, hd, device=dev, generator=gen).bfloat16()
-            for _ in range(2))
-    main = allclose_err(fa.gqa_flash(q, k, v), gqa_plain(fa, q, k, v),
-                        FLASH_TOL["bfloat16"])
-    checks[f"gemma-2b {b}x{t}x{h}/{g}x{hd}/bfloat16/causal"] = main
-    emit({"phase": "kernels", "flash_checks": checks})
+    main = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, t, h, hd, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(b, t, g, hd, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        err = allclose_err(fa.gqa_flash(q, k, v), gqa_plain(fa, q, k, v),
+                           FLASH_TOL[dtype])
+        checks[f"gemma-2b {b}x{t}x{h}/{g}x{hd}/{dtype}/causal"] = err
+        main[dtype] = (q, k, v, err[0])
+    worst = {dtype: max(e[1] for key, e in checks.items()
+                        if f"/{dtype}/" in key) for dtype in FLASH_TOL}
+    emit({"phase": "kernels", "flash_checks": checks,
+          "flash_worst_excess": worst})
     bad = {key: e for key, e in checks.items() if not e[1] <= 1.0}
     if bad:
         raise AssertionError(f"flash attention disagrees with its plain "
                              f"version: {bad}")
 
-    import torch.nn.functional as F
-
-    qh = q.movedim(2, 1).contiguous()  # (B, H, T, hd), SDPA's layout
-    kh, vh = (z.repeat_interleave(h // g, 2).movedim(2, 1).contiguous()
-              for z in (k, v))
     flush = torch.zeros(64 << 20, device=dev)
-    nbytes = 2 * (2 * b * t * h * hd + 2 * b * t * g * hd)
     flops = b * h * 2 * t * t * hd  # causal: half of 4 T^2 d per head
-    row = timing_entry(
-        "flash_attention", "flash_attn",
-        "src/repro/kernels/flash_attn.py:84",
-        lambda: fa.gqa_flash(q, k, v), lambda: gqa_plain(fa, q, k, v),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
-        nbytes, flops, flush, main[0], FLASH_TOL["bfloat16"],
-        FLASH_MAIN, flops_per_s=BF16_TC_FLOPS_PER_S)
-    row["bound_f32_cores_us"] = bound_us(nbytes, flops)[0]
-    row["max_err"] = max(e[1] for e in checks.values())
-    emit({"phase": "kernels", "timing": row})
-    return {"flash_attention": row}
+    table = {}
+    for name, dtype, source, rate in (
+            ("flash_attention", "bfloat16", "flash_mma.cuh",
+             BF16_TC_FLOPS_PER_S),
+            ("flash_attention_f32", "float32", "flash_attn.cu",
+             F32_FLOPS_PER_S)):
+        q, k, v, err = main[dtype]
+        qh = q.movedim(2, 1).contiguous()  # (B, H, T, hd), SDPA's layout
+        kh, vh = (z.repeat_interleave(h // g, 2).movedim(2, 1).contiguous()
+                  for z in (k, v))
+        nbytes = q.element_size() * (2 * b * t * h * hd + 2 * b * t * g * hd)
+        row = timing_entry(
+            name, source, "src/repro/kernels/flash_attn.py:84",
+            lambda: fa.gqa_flash(q, k, v), lambda: gqa_plain(fa, q, k, v),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=True),
+            nbytes, flops, flush, err, FLASH_TOL[dtype], FLASH_MAIN,
+            flops_per_s=rate)
+        row["dtype"], row["device_kernel"] = dtype, fa.KERNELS[q.dtype]
+        row["bound_f32_cores_us"] = bound_us(nbytes, flops)[0]
+        row["max_err"] = worst[dtype]
+        emit({"phase": "kernels", "timing": row})
+        table[name] = row
+    return table
+
+
+def sass_mma_counts(lib, kernel: str) -> dict:
+    """The tensor-core instructions (HMMA, HGMMA) in the SASS of every
+    instance of `kernel` in the built library `lib`, by cuobjdump (from
+    nvcc's directory): {mangled name: count}."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 def phase_serve(fa, dev) -> dict:
@@ -881,10 +948,15 @@ def phase_serve(fa, dev) -> dict:
     prefill_ms = float(np.median([p[1] for p in pre]))
     decode_ms = (total_ms - prefill_ms) / (SERVE_STEPS - 1)
     prof = profile_device(lambda: serve.generate(params, cfg, tokens, 1))
-    flash_us = prof["ported_by_kernel_us"].get("flash_fwd_kernel", 0.0)
-    if not (flash_us > 0 and prof["kernel_time_sum_us"] > 0):
-        raise AssertionError("the profiled prefill shows no device time "
-                             "for the flash kernel")
+    # bf16 attention must run on the tensor-core kernel, none on the f32 one
+    by_kernel = prof["ported_by_kernel_us"]
+    flash_us = by_kernel.get(fa.KERNELS[torch.bfloat16], 0.0)
+    if not (flash_us > 0 and prof["kernel_time_sum_us"] > 0) or \
+            by_kernel.get(fa.KERNELS[torch.float32], 0.0) > 0:
+        raise AssertionError(f"the profiled bf16 prefill shows ported "
+                             f"kernels {by_kernel}: want device time for "
+                             f"{fa.KERNELS[torch.bfloat16]} and none for "
+                             f"{fa.KERNELS[torch.float32]}")
     # two decode steps from a prefilled cache, profiled: where decode's
     # time goes (device events per step, idle share)
     with torch.no_grad():
@@ -923,7 +995,8 @@ def phase_serve(fa, dev) -> dict:
     with torch.no_grad():
         lf, _, _ = transformer.forward(params, fcfg, {"tokens": ptok},
                                        mode="prefill")
-        if fa.flash_attention.launches != cfg.num_layers:
+        f32_launches = fa.flash_attention.launches
+        if f32_launches != cfg.num_layers:
             raise AssertionError("the f32 flash prefill did not run the "
                                  "kernel once per layer")
         lx, _, _ = transformer.forward(
@@ -953,7 +1026,8 @@ def phase_serve(fa, dev) -> dict:
            "bf16_flash_vs_xla_same_last_argmax": bf16_same_argmax,
            "f32_parity": {"batch": PARITY_B, "prompt": PARITY_T,
                           "tol": PARITY_TOL, "max_abs": f32_abs,
-                          "excess": f32_excess},
+                          "excess": f32_excess,
+                          "flash_launches": f32_launches},
            "profile_prefill": prof, "profile_decode_2_steps": prof_decode}
     emit(out)
     return out
@@ -1063,12 +1137,19 @@ def main() -> int:
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
+    # the bf16 flash kernel must run on the tensor cores: mma in its SASS
+    mma = sass_mma_counts(_build.library_path("flash_attn"),
+                          fa.KERNELS[torch.bfloat16])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_mma_sass_mma_count": mma})
+    if len(mma) != len(fa.HEAD_DIMS) or not all(mma.values()):
+        raise AssertionError(f"{fa.KERNELS[torch.bfloat16]}: want HMMA or "
+                             f"HGMMA in each of {len(fa.HEAD_DIMS)} head-dim "
+                             f"instances, got {mma}")
 
     table = phase_kernels(wa, rs, tq, dev)
-    lm_table = {**phase_ops_kernels(wa, gd, dev), **phase_flash_kernel(fa,
-                                                                        dev)}
+    lm_table = {**phase_ops_kernels(wa, gd, dev),
+                **phase_flash_kernel(fa, dev)}
     phase_wire(tq, dev)
     nodes, test = image_task()
     launches = {t: phase_slice(wa, rs, tq, dev, nodes, test, t)
@@ -1083,7 +1164,10 @@ def main() -> int:
         wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
         row["launches"] = launches[row["wire"]][wrapper]
     # the LM kernels' launches: serving's generate call, and the ops path
+    # (bf16 in the generate call, f32 in the f32 model's prefill)
     lm_table["flash_attention"]["launches"] = serve_out["flash_launches"]
+    lm_table["flash_attention_f32"]["launches"] = \
+        serve_out["f32_parity"]["flash_launches"]
     for name in ("batched_dot", "grad_dot_stats"):
         lm_table[name]["launches"] = ops_launches[name]
     table.update(lm_table)

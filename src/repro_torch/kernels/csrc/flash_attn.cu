@@ -3,24 +3,26 @@
 // scores never leave the chip. q, k, v and o are (B, T, heads, D) or
 // (BH, T, D) arrays given by strides; q has H heads and k/v G heads,
 // query head h reading KV head h / (H / G) (grouped-query attention
-// without a repeated copy of k and v). Inputs f32 or bf16; all math f32;
-// o in the inputs' type.
+// without a repeated copy of k and v). bf16 inputs go to the tensor-core
+// kernel of flash_mma.cuh (its design is in that header); f32 inputs to
+// flash_fwd_kernel below, whose products stay on the CUDA cores in f32
+// (the f32 path's tolerances, 2e-5 against the reference, rule out TF32).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attn.py::flash_attention
-// (_kernel, via _flash_fwd_impl) and the jnp.repeat of gqa_flash. It
-// computes what _kernel computes: q scaled in f32 before the product,
-// masked scores set to NEG_INF = -1e30 (not -inf), the running max m and
-// sum l rescaled by exp(m - m_new), and the output divided by
+// (_kernel, via _flash_fwd_impl) and the jnp.repeat of gqa_flash. The f32
+// kernel computes what _kernel computes: q scaled in f32 before the
+// product, masked scores set to NEG_INF = -1e30 (not -inf), the running
+// max m and sum l rescaled by exp(m - m_new), and the output divided by
 // max(l, 1e-30). Its tiles are its own; key tiles that lie wholly above
 // the causal diagonal are skipped (in the reference they contribute
 // exactly 0 to l and acc).
 //
-// Design (a first, simple kernel: f32 FMAs on the CUDA cores, no tensor
-// cores). One CTA of 8 warps per (batch x head, 64-row query tile). The
-// query tile is staged in shared memory once, scaled and widened to f32;
-// then 32-key tiles of K and V are staged in turn (K rows padded by 4
-// floats, so that 32 lanes reading 32 different rows with 16-byte loads
-// hit distinct banks). Each warp owns 8 query rows:
+// Design of the f32 kernel (f32 FMAs on the CUDA cores). One CTA of 8
+// warps per (batch x head, 64-row query tile). The query tile is staged
+// in shared memory once, scaled; then 32-key tiles of K and V are staged
+// in turn (K rows padded by 4 floats, so that 32 lanes reading 32
+// different rows with 16-byte loads hit distinct banks). Each warp owns
+// 8 query rows:
 //   scores: lane j computes the 8 scores of key j (q rows broadcast from
 //     shared memory, k row j from shared memory);
 //   softmax: the row max and sum are warp shuffles; every lane keeps m
@@ -30,25 +32,23 @@
 //     columns of each of the 8 rows, 8 * D/32 f32 accumulators in
 //     registers (64 at D = 256, the accumulator spread over the warps).
 // Shared memory: (64 D + 32 (D + 4) + 32 D + 64 * 32) floats, 137 KB at
-// D = 256, so one CTA per SM there (the query tile in f32 takes half).
-// Query tiles are issued heaviest first (the last tiles of a causal row
-// see the most keys).
+// D = 256, so one CTA per SM there. Query tiles are issued heaviest first
+// (the last tiles of a causal row see the most keys).
 //
-// What bounds it on Hopper: operations. At the serving shape (B = 4,
-// H = 8, T = 1024, D = 256, causal) it does 17.2 GFLOP for 37.7 MB of
-// input and output: ~450 flop per byte, above the bf16 tensor-core ridge
-// (~295), so the bound is the tensor cores' 989 TFLOP/s (17 us). This
-// kernel uses the f32 CUDA cores (67 TFLOP/s, 256 us): it took 830 us
-// there, 14x SDPA's time (chip_smoke.py, H100 80GB HBM3 at 700 W).
-// 32-row query tiles with 4 warps, two CTAs per SM, took 4% longer
-// (chip_ab.py). A redesign on the tensor cores (mma / wgmma, TMA) is the
-// next step (ROADMAP Queue 2).
+// What bounds it on Hopper: operations. At gemma-2b's prefill shape
+// (B = 4, H = 8, T = 1024, D = 256, causal) attention does 17.2 GFLOP
+// for 75 MB of f32 input and output, so the bound on the f32 CUDA cores
+// (67 TFLOP/s) is 256 us. In bf16 this kernel took 830 us there
+// (chip_smoke.py, H100 80GB HBM3 at 700 W), 14x SDPA's time, before bf16
+// moved to the tensor cores. 32-row query tiles with 4 warps, two CTAs
+// per SM, took 4% longer (chip_ab.py).
 
 #include <climits>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -88,25 +88,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16 bytes at p, widened to f32: 4 floats or 8 bf16 (raw 16-bit words).
+// 16 bytes at p: 4 floats.
 __device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
-__device__ __forceinline__ void load16(const uint16_t* p, float (&v)[8]) {
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(uint16_t* p, float x) {
-  *p = __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
 
 // Rows [r0, r0 + ROWS) of a (T, D) slab with row stride st, widened to
 // f32 and multiplied by mul, into dst with row stride SS (floats). Rows
@@ -323,7 +311,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // `strides` (D one of 64, 128, 256; kernels/flash_attn.py's HEAD_DIMS):
 // 12 element strides (batch, head, time) for q, k, v, o; the
 // last axis is contiguous and every row 16-byte aligned. bf16 != 0: the
-// four arrays are bf16 (raw 16-bit words), else f32. H % G == 0.
+// four arrays are bf16 (raw 16-bit words), computed by
+// flash_mma::flash_mma_kernel on the tensor cores; else f32, computed by
+// flash_fwd_kernel. H % G == 0.
 // Returns a cudaError_t: 0 when the launch was accepted. Never
 // synchronises.
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
@@ -335,8 +325,8 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
       static_cast<long long>(B) * H > INT_MAX || (T + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e =
-      bf16 ? dispatch<uint16_t>(q, k, v, o, strides, B, H, G, T, D, scale,
-                                causal, stream)
+      bf16 ? flash_mma::dispatch(q, k, v, o, strides, B, H, G, T, D, scale,
+                                 causal, stream)
            : dispatch<float>(q, k, v, o, strides, B, H, G, T, D, scale,
                              causal, stream);
   return static_cast<int>(e);

@@ -7,14 +7,18 @@ that never writes the (T, T) scores to device memory.
 
 Both replace `repro/kernels/flash_attn.py` (the Pallas `_kernel` through
 `_flash_fwd_impl`, and `gqa_flash`) with the reference's signatures;
-CUDA source `csrc/flash_attn.cu` (the design is in its header). `blk_q`
-and `blk_k` keep only the reference's divisibility asserts: the kernel's
-tiles are its own. Mismatched shapes raise ValueError (the reference
-asserts), so that no shape reaches the kernel unchecked under
-`python -O`. `gqa_flash` hands the kernel the KV head of each query head
-(h // (H / G)) instead of repeating k and v: the same function without
-the copy. Math is f32 whatever the input (f32 or bf16); the output is in
-q's dtype.
+CUDA source `csrc/flash_attn.cu`, one entry point for two kernels
+(`KERNELS`): bf16 inputs run `flash_mma_kernel` (`csrc/flash_mma.cuh`),
+whose two products are bf16 `wgmma` on the tensor cores with f32
+accumulators, fed by TMA, and whose softmax is f32; f32 inputs run
+`flash_fwd_kernel`, all f32 on the CUDA cores (the f32 tolerance, 2e-5,
+rules out TF32). The designs are in the sources' headers. `blk_q` and
+`blk_k` keep only the reference's divisibility asserts: the kernels'
+tiles are their own; any T >= 1 runs (a ragged last tile is masked). Mismatched shapes raise
+ValueError (the reference asserts), so that no shape reaches the kernel
+unchecked under `python -O`. `gqa_flash` hands the kernel the KV head of
+each query head (h // (H / G)) instead of repeating k and v: the same
+function without the copy. The output is in q's dtype.
 
 A wrapper takes the plain version (`flash_attention_plain`, the naive
 softmax of `repro/kernels/ref.py::flash_attention`) only for tensors
@@ -22,7 +26,7 @@ that lie on the CPU. On CUDA tensors it launches the kernel or raises;
 it also raises when an input requires grad, because the kernel has no
 backward yet (the reference's backward is a jnp recompute; it comes with
 the training slice). `flash_attention.launches` counts the kernel's
-launches from either wrapper.
+launches from either wrapper, of either kernel.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash_attn.cu is built for
+# the device kernel each input dtype runs, by the name a profiler shows
+KERNELS = {torch.bfloat16: "flash_mma_kernel",
+           torch.float32: "flash_fwd_kernel"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P]

@@ -8,9 +8,18 @@ inputs are made in f32 numpy and cast in each framework (both round to
 nearest even, so both see the same bits). Tolerances are the
 reference's own: 2e-5 for f32, 3e-2 for bf16.
 
+The bf16 CUDA kernel (csrc/flash_mma.cuh) rounds where the reference
+does not: it scales the f32 scores after the product, takes exp2 with
+log2(e) folded into the scale, and rounds the probabilities to bf16 for
+the P V product on the tensor cores. `_tensor_core_emulation` repeats
+that rounding in plain torch, and is held to the Pallas kernel here, so
+that the design's numerics are shown to fit the reference on the CPU.
+
 `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash.py`
 runs the card-only class (it imports no jax).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -78,6 +87,62 @@ def test_gqa_flash_matches_pallas(dtype):
                                rtol=tol)
 
 
+def _tensor_core_emulation(q, k, v, causal, blk_k=64):
+    """The bf16 kernel's arithmetic on (BH, T, d) bf16 tensors: scores of
+    the bf16 q and k in f32, times scale * log2(e) after the product;
+    masked scores -1e30; an online softmax over `blk_k`-key tiles (the
+    kernel's) in exp2; l summed from the f32 probabilities, which are
+    then rounded to bf16 for P V (f32 sums); acc / max(l, 1e-30) in
+    bf16."""
+    bh, t, d = q.shape
+    s = torch.einsum("btd,bsd->bts", q.float(), k.float()) * (
+        math.log2(math.e) / math.sqrt(d))
+    if causal:
+        keep = torch.arange(t)[None, :] <= torch.arange(t)[:, None]
+        s = torch.where(keep, s, torch.full_like(s, tfa.NEG_INF))
+    m = torch.full((bh, t), tfa.NEG_INF)
+    l = torch.zeros((bh, t))
+    acc = torch.zeros((bh, t, d))
+    for k0 in range(0, t, blk_k):
+        st = s[:, :, k0:k0 + blk_k]
+        m_new = torch.maximum(m, st.amax(-1))
+        p = torch.exp2(st - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bts,bsd->btd", p.bfloat16().float(),
+            v[:, k0:k0 + blk_k].float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+# (BH, T, d, causal, blk_q, blk_k): the reference test's bf16 case, then
+# the kernel's other head dims, 256 (gemma's) causal and not
+EMULATION_CASES = [
+    (3, 128, 64, True, 64, 32),
+    (2, 128, 64, False, 64, 64),
+    (2, 96, 128, True, 32, 32),
+    (2, 64, 256, True, 32, 32),
+    (2, 96, 256, False, 32, 32),
+]
+
+
+@pytest.mark.parametrize("bh,t,d,causal,bq,bk", EMULATION_CASES)
+def test_tensor_core_rounding_matches_pallas(bh, t, d, causal, bq, bk):
+    from repro.kernels import flash_attn as jfa
+
+    q, k, v = _qkv([(bh, t, d)] * 3, seed=7)
+    want = jfa.flash_attention(_jax(q, "bfloat16"), _jax(k, "bfloat16"),
+                               _jax(v, "bfloat16"), causal, bq, bk)
+    got = _tensor_core_emulation(_torch(q, "bfloat16"),
+                                 _torch(k, "bfloat16"),
+                                 _torch(v, "bfloat16"), causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, t, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
 def test_plain_matches_reference_oracle_non_causal_bf16():
     from repro.kernels import ref
 
@@ -132,7 +197,18 @@ class TestFlashOnCard:
 
     @pytest.mark.parametrize("bh,t,d,dtype,causal,bq,bk", CASES + [
         (2, 256, 256, "float32", True, 128, 128),
-        (2, 256, 256, "bfloat16", False, 128, 128)])
+        (2, 256, 256, "bfloat16", False, 128, 128),
+        # the tensor-core kernel: every head dim, causal and not, and T
+        # not a multiple of its tiles (96; 40, not one of 16 mma rows)
+        (2, 256, 64, "bfloat16", False, 64, 64),
+        (2, 256, 128, "bfloat16", True, 128, 64),
+        (2, 256, 128, "bfloat16", False, 64, 64),
+        (2, 256, 256, "bfloat16", True, 64, 64),
+        (3, 96, 64, "bfloat16", True, 32, 32),
+        (2, 96, 256, "bfloat16", False, 32, 32),
+        (2, 40, 128, "bfloat16", True, 8, 8),
+        (2, 40, 256, "bfloat16", False, 8, 8),
+        (2, 96, 256, "float32", True, 32, 32)])
     def test_flash_attention(self, cuda_device, bh, t, d, dtype, causal, bq,
                              bk):
         q, k, v = (_torch(a, dtype, cuda_device)
@@ -157,6 +233,49 @@ class TestFlashOnCard:
         want = tfa.gqa_flash(q.cpu(), kx.cpu(), vx.cpu(), blk_q=64,
                              blk_k=64)
         torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+
+    @pytest.mark.parametrize("h,g", [(8, 1), (4, 2), (4, 4)])
+    def test_gqa_flash_bf16_on_the_tensor_cores(self, cuda_device, h, g):
+        b, t, hd = 2, 192, 256
+        q, k, v = (_torch(a, "bfloat16", cuda_device) for a in _qkv(
+            [(b, t, h, hd), (b, t, g, hd), (b, t, g, hd)], seed=6))
+        got = tfa.gqa_flash(q, k, v, blk_q=64, blk_k=64)
+        want = tfa.gqa_flash(q.cpu(), k.cpu(), v.cpu(), blk_q=64, blk_k=64)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=3e-2, rtol=3e-2)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_strided_views_are_read_in_place(self, cuda_device, dtype):
+        # q, k, v as slices of one fused (B, T, H + 2G, hd) projection:
+        # rows (H + 2G) hd apart, no copy made
+        b, t, h, g, hd = 2, 160, 4, 2, 128
+        (qkv,) = _qkv([(b, t, h + 2 * g, hd)], seed=8)
+        qkv = _torch(qkv, dtype, cuda_device)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + g], qkv[:, :, h + g:]
+        assert not q.is_contiguous()
+        got = tfa.gqa_flash(q, k, v, blk_q=32, blk_k=32)
+        want = tfa.gqa_flash(q.cpu().contiguous(), k.cpu().contiguous(),
+                             v.cpu().contiguous(), blk_q=32, blk_k=32)
+        tol = _tol(dtype)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_each_dtype_launches_its_kernel(self, cuda_device, dtype):
+        from torch.profiler import ProfilerActivity, profile
+
+        dt = getattr(torch, dtype)
+        q, k, v = (_torch(a, dtype, cuda_device) for a in _qkv(
+            [(2, 128, 4, 256), (2, 128, 1, 256), (2, 128, 1, 256)]))
+        before = tfa.flash_attention.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa.gqa_flash(q, k, v, blk_q=64, blk_k=64)
+            torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == before + 1
+        names = [e.key for e in prof.key_averages()]
+        other = [n for d, n in tfa.KERNELS.items() if d != dt]
+        assert any(tfa.KERNELS[dt] in n for n in names), names
+        assert not any(o in n for o in other for n in names), names
 
     def test_refuses_grad_and_unsupported_inputs(self, cuda_device):
         q = torch.zeros((1, 64, 64), device=cuda_device, requires_grad=True)
