@@ -17,8 +17,10 @@ flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN), in
 bf16 and in f32 (two kernels of one source). The two builds take turns:
 repo, DIR, DIR, repo, R times over, each turn the median of
 chip_smoke.REPS launches on a cold L2 (chip_smoke.time_us). It prints one
-JSON line per variant with every turn's time and the two medians, then
-the card's name and power limit.
+JSON line per variant with every turn's time and the two medians (for
+flash attention also each build's worst error against the plain version,
+as a multiple of the reference test's allowance), then the card's name
+and power limit.
 A source that DIR does not hold is not timed.
 """
 from __future__ import annotations
@@ -118,11 +120,14 @@ def main() -> int:
             for _ in range(2))
     rows["flash_attention"] = dict(source="flash_attn",
                                    shape=list(cs.FLASH_MAIN),
-                                   kernel=lambda: fa.gqa_flash(q, k, v))
+                                   kernel=lambda: fa.gqa_flash(q, k, v),
+                                   want=cs.gqa_plain(fa, q, k, v),
+                                   tol=cs.FLASH_TOL["bfloat16"])
     q32, k32, v32 = q.float(), k.float(), v.float()
     rows["flash_attention_f32"] = dict(
         source="flash_attn", shape=list(cs.FLASH_MAIN),
-        kernel=lambda: fa.gqa_flash(q32, k32, v32))
+        kernel=lambda: fa.gqa_flash(q32, k32, v32),
+        want=cs.gqa_plain(fa, q32, k32, v32), tol=cs.FLASH_TOL["float32"])
 
     flush = torch.zeros(64 << 20, device=dev)
     for name, r in rows.items():
@@ -145,6 +150,12 @@ def main() -> int:
                     _build._LIBS[src] = repo[src] if which == "repo" else \
                         alt[src]
                     times[which].append(cs.time_us(r["kernel"], flush))
+            excess = {}
+            if "want" in r:  # each build's output against the plain version
+                for which, lib in (("repo", repo[src]), ("alt", alt[src])):
+                    _build._LIBS[src] = lib
+                    excess[f"{which}_max_excess"] = cs.allclose_err(
+                        r["kernel"](), r["want"], r["tol"])[1]
             _build._LIBS[src] = repo[src]
             med = {k: float(np.median(v)) for k, v in times.items()}
             print(json.dumps({
@@ -152,7 +163,8 @@ def main() -> int:
                 "shape": r.get("shape", [cs.MAIN_K, cs.MAIN_N]),
                 "repo_us": times["repo"], "alt_us": times["alt"],
                 "repo_median_us": med["repo"], "alt_median_us": med["alt"],
-                "alt_over_repo": med["alt"] / med["repo"]}), flush=True)
+                "alt_over_repo": med["alt"] / med["repo"], **excess}),
+                flush=True)
     print(smi)
     return 0
 

@@ -15,15 +15,15 @@ phase prints one JSON line; any failure raises and the script exits
 non-zero. It imports nothing of jax or of the JAX package `repro`.
 
 Phases: device, build (all seven sources at once; ptxas's registers and
-spills; the HMMA / HGMMA count in the SASS of the bf16 flash kernel,
-which must not be 0), kernels (correctness of the f32 kernels on f32 and
+spills; the HMMA / HGMMA count in the SASS of each head-dim instance of
+both flash kernels, bf16 and f32, which must not be 0), kernels (correctness of the f32 kernels on f32 and
 bf16 input and of the int8 / int4 wire kernels at the main path's shape
 and at edge shapes, then timing of every kernel variant; batched_dot and
 grad_dot_stats the same; flash attention at the reference test's cases,
-at every head dim of the bf16 tensor-core kernel, causal and not, at a
-ragged T, through gqa_flash with grouped KV heads, and at gemma-2b's
-prefill shape, where the bf16 and the f32 kernel are timed against
-SDPA), wire (the quantizer on the card equals the quantizer on the CPU
+at every head dim of both kernels, causal and not, at ragged T, through
+gqa_flash with grouped KV heads, and at gemma-2b's prefill shape, where
+the bf16 and the f32 kernel are timed against SDPA, whose device kernel
+is named from a profile), wire (the quantizer on the card equals the quantizer on the CPU
 bit for bit), slice (per wire: 3 CNN rounds with eval, with 2
 aggregation + 1 statistics launches of the wire's kernels per round, the
 quantizer's time, flat == tree on the card, one more round under
@@ -33,7 +33,7 @@ and int4), serve (gemma-2b, B = 4, prompt 1024, 32 greedy steps: 18
 flash launches per prefill and none in decode, prefill and decode times,
 peak memory, the tensor-core kernel's share of a profiled prefill, where
 the f32 kernel must not appear; flash == xla prefill logits on the f32
-model, on the f32 kernel), ops (tree_vdot_batched and tree_dot_and_norms
+model, on the f32 kernel, and the two f32 prefill times), ops (tree_vdot_batched and tree_dot_and_norms
 on the tree view of a CNN round's (K, N) buffer equal that round's
 round_stats). Then, on lines of their own: the kernel table as one JSON
 object, the card's name and power limit as nvidia-smi reports them, and
@@ -41,7 +41,8 @@ last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 prints no result and exits non-zero. TF32 is off for matmuls and cuDNN
-convs, so f32 means f32 everywhere.
+convs, so f32 means f32 everywhere (the f32 flash kernel's 3xTF32 holds
+f32 accuracy).
 """
 from __future__ import annotations
 
@@ -59,10 +60,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside the tensor
 # cores (the FL kernels are f32 elementwise-and-reduce work) and dense
-# bf16 on the tensor cores (where attention's products would run).
+# bf16 on the tensor cores (where attention's products would run); f32
+# products held to f32 accuracy on the tensor cores are 3xTF32, three
+# TF32 products (495 TFLOP/s dense) for each f32 one.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
+TF32X3_FLOPS_PER_S = 495e12 / 3
 TOL = 1e-5
 MAIN_K, MAIN_N = 10, 1_663_370  # K clients x the CNN's parameter count
 EDGE_KS = (1, 3, 37, 128)
@@ -79,12 +83,11 @@ SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
            "flash_attn", "batched_dot", "grad_dot")
 # device kernels of the ported sources, by name, for the profile
 PORTED = ("agg_kernel", "agg_q8_kernel", "agg_q4_kernel", "stats_stage",
-          "stats_q8_stage", "stats_q4_stage", "flash_fwd_kernel",
+          "stats_q8_stage", "stats_q4_stage", "flash_tf32_kernel",
           "flash_mma_kernel", "bdot_stage", "gdot_stage")
 # flash attention (BH, T, d, dtype, causal, blk_q, blk_k): the reference
-# test's cases, then the bf16 (tensor-core) kernel at every head dim,
-# causal and not, and at T = 96, not a multiple of its 128-row or 64-key
-# tiles
+# test's cases, then each kernel (bf16 and f32) at every head dim, causal
+# and not, and at T = 96 and 40, not a multiple of its tiles
 FLASH_CASES = ((4, 256, 64, "float32", True, 64, 64),
                (2, 256, 128, "float32", False, 128, 64),
                (2, 512, 64, "float32", True, 128, 128),
@@ -97,10 +100,20 @@ FLASH_CASES = ((4, 256, 64, "float32", True, 64, 64),
                (3, 96, 64, "bfloat16", True, 32, 32),
                (2, 96, 128, "bfloat16", False, 32, 32),
                (2, 96, 256, "bfloat16", True, 32, 32),
-               (2, 96, 256, "float32", True, 32, 32))
-# gqa_flash in bf16 at (B, T, hd) with these (H, G), and gemma-2b's
+               (2, 96, 256, "float32", True, 32, 32),
+               (2, 256, 64, "float32", False, 64, 64),
+               (2, 256, 128, "float32", True, 128, 64),
+               (2, 256, 256, "float32", True, 128, 128),
+               (2, 256, 256, "float32", False, 64, 64),
+               (3, 96, 64, "float32", True, 32, 32),
+               (2, 96, 128, "float32", False, 32, 32),
+               (2, 96, 256, "float32", False, 32, 32),
+               (2, 40, 128, "float32", True, 8, 8),
+               (2, 40, 256, "float32", False, 8, 8))
+# gqa_flash at (B, T, hd) with these (H, G, dtype), and gemma-2b's
 # prefill shape (B, T, H, G, hd)
-FLASH_GQA, FLASH_GQA_SHAPE = ((8, 1), (4, 2)), (2, 320, 256)
+FLASH_GQA = ((8, 1, "bfloat16"), (4, 2, "bfloat16"), (4, 2, "float32"))
+FLASH_GQA_SHAPE = (2, 320, 256)
 FLASH_MAIN = (4, 1024, 8, 1, 256)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference test's
 SERVE_B, SERVE_T, SERVE_STEPS = 4, 1024, 32
@@ -807,10 +820,12 @@ def allclose_err(got, want, tol) -> tuple[float, float]:
 
 def phase_flash_kernel(fa, dev) -> dict:
     """flash_attention against its plain version at FLASH_CASES, gqa_flash
-    in bf16 at FLASH_GQA and at gemma-2b's prefill shape (bf16 and f32);
-    then both kernels timed at gemma's shape: bf16 (the tensor-core
-    kernel) and f32 (the CUDA-core kernel), each beside SDPA in its dtype
-    (KV repeated to H) and the plain version."""
+    at FLASH_GQA and at gemma-2b's prefill shape (bf16 and f32); then both
+    kernels timed at gemma's shape: bf16 (bf16 wgmma) and f32 (3xTF32
+    mma.sync), each beside SDPA in its dtype (KV repeated to H), with the
+    device kernel SDPA ran in one profiled call, and the plain version.
+    The f32 row's bound is the 3xTF32 one on the tensor cores; the bound
+    on the f32 CUDA cores is given beside it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -825,13 +840,14 @@ def phase_flash_kernel(fa, dev) -> dict:
         checks[f"{bh}x{t}x{d}/{dtype}/causal={causal}/{bq}x{bk}"] = \
             allclose_err(got, want, FLASH_TOL[dtype])
     b, t, hd = FLASH_GQA_SHAPE
-    for h, g in FLASH_GQA:
-        q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
-        k, v = (torch.randn(b, t, g, hd, device=dev,
-                            generator=gen).bfloat16() for _ in range(2))
-        checks[f"gqa {b}x{t}x{h}/{g}x{hd}/bfloat16/causal"] = allclose_err(
+    for h, g, dtype in FLASH_GQA:
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, t, h, hd, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(b, t, g, hd, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        checks[f"gqa {b}x{t}x{h}/{g}x{hd}/{dtype}/causal"] = allclose_err(
             fa.gqa_flash(q, k, v, blk_q=64, blk_k=64),
-            gqa_plain(fa, q, k, v), FLASH_TOL["bfloat16"])
+            gqa_plain(fa, q, k, v), FLASH_TOL[dtype])
     b, t, h, g, hd = FLASH_MAIN
     main = {}
     for dtype in ("bfloat16", "float32"):
@@ -859,21 +875,26 @@ def phase_flash_kernel(fa, dev) -> dict:
             ("flash_attention", "bfloat16", "flash_mma.cuh",
              BF16_TC_FLOPS_PER_S),
             ("flash_attention_f32", "float32", "flash_attn.cu",
-             F32_FLOPS_PER_S)):
+             TF32X3_FLOPS_PER_S)):
         q, k, v, err = main[dtype]
         qh = q.movedim(2, 1).contiguous()  # (B, H, T, hd), SDPA's layout
         kh, vh = (z.repeat_interleave(h // g, 2).movedim(2, 1).contiguous()
                   for z in (k, v))
         nbytes = q.element_size() * (2 * b * t * h * hd + 2 * b * t * g * hd)
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
         row = timing_entry(
             name, source, "src/repro/kernels/flash_attn.py:84",
             lambda: fa.gqa_flash(q, k, v), lambda: gqa_plain(fa, q, k, v),
-            lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                   is_causal=True),
-            nbytes, flops, flush, err, FLASH_TOL[dtype], FLASH_MAIN,
+            sdpa, nbytes, flops, flush, err, FLASH_TOL[dtype], FLASH_MAIN,
             flops_per_s=rate)
         row["dtype"], row["device_kernel"] = dtype, fa.KERNELS[q.dtype]
+        # which kernel the library call ran: the longest one of a profile
+        row["library_device_kernel"] = profile_device(sdpa)["top"][0]
         row["bound_f32_cores_us"] = bound_us(nbytes, flops)[0]
+        row["bound_tf32x3_tensor_cores_us"] = bound_us(
+            nbytes, flops, TF32X3_FLOPS_PER_S)[0]
         row["max_err"] = worst[dtype]
         emit({"phase": "kernels", "timing": row})
         table[name] = row
@@ -999,11 +1020,22 @@ def phase_serve(fa, dev) -> dict:
         if f32_launches != cfg.num_layers:
             raise AssertionError("the f32 flash prefill did not run the "
                                  "kernel once per layer")
-        lx, _, _ = transformer.forward(
-            params, dataclasses.replace(fcfg, attention_impl="xla"),
-            {"tokens": ptok}, mode="prefill")
+        xfcfg = dataclasses.replace(fcfg, attention_impl="xla")
+        lx, _, _ = transformer.forward(params, xfcfg, {"tokens": ptok},
+                                       mode="prefill")
         f32_abs, f32_excess = allclose_err(lf, lx, PARITY_TOL)
-    del params, lf, lx
+        del lf, lx
+        f32_prefill_ms = {}  # median of 3 prefills each, after the above
+        for impl, c in (("flash", fcfg), ("xla", xfcfg)):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                transformer.forward(params, c, {"tokens": ptok},
+                                    mode="prefill")
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            f32_prefill_ms[impl] = float(np.median(runs))
+    del params
     torch.cuda.empty_cache()
     if not f32_excess <= 1.0:
         raise AssertionError(f"f32 prefill logits: flash vs xla max |d| "
@@ -1027,7 +1059,8 @@ def phase_serve(fa, dev) -> dict:
            "f32_parity": {"batch": PARITY_B, "prompt": PARITY_T,
                           "tol": PARITY_TOL, "max_abs": f32_abs,
                           "excess": f32_excess,
-                          "flash_launches": f32_launches},
+                          "flash_launches": f32_launches,
+                          "prefill_ms": f32_prefill_ms},
            "profile_prefill": prof, "profile_decode_2_steps": prof_decode}
     emit(out)
     return out
@@ -1137,15 +1170,19 @@ def main() -> int:
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
-    # the bf16 flash kernel must run on the tensor cores: mma in its SASS
-    mma = sass_mma_counts(_build.library_path("flash_attn"),
-                          fa.KERNELS[torch.bfloat16])
+    # both flash kernels must run on the tensor cores: mma in their SASS
+    mma = {dt: sass_mma_counts(_build.library_path("flash_attn"),
+                               fa.KERNELS[dt])
+           for dt in (torch.bfloat16, torch.float32)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas, "flash_mma_sass_mma_count": mma})
-    if len(mma) != len(fa.HEAD_DIMS) or not all(mma.values()):
-        raise AssertionError(f"{fa.KERNELS[torch.bfloat16]}: want HMMA or "
-                             f"HGMMA in each of {len(fa.HEAD_DIMS)} head-dim "
-                             f"instances, got {mma}")
+          "ptxas": ptxas,
+          "flash_sass_mma_count": {fa.KERNELS[dt]: c
+                                   for dt, c in mma.items()}})
+    for dt, counts in mma.items():
+        if len(counts) != len(fa.HEAD_DIMS) or not all(counts.values()):
+            raise AssertionError(f"{fa.KERNELS[dt]}: want HMMA or HGMMA in "
+                                 f"each of {len(fa.HEAD_DIMS)} head-dim "
+                                 f"instances, got {counts}")
 
     table = phase_kernels(wa, rs, tq, dev)
     lm_table = {**phase_ops_kernels(wa, gd, dev),

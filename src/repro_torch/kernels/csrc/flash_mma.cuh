@@ -2,7 +2,7 @@
 // o = softmax(q k^T * scale [causal mask]) v per (batch, head), with an
 // online softmax so that the (T, T) scores never leave the chip. Included
 // by flash_attn.cu, whose repro_flash_attn sends bf16 inputs here (f32
-// inputs keep the CUDA-core flash_fwd_kernel there). Layout as there:
+// inputs go to flash_tf32_kernel there). Layout as there:
 // q, k, v, o are (B, T, heads, D) given by strides, q with H heads and
 // k/v with G, query head h reading KV head h / (H / G) in place.
 //

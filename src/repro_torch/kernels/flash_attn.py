@@ -11,8 +11,10 @@ CUDA source `csrc/flash_attn.cu`, one entry point for two kernels
 (`KERNELS`): bf16 inputs run `flash_mma_kernel` (`csrc/flash_mma.cuh`),
 whose two products are bf16 `wgmma` on the tensor cores with f32
 accumulators, fed by TMA, and whose softmax is f32; f32 inputs run
-`flash_fwd_kernel`, all f32 on the CUDA cores (the f32 tolerance, 2e-5,
-rules out TF32). The designs are in the sources' headers. `blk_q` and
+`flash_tf32_kernel`, whose two products are `mma.sync` on the tensor
+cores as 3xTF32 (each f32 operand split into two TF32 parts, three
+products accumulated in f32: the f32 tolerance, 2e-5, rules out one-pass
+TF32, not this). The designs are in the sources' headers. `blk_q` and
 `blk_k` keep only the reference's divisibility asserts: the kernels'
 tiles are their own; any T >= 1 runs (a ragged last tile is masked). Mismatched shapes raise
 ValueError (the reference asserts), so that no shape reaches the kernel
@@ -40,7 +42,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash_attn.cu is built for
 # the device kernel each input dtype runs, by the name a profiler shows
 KERNELS = {torch.bfloat16: "flash_mma_kernel",
-           torch.float32: "flash_fwd_kernel"}
+           torch.float32: "flash_tf32_kernel"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
               ctypes.c_float, _P]
