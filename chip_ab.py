@@ -3,6 +3,7 @@
 in one process on one NVIDIA GPU.
 
     python3 chip_ab.py --alt DIR [--alt DIR ...] [--rounds R]
+    python3 chip_ab.py --tree DIR [--rounds R]
 
 from the repository root.
 
@@ -21,7 +22,17 @@ JSON line per variant with every turn's time and the two medians (for
 flash attention also each build's worst error against the plain version,
 as a multiple of the reference test's allowance), then the card's name
 and power limit.
-A source that DIR does not hold is not timed.
+A source that DIR does not hold is not timed, and a variant whose entry
+point DIR's build lacks (a C interface that changed) is reported as
+skipped.
+
+--tree DIR times across such a change: DIR holds another checkout of the
+whole repository (an earlier commit's, unpacked with `git archive`). Each
+turn is a process that builds that tree's kernels and runs its own
+chip_smoke.py kernels phase (checks and timings), in the order DIR, repo,
+repo, DIR, DIR, repo, ... for 2R turns (R each); it prints one JSON line
+per timed variant with every turn's µs and the two medians, then the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -66,17 +77,72 @@ def build_alt(alt: Path, names, build_dir: Path) -> dict:
     return libs
 
 
+# one turn of --tree: the kernels phase of the checkout at argv[1]
+_TREE_TURN = """
+import sys
+import torch
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import chip_smoke as cs
+from repro_torch import transport as tq
+from repro_torch.kernels import _build, round_stats as rs
+from repro_torch.kernels import weighted_agg as wa
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build(cs.SOURCES)
+cs.phase_kernels(wa, rs, tq, torch.device("cuda", 0))
+"""
+
+
+def tree_turns(tree: Path, rounds: int) -> int:
+    """--tree: the kernels phase of `tree` and of this checkout, each
+    in its own process, in turns."""
+    import chip_smoke as cs
+
+    roots = {"tree": str(tree.resolve()), "repo": ROOT}
+    order = ("tree", "repo", "repo", "tree") * rounds
+    times = {}  # variant -> {"tree": [...], "repo": [...]}
+    for which in order[:2 * rounds]:
+        out = subprocess.run([sys.executable, "-c", _TREE_TURN,
+                              roots[which]], capture_output=True, text=True,
+                             cwd=roots[which], check=False)
+        if out.returncode:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the kernels phase of {roots[which]} "
+                               f"failed (exit {out.returncode})")
+        for line in out.stdout.splitlines():
+            row = json.loads(line).get("timing") if line.startswith("{") \
+                else None
+            if row:
+                times.setdefault(row["name"], {"tree": [], "repo": []})[
+                    which].append(row["us"])
+    for name, t in times.items():
+        med = {k: float(np.median(v)) for k, v in t.items() if v}
+        print(json.dumps({"variant": name, "tree": roots["tree"],
+                          "repo_us": t["repo"], "tree_us": t["tree"],
+                          "repo_median_us": med.get("repo"),
+                          "tree_median_us": med.get("tree"),
+                          "repo_over_tree": med["repo"] / med["tree"]
+                          if len(med) == 2 else None}), flush=True)
+    print(cs.nvidia_smi())
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--alt", required=True, type=Path, action="append",
+    ap.add_argument("--alt", type=Path, action="append",
                     help="directory of other kernel sources (repeatable)")
+    ap.add_argument("--tree", type=Path,
+                    help="another checkout of the repository")
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
+    if (args.alt is None) == (args.tree is None):
+        ap.error("give --alt DIR ... or --tree DIR")
     if not torch.cuda.is_available():
         print("chip_ab: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
+    if args.tree is not None:
+        return tree_turns(args.tree, args.rounds)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     import chip_smoke as cs
     from repro_torch import transport as tq
     from repro_torch.kernels import _build

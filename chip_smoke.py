@@ -16,9 +16,13 @@ non-zero. It imports nothing of jax or of the JAX package `repro`.
 
 Phases: device, build (all seven sources at once; ptxas's registers and
 spills; the HMMA / HGMMA count in the SASS of each head-dim instance of
-both flash kernels, bf16 and f32, which must not be 0), kernels (correctness of the f32 kernels on f32 and
-bf16 input and of the int8 / int4 wire kernels at the main path's shape
-and at edge shapes, then timing of every kernel variant; batched_dot and
+both flash kernels, bf16 and f32, which must not be 0; the I2F and
+LDG.E.128 counts and registers of the wire aggregations, which must have
+no I2F and 16-byte loads), kernels (correctness of the f32 kernels on f32
+and bf16 input and of the int8 / int4 wire kernels at the main path's
+shape and at edge shapes, a second launch of each wire aggregation giving
+the same bits, then timing of every kernel variant, and one device kernel
+per wire aggregation call, by a profile; batched_dot and
 grad_dot_stats the same; flash attention at the reference test's cases,
 at every head dim of both kernels, causal and not, at ragged T, through
 gqa_flash with grouped KV heads, and at gemma-2b's prefill shape, where
@@ -70,7 +74,10 @@ TF32X3_FLOPS_PER_S = 495e12 / 3
 TOL = 1e-5
 MAIN_K, MAIN_N = 10, 1_663_370  # K clients x the CNN's parameter count
 EDGE_KS = (1, 3, 37, 128)
-EDGE_NS = (7_850, 16_385, 1_000_003)  # the two odd N give int4 a pad nibble
+# the odd N give int4 a pad nibble; 13 is shorter than one 16-byte tile of
+# the wire aggregations, and 16,385 walks the rows' start through every
+# residue mod 16 (int8 and int4)
+EDGE_NS = (13, 7_850, 16_385, 1_000_003)
 # int4 group sizes checked: 2 and 8 give each byte (or every other byte)
 # of a thread its own scale, the others one scale for a thread's columns
 GROUP_SIZES = (2, 8, 32, 512, 16_384)
@@ -82,7 +89,8 @@ WIRES = ("f32", "bf16", "int8", "int4")
 SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
            "flash_attn", "batched_dot", "grad_dot")
 # device kernels of the ported sources, by name, for the profile
-PORTED = ("agg_kernel", "agg_q8_kernel", "agg_q4_kernel", "stats_stage",
+WIRE_AGG_KERNELS = ("agg_q8_kernel", "agg_q4_kernel")
+PORTED = ("agg_kernel", *WIRE_AGG_KERNELS, "stats_stage",
           "stats_q8_stage", "stats_q4_stage", "flash_tf32_kernel",
           "flash_mma_kernel", "bdot_stage", "gdot_stage")
 # flash attention (BH, T, d, dtype, causal, blk_q, blk_k): the reference
@@ -202,8 +210,11 @@ def check_wire(name, agg, agg_plain, stats, stats_plain, q, x, w, g, mask,
     """One wire kernel pair against its plain versions: (worst abs error,
     worst normalised error) per wrapper name."""
     akw = dict(kw, n=x.shape[1]) if "group_size" in kw else {}
-    a, na = agg_err(agg(w, q.values, q.scales, **akw),
-                    agg_plain(w, q.values, q.scales, **akw), w, x)
+    y = agg(w, q.values, q.scales, **akw)
+    a, na = agg_err(y, agg_plain(w, q.values, q.scales, **akw), w, x)
+    if not torch.equal(y, agg(w, q.values, q.scales, **akw)):
+        raise AssertionError(f"weighted_agg_{name}: a second launch gave "
+                             "other bits")
     s_abs = ns = 0.0
     for m in (None, mask):
         sa, nm = stats_err(stats(q.values, q.scales, g, m, **kw),
@@ -300,6 +311,16 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
         }
         emit({"phase": "kernels", "timing": table[name]})
     del flush
+    # the wire aggregations fold w into the scales in the kernel: one
+    # device kernel a call, and no PyTorch op beside it
+    per_call = {name: profile_device(rows[name]["kernel"])
+                for name in ("weighted_agg_q", "weighted_agg_q4")}
+    emit({"phase": "kernels", "device_kernels_per_call": {
+        name: [t["kernel"] for t in prof["top"]]
+        for name, prof in per_call.items()}})
+    for name, prof in per_call.items():
+        if prof["device_events_distinct"] != 1:
+            raise AssertionError(f"{name}: one call ran {prof['top']}")
     return table
 
 
@@ -901,10 +922,11 @@ def phase_flash_kernel(fa, dev) -> dict:
     return table
 
 
-def sass_mma_counts(lib, kernel: str) -> dict:
-    """The tensor-core instructions (HMMA, HGMMA) in the SASS of every
-    instance of `kernel` in the built library `lib`, by cuobjdump (from
-    nvcc's directory): {mangled name: count}."""
+def sass_counts(lib, kernel: str, opcodes) -> dict:
+    """How many SASS instructions of each of `opcodes` (matched as
+    substrings: "I2F" also counts I2FP) every instance of `kernel` in the
+    built library `lib` holds, by cuobjdump (from nvcc's directory):
+    {mangled name: {opcode: count}}."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -915,10 +937,22 @@ def sass_mma_counts(lib, kernel: str) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             if kernel in fn:
-                counts[fn] = 0
-        elif fn in counts and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+                counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn in counts:
+            for op in opcodes:
+                counts[fn][op] += op in line
     return counts
+
+
+def ptxas_registers(log: str) -> dict:
+    """{mangled kernel name: registers} from an nvcc -Xptxas=-v log."""
+    regs, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "Used" in line and "registers" in line:
+            regs[fn] = int(line.split("Used", 1)[1].split()[0])
+    return regs
 
 
 def phase_serve(fa, dev) -> dict:
@@ -1171,18 +1205,32 @@ def main() -> int:
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
     # both flash kernels must run on the tensor cores: mma in their SASS
-    mma = {dt: sass_mma_counts(_build.library_path("flash_attn"),
-                               fa.KERNELS[dt])
-           for dt in (torch.bfloat16, torch.float32)}
+    mma = {dt: {fn: c["HMMA"] + c["HGMMA"] for fn, c in sass_counts(
+        _build.library_path("flash_attn"), fa.KERNELS[dt],
+        ("HMMA", "HGMMA")).items()}
+        for dt in (torch.bfloat16, torch.float32)}
+    # the wire aggregations: no integer-to-float conversion, 16-byte loads
+    regs = ptxas_registers(logs.get("weighted_agg_q", ""))
+    wire_sass = {}
+    for kernel in WIRE_AGG_KERNELS:
+        for fn, c in sass_counts(_build.library_path("weighted_agg_q"),
+                                 kernel, ("I2F", "LDG.E.128")).items():
+            wire_sass[fn] = {"registers": regs.get(fn), **c}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas,
           "flash_sass_mma_count": {fa.KERNELS[dt]: c
-                                   for dt, c in mma.items()}})
+                                   for dt, c in mma.items()},
+          "wire_agg_sass": wire_sass})
     for dt, counts in mma.items():
         if len(counts) != len(fa.HEAD_DIMS) or not all(counts.values()):
             raise AssertionError(f"{fa.KERNELS[dt]}: want HMMA or HGMMA in "
                                  f"each of {len(fa.HEAD_DIMS)} head-dim "
                                  f"instances, got {counts}")
+    # agg_q8_kernel and the two agg_q4_kernel instances
+    if len(wire_sass) != 3 or any(c["I2F"] or not c["LDG.E.128"]
+                                  for c in wire_sass.values()):
+        raise AssertionError(f"the wire aggregations want no I2F and "
+                             f"16-byte loads in their SASS: {wire_sass}")
 
     table = phase_kernels(wa, rs, tq, dev)
     lm_table = {**phase_ops_kernels(wa, gd, dev),

@@ -47,6 +47,45 @@ __device__ __forceinline__ int nib_hi(int b) {
   return (((b >> 4) & 0xF) ^ 8) - 8;
 }
 
+// ---- 16-byte words and f32 values built from bits (weighted_agg_q.cu)
+
+// The 16 row bytes that start r (0..15) bytes into the aligned word a:
+// bytes r..15 of a, then bytes 0..r-1 of the next aligned word b. r is
+// the same for a whole row, so the selects below never diverge.
+__device__ __forceinline__ uint4 realign16(const uint4& a, const uint4& b,
+                                           unsigned int r) {
+  unsigned int v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int j = 0; j < 6; ++j) v[j] = (r & 8) ? v[j + 2] : v[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) v[j] = (r & 4) ? v[j + 1] : v[j];
+  const unsigned int sh = (r & 3) * 8;
+  return make_uint4(__funnelshift_r(v[0], v[1], sh),
+                    __funnelshift_r(v[1], v[2], sh),
+                    __funnelshift_r(v[2], v[3], sh),
+                    __funnelshift_r(v[3], v[4], sh));
+}
+
+// Exact f32 of a small unsigned integer u in byte i (0..3) of x, without
+// an integer-to-float conversion: u copied into the low mantissa byte of
+// 2^E reads as the float 2^E + u * 2^(E-23). With E = 23 that is 2^23 + u,
+// with E = 19 (the byte holds u << 4) 2^19 + u; one subtraction of the
+// power of two and the bias leaves the signed value exactly.
+//   int8: x = word ^ 0x80808080 (b + 128), value = f(x) - (2^23 + 128)
+//   int4 low nibbles:  x = (word ^ 0x88888888) & 0x0F0F0F0F,
+//                      value = f(x) - (2^23 + 8)
+//   int4 high nibbles: x = (word ^ 0x88888888) & 0xF0F0F0F0,
+//                      value = f19(x) - (2^19 + 8)
+constexpr float kS8Bias = 8388736.0f;   // 2^23 + 128
+constexpr float kLoBias = 8388616.0f;   // 2^23 + 8
+constexpr float kHiBias = 524296.0f;    // 2^19 + 8
+__device__ __forceinline__ float f23(unsigned int x, int i) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u | i));
+}
+__device__ __forceinline__ float f19(unsigned int x, int i) {
+  return __uint_as_float(__byte_perm(x, 0x49000000u, 0x7440u | i));
+}
+
 // 16 consecutive f32 values at p (logical columns), zeros from ncols on.
 // vec: p is 16-byte aligned, so a full strip loads as 4 x float4.
 __device__ __forceinline__ void load16f(const float* __restrict__ p,

@@ -7,7 +7,8 @@ of the uplink:
   `repro/kernels/weighted_agg.py::weighted_agg` (`_agg_kernel`).
 * `weighted_agg_q(w, values, scales)`: the int8 wire, and
   `weighted_agg_q4(w, values, scales, n=, group_size=)`: the packed int4
-  wire, both dequantized in registers, CUDA source `csrc/weighted_agg_q.cu`;
+  wire, both dequantized in registers with the weight folded into each
+  scale there (one launch a call), CUDA source `csrc/weighted_agg_q.cu`;
   they replace `weighted_agg_q` (`_agg_q_kernel`) and `weighted_agg_q4`
   (`_agg_q4_kernel`) of the same file.
 * `batched_dot(x, g)`: u[k] = <x_k, g>, x f32 or bf16 rows read in place
@@ -46,10 +47,10 @@ _SIGNATURES = {
     # w, x, y, K, N, stream
     "repro_weighted_agg_f32": [_P, _P, _P, _I, _L, _P],
     "repro_weighted_agg_bf16": [_P, _P, _P, _I, _L, _P],
-    # ws, q, y, K, N, C, stream
-    "repro_weighted_agg_q8": [_P, _P, _P, _I, _L, _I, _P],
-    # ws, q, y, K, n, G, log2(group_size), stream
-    "repro_weighted_agg_q4": [_P, _P, _P, _I, _L, _I, _I, _P],
+    # w, scales, q, y, K, N, C, stream
+    "repro_wire_agg_q8": [_P, _P, _P, _P, _I, _L, _I, _P],
+    # w, scales, q, y, K, n, G, log2(group_size), stream
+    "repro_wire_agg_q4": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
     # x, g, part, out, K, N, ld, x_bf16, g_bf16, blocks, stream
     "repro_batched_dot": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _L, _P],
 }
@@ -134,7 +135,8 @@ weighted_agg.launches = 0
 
 def _fold(w: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(K, C) weight x dequant scale, one multiplier per (client, scale
-    column), folded before the pass as the reference does."""
+    column), folded before the pass as the reference does (the kernels
+    round the same f32 product)."""
     return (w.to(torch.float32)[:, None] * scales.to(torch.float32)
             ).contiguous()
 
@@ -204,11 +206,11 @@ def weighted_agg_q(w: torch.Tensor, values: torch.Tensor,
         return weighted_agg_q_plain(w, values, scales)
     _check_cuda_wire("weighted_agg_q", values, w, scales)
     k, n = values.shape
-    ws = _fold(w, scales)
     y = torch.empty(n, dtype=torch.float32, device=values.device)
-    name = "repro_weighted_agg_q8"
-    _launch(_fn("weighted_agg_q", name), name, values.device, ws.data_ptr(),
-            values.data_ptr(), y.data_ptr(), k, n, ws.shape[1])
+    name = "repro_wire_agg_q8"
+    _launch(_fn("weighted_agg_q", name), name, values.device, w.data_ptr(),
+            scales.data_ptr(), values.data_ptr(), y.data_ptr(), k, n,
+            scales.shape[1])
     weighted_agg_q.launches += 1
     return y
 
@@ -246,12 +248,11 @@ def weighted_agg_q4(w: torch.Tensor, values: torch.Tensor,
                                      group_size=group_size)
     _check_cuda_wire("weighted_agg_q4", values, w, scales)
     k = values.shape[0]
-    ws = _fold(w, scales)
     y = torch.empty(n, dtype=torch.float32, device=values.device)
-    name = "repro_weighted_agg_q4"
-    _launch(_fn("weighted_agg_q", name), name, values.device, ws.data_ptr(),
-            values.data_ptr(), y.data_ptr(), k, n, ws.shape[1],
-            int(math.log2(group_size)))
+    name = "repro_wire_agg_q4"
+    _launch(_fn("weighted_agg_q", name), name, values.device, w.data_ptr(),
+            scales.data_ptr(), values.data_ptr(), y.data_ptr(), k, n,
+            scales.shape[1], int(math.log2(group_size)))
     weighted_agg_q4.launches += 1
     return y
 

@@ -103,7 +103,8 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
     use_flash = (getattr(cfg, "attention_impl", "xla") == "flash"
                  and window == 0 and causal and t % 64 == 0)
     if use_flash:
-        blk = min(128, t)
+        # the wrapper asserts that T divides by its tiles: T % 64 == 0 here
+        blk = 128 if t % 128 == 0 else 64
         out = flash_attn.gqa_flash(q, k, v, causal=True, blk_q=blk,
                                    blk_k=blk)
         y = out.reshape(b, t, cfg.num_heads * hd).to(x.dtype) @ p["wo"]

@@ -269,3 +269,38 @@ def test_train_mode_logits_match_jax(impl):
                                     mode="train")
     assert off == woff == 0 and float(aux) == 0.0
     _close(got, want, "train logits")
+
+
+@pytest.mark.parametrize("t", [192, 320])
+def test_flash_prefill_at_t_64_mod_128_matches_both_xla_paths(t,
+                                                              monkeypatch):
+    """T = 192 and 320 pass the flash gate (T % 64 == 0) but do not divide
+    by 128: the gate must give gqa_flash 64-wide tiles, which its asserts
+    accept, and the flash prefill must agree with the port's xla path and
+    with the JAX package's (whose own flash gate still asserts there)."""
+    from repro_torch.kernels import flash_attn as tfa
+
+    cfg, jcfg, params, jparams = _pair("gemma-2b", "flash")
+    xcfg = dataclasses.replace(cfg, attention_impl="xla")
+    jxcfg = dataclasses.replace(jcfg, attention_impl="xla")
+    tiles = []
+    real = tfa.gqa_flash
+
+    def spy(q, k, v, **kw):
+        tiles.append((kw["blk_q"], kw["blk_k"]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa, "gqa_flash", spy)
+    prompt = _tokens(cfg, 5, (1, t))
+    with torch.no_grad():
+        got, _, _ = ttr.forward(params, cfg,
+                                {"tokens": torch.from_numpy(prompt)},
+                                mode="prefill")
+        xla, _, _ = ttr.forward(params, xcfg,
+                                {"tokens": torch.from_numpy(prompt)},
+                                mode="prefill")
+    assert tiles == [(64, 64)] * cfg.num_layers
+    want, _, _ = jtr.forward(jparams, jxcfg, {"tokens": jnp.asarray(prompt)},
+                             mode="prefill")
+    _close(got, xla.numpy(), "flash vs the port's xla prefill logits")
+    _close(got, want, "flash vs the JAX package's xla prefill logits")
