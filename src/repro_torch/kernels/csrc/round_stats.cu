@@ -20,13 +20,14 @@
 //   per statistic, in a fixed order.
 //
 // The f32 path is that of this file's f32-only version, written out: its
-// reductions and second stage are not taken from round_stats_q.cu's
-// stats_reduce.cuh, nor its f32 loads from load.cuh (used here for bf16
-// x only). Built on those, the f32 kernel of the main path needed 38 registers instead of
-// 32 (6 blocks of 256 threads per SM instead of 8) and took 40.5 us
-// instead of 35.6 at the main path's shape; block_sum_to, with its own
-// shared array, cost most of that (chip_ab.py, both builds in one
-// process, H100 80GB HBM3 at 700 W).
+// block reductions and second stage are not the shared ones that the
+// wire statistics once used (stats_reduce.cuh's block_sum_to, since
+// removed, and stats_stage2), nor its f32 loads load.cuh's (used here for
+// bf16 x only). Built on those, the f32 kernel of the main path needed 38
+// registers instead of 32 (6 blocks of 256 threads per SM instead of 8)
+// and took 40.5 us instead of 35.6 at the main path's shape;
+// block_sum_to, with its own shared array, cost most of that (chip_ab.py,
+// both builds in one process, H100 80GB HBM3 at 700 W).
 //
 // No atomics anywhere, so the result is the same from run to run. Any K
 // (the chunk loop guards the ragged last chunk) and any N (the ragged

@@ -26,10 +26,10 @@
 //   rows odd). Lane l of a warp loads the aligned 16-byte word l of the
 //   warp's span of the row, whatever the row's offset r = start % 16, and
 //   takes the next word from lane l + 1 by shuffles: its 16 row bytes are
-//   bytes r..15 of its word and 0..r-1 of the next (wire.cuh's
-//   realign16). Lane 31 only lends its word, so a warp covers 31 tiles.
-//   No access is misaligned, and every word loaded holds a byte of the
-//   row. Rows with r = 0 skip the shuffles.
+//   bytes r..15 of its word and 0..r-1 of the next (wire.cuh's load_row
+//   and row_bytes). Lane 31 only lends its word, so a warp covers 31
+//   tiles. No access is misaligned, and every word loaded holds a byte of
+//   the row. Rows with r = 0 skip the shuffles.
 // * No integer-to-float conversion. A byte or nibble becomes its exact
 //   f32 by bits: one permute into the mantissa of a power of two and one
 //   subtraction (wire.cuh's f23 / f19), then one FFMA. The sums are those
@@ -72,38 +72,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTiles = 31;  // 16-byte tiles of a warp: lane 31 only lends
 constexpr int kRows = 2;    // rows of a warp whose loads go out together
-constexpr unsigned kFull = 0xffffffffu;
-
-// One row's 16-byte tile of this lane, loaded: the aligned word `tile` of
-// the row's span (zero when it holds no byte of the row), and r.
-struct RowLoad {
-  uint4 word;
-  unsigned int r;
-};
-
-__device__ __forceinline__ RowLoad load_row(const int8_t* q, int k,
-                                            long long nb, long long tile) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(q) +
-                      static_cast<uintptr_t>(k) * nb;
-  RowLoad out;
-  out.r = static_cast<unsigned int>(p & 15);
-  out.word = make_uint4(0u, 0u, 0u, 0u);
-  if (16 * tile < nb + out.r)
-    out.word = __ldg(reinterpret_cast<const uint4*>(p & ~uintptr_t{15}) +
-                     tile);
-  return out;
-}
-
-// The lane's 16 row bytes: its word, realigned with its right neighbour's
-// when the row is not 16-byte aligned. Every lane of the warp calls it.
-__device__ __forceinline__ uint4 row_bytes(const RowLoad& l) {
-  if (l.r == 0) return l.word;
-  const uint4 next = make_uint4(__shfl_down_sync(kFull, l.word.x, 1),
-                                __shfl_down_sync(kFull, l.word.y, 1),
-                                __shfl_down_sync(kFull, l.word.z, 1),
-                                __shfl_down_sync(kFull, l.word.w, 1));
-  return repro::realign16(l.word, next, l.r);
-}
 
 // acc += s * value for the 16 int8 values of b.
 __device__ __forceinline__ void add_int8(float (&acc)[16], const uint4& b,
@@ -219,13 +187,13 @@ __device__ __forceinline__ void agg(const float* __restrict__ w,
   for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
 
   for (int k0 = part; k0 < K; k0 += kSplit * kRows) {
-    RowLoad ld[kRows];
+    repro::RowLoad ld[kRows];
     float s[kRows];  // the folded scale; w[k] on the per-byte path
 #pragma unroll
     for (int u = 0; u < kRows; ++u) {
       const int k = k0 + kSplit * u;
       if (k < K) {
-        ld[u] = load_row(q, k, nb, tile);
+        ld[u] = repro::load_row(q, k, nb, tile);
         s[u] = __ldg(w + k);
         if (WIDE)
           s[u] = __fmul_rn(s[u], __ldg(scales + static_cast<long long>(k) *
@@ -236,7 +204,7 @@ __device__ __forceinline__ void agg(const float* __restrict__ w,
     for (int u = 0; u < kRows; ++u) {
       const int k = k0 + kSplit * u;
       if (k < K) {  // the same for the whole warp
-        const uint4 b = row_bytes(ld[u]);
+        const uint4 b = repro::row_bytes(ld[u]);
         if constexpr (INT4)
           add_int4<WIDE>(acc, b, s[u],
                          scales + static_cast<long long>(k) * G, col, lg, G);

@@ -1,16 +1,21 @@
 // Reading the quantized uplink wire (repro_torch/transport/quantize.py)
-// in registers: shared by weighted_agg_q.cu and round_stats_q.cu.
+// in registers. Both wire kernels use all of it: weighted_agg_q.cu (the
+// aggregations) and round_stats_q.cu (the statistics).
 //
 // int8 wire: one signed byte per parameter; rows are N bytes apart.
 // int4 wire: byte j of a row holds logical elements 2j (low nibble) and
 // 2j+1 (high nibble), two's complement in [-7, 7]; rows are ceil(N/2)
 // bytes apart, an odd stride whenever ceil(N/2) is odd.
 //
-// So a row of either wire may start at any byte address. load8 reads the
-// 8 bytes a thread owns from any address without a misaligned access: one
-// 8-byte load where the address allows it, else the aligned 4-byte words
-// that cover them, joined with funnel shifts. Neighbouring threads read
-// neighbouring words, so the loads coalesce all the same.
+// So a row of either wire may start at any byte address. Lane l of a warp
+// owns the 16-byte tile l of the warp's span of every row: it loads the
+// aligned 16-byte word l of the span (load_row), whatever the row's offset
+// r = start % 16, and takes the next word from lane l + 1 by shuffles: its
+// 16 row bytes are bytes r..15 of its word and 0..r-1 of the next
+// (row_bytes, realign16). Lane 31 only lends its word, so a warp covers
+// 31 tiles. No access is misaligned, and every word loaded holds a byte of
+// the row. The bytes are then turned into exact f32 values by bits (f23,
+// f19), with no integer-to-float conversion.
 #pragma once
 
 #include <cstdint>
@@ -20,34 +25,9 @@
 namespace repro {
 
 constexpr long long kChunk = 128 * 128;  // int8 scale chunk (CHUNK)
+constexpr unsigned int kFullWarp = 0xffffffffu;
 
-__device__ __forceinline__ uint2 load8(const int8_t* p) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if ((a & 7) == 0) return __ldg(reinterpret_cast<const uint2*>(p));
-  const unsigned int* w =
-      reinterpret_cast<const unsigned int*>(a & ~static_cast<uintptr_t>(3));
-  const unsigned int w0 = __ldg(w), w1 = __ldg(w + 1);
-  const unsigned int sh = static_cast<unsigned int>(a & 3) * 8;
-  if (sh == 0) return make_uint2(w0, w1);
-  const unsigned int w2 = __ldg(w + 2);  // holds byte 7 when sh != 0
-  return make_uint2(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh));
-}
-
-// Byte i (0..7, a compile-time constant in unrolled loops) of u,
-// sign-extended.
-__device__ __forceinline__ int byte_of(const uint2& u, int i) {
-  const unsigned int w = i < 4 ? u.x : u.y;
-  return static_cast<int>(w << (24 - 8 * (i & 3))) >> 24;
-}
-
-// The two nibbles of a sign-extended wire byte, each sign-extended from
-// its own bit 3 (repro/kernels/weighted_agg.py::_unpack_nibbles).
-__device__ __forceinline__ int nib_lo(int b) { return ((b & 0xF) ^ 8) - 8; }
-__device__ __forceinline__ int nib_hi(int b) {
-  return (((b >> 4) & 0xF) ^ 8) - 8;
-}
-
-// ---- 16-byte words and f32 values built from bits (weighted_agg_q.cu)
+// ---- 16-byte words of a row at any byte offset
 
 // The 16 row bytes that start r (0..15) bytes into the aligned word a:
 // bytes r..15 of a, then bytes 0..r-1 of the next aligned word b. r is
@@ -66,6 +46,40 @@ __device__ __forceinline__ uint4 realign16(const uint4& a, const uint4& b,
                     __funnelshift_r(v[3], v[4], sh));
 }
 
+// One row's 16-byte tile of a lane, loaded: the aligned word `tile` of
+// the row's span (zero when it holds no byte of the row), and r.
+struct RowLoad {
+  uint4 word;
+  unsigned int r;
+};
+
+// Row k of nb bytes starting at q + k * nb.
+__device__ __forceinline__ RowLoad load_row(const int8_t* q, int k,
+                                            long long nb, long long tile) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(q) +
+                      static_cast<uintptr_t>(k) * nb;
+  RowLoad out;
+  out.r = static_cast<unsigned int>(p & 15);
+  out.word = make_uint4(0u, 0u, 0u, 0u);
+  if (16 * tile < nb + out.r)
+    out.word = __ldg(reinterpret_cast<const uint4*>(p & ~uintptr_t{15}) +
+                     tile);
+  return out;
+}
+
+// The lane's 16 row bytes: its word, realigned with its right neighbour's
+// when the row is not 16-byte aligned. Every lane of the warp calls it.
+__device__ __forceinline__ uint4 row_bytes(const RowLoad& l) {
+  if (l.r == 0) return l.word;
+  const uint4 next = make_uint4(__shfl_down_sync(kFullWarp, l.word.x, 1),
+                                __shfl_down_sync(kFullWarp, l.word.y, 1),
+                                __shfl_down_sync(kFullWarp, l.word.z, 1),
+                                __shfl_down_sync(kFullWarp, l.word.w, 1));
+  return realign16(l.word, next, l.r);
+}
+
+// ---- exact f32 values built from bits
+
 // Exact f32 of a small unsigned integer u in byte i (0..3) of x, without
 // an integer-to-float conversion: u copied into the low mantissa byte of
 // 2^E reads as the float 2^E + u * 2^(E-23). With E = 23 that is 2^23 + u,
@@ -76,6 +90,8 @@ __device__ __forceinline__ uint4 realign16(const uint4& a, const uint4& b,
 //                      value = f(x) - (2^23 + 8)
 //   int4 high nibbles: x = (word ^ 0x88888888) & 0xF0F0F0F0,
 //                      value = f19(x) - (2^19 + 8)
+// A byte (or nibble) of 0 decodes to 0 exactly, so zeroing the bytes of a
+// word that lie past a row's end removes them from any sum.
 constexpr float kS8Bias = 8388736.0f;   // 2^23 + 128
 constexpr float kLoBias = 8388616.0f;   // 2^23 + 8
 constexpr float kHiBias = 524296.0f;    // 2^19 + 8
@@ -84,37 +100,6 @@ __device__ __forceinline__ float f23(unsigned int x, int i) {
 }
 __device__ __forceinline__ float f19(unsigned int x, int i) {
   return __uint_as_float(__byte_perm(x, 0x49000000u, 0x7440u | i));
-}
-
-// 16 consecutive f32 values at p (logical columns), zeros from ncols on.
-// vec: p is 16-byte aligned, so a full strip loads as 4 x float4.
-__device__ __forceinline__ void load16f(const float* __restrict__ p,
-                                        int ncols, bool vec, float (&v)[16]) {
-  if (ncols == 16 && vec) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + i);
-      v[4 * i] = a.x; v[4 * i + 1] = a.y; v[4 * i + 2] = a.z;
-      v[4 * i + 3] = a.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = i < ncols ? __ldg(p + i) : 0.f;
-  }
-}
-
-// The same for 8 values.
-__device__ __forceinline__ void load8f(const float* __restrict__ p,
-                                       int ncols, bool vec, float (&v)[8]) {
-  if (ncols == 8 && vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < ncols ? __ldg(p + i) : 0.f;
-  }
 }
 
 }  // namespace repro

@@ -14,16 +14,18 @@ every wire of the uplink:
   they replace `round_stats_q` (`_stats_q_kernel{,_masked}`) and
   `round_stats_q4` (`_stats_q4_kernel{,_masked}`) of the same file.
 
-All are bound by bytes: one read of the wire plus g (and the mask). Stage
-1 reduces per column block into (blocks, 2K+1) partials, stage 2 reduces
-those in a fixed order, so the result is the same from run to run (the
-source files' headers have the designs). g and the mask are f32 and in
-logical columns; sums are f32.
+All are bound by bytes: one read of x or the wire plus g (and the
+mask). Each reduces per column block into 2K+1 partials a block, and a
+second launch reduces those in a fixed order (for the wire kernels a
+programmatic dependent launch, whose blocks start before the first grid
+ends), so the result is the same from run to run (the source files'
+headers have the designs). g and the mask are f32 and in logical
+columns; sums are f32.
 
 A wrapper takes its plain version (`*_plain`) only for tensors that lie
 on the CPU. On a CUDA tensor it launches the kernels or raises.
 `<wrapper>.launches` counts each wrapper's calls on the card (one per
-call: both stages together).
+call, whatever the number of launches).
 """
 from __future__ import annotations
 
@@ -51,41 +53,57 @@ _SIGNATURES = {
     # x, g, mask, part, out, K, N, blocks, stream
     "repro_round_stats_f32": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
     "repro_round_stats_bf16": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
-    # q, scales, g, mask, part, out, K, N, C, blocks, stream
-    "repro_round_stats_q8": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _P],
-    # q, scales, g, mask, part, out, K, n, G, log2(group_size), blocks,
-    # stream
-    "repro_round_stats_q4": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L,
-                             _P],
+    "repro_round_stats_blocks": [_L],
+    # q, scales, g, mask, part, out, K, N, C, stream
+    "repro_wire_stats_q8": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    # q, scales, g, mask, part, out, K, n, G, log2(group_size), stream
+    "repro_wire_stats_q4": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    # K, n, lg (0: the int8 wire) -> floats of part
+    "repro_wire_stats_floats": [_I, _L, _I],
 }
-_BLOCKS = {"round_stats": "repro_round_stats_blocks",
-           "round_stats_q": "repro_round_stats_q_blocks"}
+_RETURNS = {"repro_round_stats_blocks": _L, "repro_wire_stats_floats": _L}
 
 
-def _lib(source: str, name: str):
-    lib = _build.load(source)
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = _SIGNATURES[name], ctypes.c_int
-    blocks = getattr(lib, _BLOCKS[source])
-    blocks.argtypes, blocks.restype = [ctypes.c_longlong], ctypes.c_longlong
-    return fn, blocks
+def _fn(source: str, name: str):
+    fn = getattr(_build.load(source), name)
+    fn.argtypes, fn.restype = _SIGNATURES[name], _RETURNS.get(name, _I)
+    return fn
 
 
-def _run(source: str, name: str, k: int, width: int, device, *args):
-    """Launch both stages with fresh scratch; returns (dots, sqs, sqg)."""
-    fn, blocks_for = _lib(source, name)
-    nblocks = blocks_for(width)
-    part = torch.empty(nblocks * (2 * k + 1), dtype=torch.float32,
-                       device=device)
-    out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
-    ptrs, sizes = args
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, part.data_ptr(), out.data_ptr(), *sizes, nblocks,
-                 stream)
+def _raise_on(err: int, name: str, sizes) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"at K, N, ... = {sizes}")
+
+
+def _run(name: str, k: int, width: int, device, ptrs, sizes):
+    """Launch round_stats' two stages with fresh scratch; returns
+    (dots, sqs, sqg)."""
+    nblocks = _fn("round_stats", "repro_round_stats_blocks")(width)
+    part = torch.empty(nblocks * (2 * k + 1), dtype=torch.float32,
+                       device=device)
+    out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _fn("round_stats", name)(*ptrs, part.data_ptr(),
+                                       out.data_ptr(), *sizes, nblocks,
+                                       stream)
+    _raise_on(err, name, sizes)
+    return out[:k], out[k:2 * k], out[2 * k]
+
+
+def _run_wire(name: str, k: int, n: int, lg: int, device, ptrs, sizes):
+    """The two launches of a wire statistics kernel (lg = 0: int8, else
+    int4 at group size 2^lg) with fresh scratch; returns (dots, sqs,
+    sqg)."""
+    floats = _fn("round_stats_q", "repro_wire_stats_floats")(k, n, lg)
+    part = torch.empty(floats, dtype=torch.float32, device=device)
+    out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _fn("round_stats_q", name)(*ptrs, part.data_ptr(),
+                                         out.data_ptr(), *sizes, stream)
+    _raise_on(err, name, sizes)
     return out[:k], out[k:2 * k], out[2 * k]
 
 
@@ -154,7 +172,7 @@ def round_stats(x: torch.Tensor, g: torch.Tensor,
         return round_stats_plain(x, g, mask)
     _check(x, g, mask)
     k, n = x.shape
-    out = _run("round_stats", _WIRE_FN[x.dtype], k, n, x.device,
+    out = _run(_WIRE_FN[x.dtype], k, n, x.device,
                (x.data_ptr(), g.data_ptr(), _ptr(mask)), (k, n))
     round_stats.launches += 1
     return out
@@ -196,9 +214,9 @@ def round_stats_q(values: torch.Tensor, scales: torch.Tensor,
         return round_stats_q_plain(values, scales, g, mask)
     _check_cuda_wire("round_stats_q", values, scales, g,
                      *([mask] if mask is not None else []))
-    out = _run("round_stats_q", "repro_round_stats_q8", k, n, values.device,
-               (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
-                _ptr(mask)), (k, n, scales.shape[1]))
+    out = _run_wire("repro_wire_stats_q8", k, n, 0, values.device,
+                    (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
+                     _ptr(mask)), (k, n, scales.shape[1]))
     round_stats_q.launches += 1
     return out
 
@@ -235,11 +253,11 @@ def round_stats_q4(values: torch.Tensor, scales: torch.Tensor,
                                     group_size=group_size)
     _check_cuda_wire("round_stats_q4", values, scales, g,
                      *([mask] if mask is not None else []))
-    k, nb = values.shape
-    out = _run("round_stats_q", "repro_round_stats_q4", k, nb, values.device,
-               (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
-                _ptr(mask)),
-               (k, n, scales.shape[1], int(math.log2(group_size))))
+    k = values.shape[0]
+    lg = int(math.log2(group_size))
+    out = _run_wire("repro_wire_stats_q4", k, n, lg, values.device,
+                    (values.data_ptr(), scales.data_ptr(), g.data_ptr(),
+                     _ptr(mask)), (k, n, scales.shape[1], lg))
     round_stats_q4.launches += 1
     return out
 
