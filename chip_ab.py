@@ -13,7 +13,8 @@ an earlier commit's, unpacked with `git archive`; each DIR given is timed
 against the repository's sources in turn. Every kernel variant of
 the round (chip_smoke.py's timing rows, at the main path's shape) whose
 source DIR holds is timed in both builds, and so are the int4 wire kernels
-at group size 8, batched_dot and grad_dot_stats at the CNN's shape, and
+at group size 8, batched_dot and grad_dot_stats at the CNN's shape (the
+latter also with both inputs 8 bytes past a 16-byte boundary), and
 flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN), in
 bf16 and in f32 (two kernels of one source). The two builds take turns:
 repo, DIR, DIR, repo, R times over, each turn the median of
@@ -29,7 +30,8 @@ skipped.
 --tree DIR times across such a change: DIR holds another checkout of the
 whole repository (an earlier commit's, unpacked with `git archive`). Each
 turn is a process that builds that tree's kernels and runs its own
-chip_smoke.py kernels phase (checks and timings), in the order DIR, repo,
+chip_smoke.py kernels phase (checks and timings) for the round's kernels,
+batched_dot and grad_dot_stats, in the order DIR, repo,
 repo, DIR, DIR, repo, ... for 2R turns (R each); it prints one JSON line
 per timed variant with every turn's µs and the two medians, then the
 card's name and power limit.
@@ -84,11 +86,12 @@ import torch
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import chip_smoke as cs
 from repro_torch import transport as tq
-from repro_torch.kernels import _build, round_stats as rs
+from repro_torch.kernels import _build, grad_dot as gd, round_stats as rs
 from repro_torch.kernels import weighted_agg as wa
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build(cs.SOURCES)
 cs.phase_kernels(wa, rs, tq, torch.device("cuda", 0))
+cs.phase_ops_kernels(wa, gd, torch.device("cuda", 0))
 """
 
 
@@ -180,6 +183,10 @@ def main() -> int:
                                kernel=lambda: wa.batched_dot(x, g))
     rows["grad_dot_stats"] = dict(source="grad_dot", shape=[cs.MAIN_N],
                                   kernel=lambda: gd.grad_dot_stats(x[0], g))
+    g8 = cs.shifted(g, 8)  # x[1] starts 8 bytes past a 16-byte boundary
+    rows["grad_dot_stats_off8"] = dict(
+        source="grad_dot", shape=[cs.MAIN_N],
+        kernel=lambda: gd.grad_dot_stats(x[1], g8))
     b, t, h, kv, hd = cs.FLASH_MAIN
     q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
     k, v = (torch.randn(b, t, kv, hd, device=dev, generator=gen).bfloat16()

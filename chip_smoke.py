@@ -41,9 +41,11 @@ peak memory, the tensor-core kernel's share of a profiled prefill, where
 the f32 kernel must not appear; flash == xla prefill logits on the f32
 model, on the f32 kernel, and the two f32 prefill times), ops (tree_vdot_batched and tree_dot_and_norms
 on the tree view of a CNN round's (K, N) buffer equal that round's
-round_stats). Then, on lines of their own: the kernel table as one JSON
-object, the card's name and power limit as nvidia-smi reports them, and
-last `{"ok": true, "device": {...}}`.
+round_stats; one client's tree_dot_and_norms runs one grad_dot device
+kernel a leaf of at most one block, two a larger leaf). Then, on lines
+of their own: the kernel table as one JSON object, the card's name and
+power limit as nvidia-smi reports them, and last
+`{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 prints no result and exits non-zero. TF32 is off for matmuls and cuDNN
@@ -93,18 +95,30 @@ SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
 # device kernels of the ported sources, by name, for the profile
 WIRE_AGG_KERNELS = ("agg_q8_kernel", "agg_q4_kernel")
 WIRE_STATS_KERNEL = "stats_q_kernel"
+BF16_STATS_KERNEL = "stats_bf16_kernel"  # round_stats on bf16 x
+SUM_KERNEL = "stats_sum_kernel"  # the statistics' dependent second launch
+GDOT_KERNEL = "gdot_kernel"  # grad_dot_stats
 PORTED = ("agg_kernel", *WIRE_AGG_KERNELS, "stats_stage", WIRE_STATS_KERNEL,
-          "stats_sum_kernel", "flash_tf32_kernel", "flash_mma_kernel",
-          "bdot_stage", "gdot_stage")
-# device kernels of one call of each wire wrapper: the aggregations fold w
-# into the scales in their kernel; the statistics write block partials,
-# then sum them in a second (programmatic dependent) launch
+          BF16_STATS_KERNEL, SUM_KERNEL, "flash_tf32_kernel",
+          "flash_mma_kernel", "bdot_stage", GDOT_KERNEL)
+# device kernels of one call of each wire wrapper (the bf16 wire's
+# round_stats included): the aggregations fold w into the scales in their
+# kernel; the statistics write block partials, then sum them in a second
+# (programmatic dependent) launch
 WIRE_CALL_KERNELS = {"agg_q8_kernel": 1, "agg_q4_kernel": 1,
-                     WIRE_STATS_KERNEL: 2, "stats_sum_kernel": 2}
-# wire kernel instances in the SASS: agg_q8_kernel and agg_q4_kernel<WIDE>
-# (3); stats_q_kernel<INT4, WIDE, MASKED> for int8 and both int4 paths,
-# masked and not (6)
-WIRE_SASS_INSTANCES = {"weighted_agg_q": 3, "round_stats_q": 6}
+                     WIRE_STATS_KERNEL: 2, BF16_STATS_KERNEL: 1,
+                     SUM_KERNEL: 3}
+# kernel instances whose SASS must hold 16-byte loads (LDG.E.128), by
+# source: agg_q8_kernel and agg_q4_kernel<WIDE> (3); stats_q_kernel<INT4,
+# WIDE, MASKED> for int8 and both int4 paths, masked and not (6);
+# stats_bf16_kernel<MASKED> (2); gdot_kernel<T, SA, SB> for f32 and bf16,
+# each input aligned or not (8). The wire kernels must hold no I2F.
+SASS_INSTANCES = {"weighted_agg_q": (WIRE_AGG_KERNELS, 3),
+                  "round_stats_q": ((WIRE_STATS_KERNEL,), 6),
+                  "round_stats": ((BF16_STATS_KERNEL,), 2),
+                  "grad_dot": ((GDOT_KERNEL,), 8)}
+NO_I2F = ("weighted_agg_q", "round_stats_q")
+GDOT_SPAN = 2048  # grad_dot.cu's kSpan: elements a block
 # flash attention (BH, T, d, dtype, causal, blk_q, blk_k): the reference
 # test's cases, then each kernel (bf16 and f32) at every head dim, causal
 # and not, and at T = 96 and 40, not a multiple of its tiles
@@ -217,6 +231,20 @@ def spread(x: torch.Tensor, block: int) -> torch.Tensor:
     return x * (10.0 ** cols.float())[None]
 
 
+def shifted(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of x whose storage starts `offset` bytes past a
+    16-byte boundary."""
+    per = x.element_size()
+    flat = torch.empty(x.numel() + 16 // per, dtype=x.dtype,
+                       device=x.device)
+    y = flat[offset // per:offset // per + x.numel()].view(x.shape)
+    y.copy_(x)
+    if y.data_ptr() % 16 != offset:
+        raise AssertionError(f"storage at {y.data_ptr() % 16} mod 16, want "
+                             f"{offset}")
+    return y
+
+
 def check_wire(name, agg, agg_plain, stats, stats_plain, q, x, w, g, mask,
                **kw):
     """One wire kernel pair against its plain versions: (worst abs error,
@@ -256,18 +284,30 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
     for k, n in shapes:
         x, g, w, mask = inputs(k, n)
         errs = {}
-        # the f32 kernels on f32 and on bf16 input (the bf16 wire)
-        for tag, xin in (("", x), ("_bf16", x.to(torch.bfloat16))):
-            xf = xin.float()
+        # the f32 kernels on f32 and on bf16 input (the bf16 wire); bf16
+        # x also with its storage 4, 8 and 12 bytes past a 16-byte
+        # boundary, and a second call of its statistics giving the same
+        # bits
+        xb = x.to(torch.bfloat16)
+        for tag, xins in (("", [x]), ("_bf16", [xb] + [
+                shifted(xb, off) for off in (4, 8, 12)])):
+            xin, xf = xins[0], xins[0].float()
             errs["weighted_agg" + tag] = agg_err(
                 wa.weighted_agg(w, xin, out_dtype=torch.float32),
                 wa.weighted_agg_plain(w, xin, torch.float32), w, xf)
             s_abs = ns = 0.0
-            for m in (None, mask):
-                sa, nm = stats_err(rs.round_stats(xin, g, m),
-                                   rs.round_stats_plain(xin, g, m), xf, g, m)
-                s_abs, ns = max(s_abs, sa), max(ns, nm)
+            for xi in xins:
+                for m in (None, mask):
+                    got = rs.round_stats(xi, g, m)
+                    sa, nm = stats_err(got, rs.round_stats_plain(xi, g, m),
+                                       xf, g, m)
+                    s_abs, ns = max(s_abs, sa), max(ns, nm)
+                    if tag and not all(torch.equal(a, b) for a, b in zip(
+                            got, rs.round_stats(xi, g, m))):
+                        raise AssertionError("round_stats_bf16: a second "
+                                             "launch gave other bits")
             errs["round_stats" + tag] = (s_abs, ns)
+            del xins
         # the int8 and int4 wire kernels
         q8 = tq.quantize(spread(x, tq.CHUNK), "int8")
         errs.update(check_wire("q", wa.weighted_agg_q,
@@ -330,7 +370,7 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
     # one call of each wire wrapper: exactly the device kernels of
     # WIRE_CALL_KERNELS, and no PyTorch op beside them
     wire = ("weighted_agg_q", "weighted_agg_q4", "round_stats_q",
-            "round_stats_q4")
+            "round_stats_q4", "round_stats_bf16")
     prof = profile_whole(lambda: [rows[name]["kernel"]() for name in wire])
     ran = [(t["kernel"], t["calls"]) for t in prof["top"]]
     calls = {key: sum(c for k, c in ran if key in k)
@@ -653,17 +693,31 @@ def profile_round(server) -> dict:
     return profile_device(lambda: server.step(eval_every=0))
 
 
-def profile_whole(fn, traces: int = 3) -> dict:
+def device_kernels(fn, top: int = 50) -> list:
+    """[(kernel name, calls)] of one call of `fn`, from the fullest of a
+    few traces (`profile_whole`). Each trace begins with a short sleep
+    kernel of its own, left out of the list: a trace on the H100 now and
+    then loses its first device event."""
+    def run():
+        torch.cuda._sleep(1000)
+        fn()
+
+    return [(t["kernel"], t["calls"])
+            for t in profile_whole(run, top=top)["top"]
+            if "spin_kernel" not in t["kernel"]]
+
+
+def profile_whole(fn, traces: int = 3, top: int = 12) -> dict:
     """`profile_device` of a call without side effects, `traces` times,
     keeping the trace with the most device events. A trace on the H100
     now and then loses device events, the first kernel or all of them,
     and never gains one: a check that counts kernels reads the fullest
     of a few traces, which is whole unless every one of them lost."""
-    return max((profile_device(fn) for _ in range(traces)),
+    return max((profile_device(fn, top) for _ in range(traces)),
                key=lambda p: p["device_events_distinct"])
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, top: int = 12) -> dict:
     """Where one call of `fn`'s device time goes (torch.profiler): the
     GPU kernels by name, the ported kernels' share, and how busy the
     device was. Busy time is given two ways, the sum of the device
@@ -671,7 +725,8 @@ def profile_device(fn) -> dict:
     where events overlap in time. Each is given per stream too, with the
     events that overlap most, so that an overlap can be told apart: work
     on two streams at once, or events of one stream. Events that only
-    mark a user annotation on the device's timeline are counted apart."""
+    mark a user annotation on the device's timeline are counted apart.
+    `top`: the kernels listed, longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,7 +774,7 @@ def profile_device(fn) -> dict:
                 p: sum(r[0] for r in rows if p in r[1]) for p in PORTED
                 if any(p in r[1] for r in rows)},
             "top": [{"us": u, "kernel": k[:90], "calls": c}
-                    for u, k, c in rows[:12]]}
+                    for u, k, c in rows[:top]]}
 
 
 def phase_algorithm(dev, nodes, test) -> dict:
@@ -828,10 +883,26 @@ def phase_ops_kernels(wa, gd, dev) -> dict:
         del x, y, g
     emit({"phase": "kernels", "ops_worst_norm_err": worst})
 
+    # grad_dot_stats runs one device kernel on one block and a second
+    # (the dependent sum) above
+    a = torch.randn(GDOT_SPAN + 1, device=dev, generator=gen)
+    for n, want in ((GDOT_SPAN, {GDOT_KERNEL: 1, SUM_KERNEL: 0}),
+                    (GDOT_SPAN + 1, {GDOT_KERNEL: 1, SUM_KERNEL: 1})):
+        ran = device_kernels(lambda: gd.grad_dot_stats(a[:n], a[:n]))
+        got = {key: sum(c for k, c in ran if key in k) for key in want}
+        emit({"phase": "kernels", "grad_dot_stats_device_kernels": {
+            "n": n, "kernels": ran}})
+        if got != want or sum(c for _, c in ran) != sum(want.values()):
+            raise AssertionError(f"grad_dot_stats at n = {n} ran {ran}, "
+                                 f"want {want}")
+
     flush = torch.zeros(64 << 20, device=dev)
     x = torch.randn(MAIN_K, MAIN_N, device=dev, generator=gen)
     g = torch.randn(MAIN_N, device=dev, generator=gen)
     k, n = x.shape
+    # client 1's row of the round's buffer starts 8 bytes past a 16-byte
+    # boundary; g here too
+    g8 = shifted(g, 8)
     table = {
         "batched_dot": timing_entry(
             "batched_dot", "batched_dot.cu",
@@ -846,9 +917,20 @@ def phase_ops_kernels(wa, gd, dev) -> dict:
             lambda: gd.grad_dot_stats(x[0], g),
             lambda: gd.grad_dot_stats_plain(x[0], g), None, 4 * 2 * n + 12,
             6 * n, flush, main_abs["grad_dot_stats"], TOL, (n,)),
+        "grad_dot_stats_off8": timing_entry(
+            "grad_dot_stats_off8", "grad_dot.cu",
+            "src/repro/kernels/grad_dot.py:61",
+            lambda: gd.grad_dot_stats(x[1], g8),
+            lambda: gd.grad_dot_stats_plain(x[1], g8), None,
+            4 * 2 * n + 12, 6 * n, flush,
+            sums_err(gd.grad_dot_stats(x[1], g8),
+                     gd.grad_dot_stats_plain(x[1], g8),
+                     dot_terms(x[1], g8))[0], TOL, (n,)),
     }
+    table["grad_dot_stats_off8"]["offsets_mod_16"] = [
+        x[1].data_ptr() % 16, g8.data_ptr() % 16]
     for row in table.values():
-        row["max_err"] = worst[row["name"]]
+        row["max_err"] = worst[row["name"].removesuffix("_off8")]
         emit({"phase": "kernels", "timing": row})
     return table
 
@@ -988,6 +1070,45 @@ def ptxas_registers(log: str) -> dict:
         elif fn and "Used" in line and "registers" in line:
             regs[fn] = int(line.split("Used", 1)[1].split()[0])
     return regs
+
+
+def kernel_registers(source: str, logs: dict) -> dict:
+    """{mangled kernel name: registers} of csrc/<source>.cu's build: from
+    this process's nvcc log, else (a library built earlier) from
+    cuobjdump -res-usage."""
+    if source in logs:
+        return ptxas_registers(logs[source])
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-res-usage",
+                          str(_build.library_path(source))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    regs, fn = {}, None
+    for line in out.splitlines():
+        if "Function" in line:
+            fn = line.split("Function", 1)[1].strip().rstrip(":")
+        elif fn and "REG:" in line:
+            regs[fn] = int(line.split("REG:", 1)[1].split()[0])
+    return regs
+
+
+def bf16_stats_wave(rs, sass: dict) -> dict:
+    """Whether the unmasked bf16 statistics kernel's grid at the main
+    shape fits one wave: the blocks of 64 threads an SM holds at its
+    registers (allocated 256 a warp), against the grid's blocks."""
+    regs = [c["registers"] for fn, c in sass.items()
+            if BF16_STATS_KERNEL in fn and "ILb0" in fn]
+    if len(regs) != 1 or regs[0] is None:
+        raise AssertionError(f"no registers of the unmasked "
+                             f"{BF16_STATS_KERNEL}: {sass}")
+    per_warp = -(-regs[0] * 32 // 256) * 256
+    per_sm = min(32, 65536 // (2 * per_warp))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = rs.bf16_stats_blocks(MAIN_K, MAIN_N)
+    return {"registers": regs[0], "blocks_per_sm": per_sm, "sms": sms,
+            "blocks": blocks, "one_wave": per_sm * sms >= blocks}
 
 
 def phase_serve(fa, dev) -> dict:
@@ -1182,6 +1303,24 @@ def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
     if launches != {"batched_dot": leaves, "grad_dot_stats": k * leaves}:
         raise AssertionError(f"ops launched {launches} for {leaves} leaves "
                              f"and K = {k}")
+    # the device kernels of one client's tree_dot_and_norms call (clients
+    # 0 and 1: rows 0 and 8 bytes past a 16-byte boundary): one a leaf of
+    # at most one block, two a larger leaf, beside the PyTorch ops that
+    # add the leaves' sums
+    sizes = [z.numel() for z in treemath.tree_leaves(gs)]
+    want = len(sizes) + sum(z > GDOT_SPAN for z in sizes)
+    per_call = {}
+    for i in (0, 1):
+        ran = device_kernels(lambda: ops.tree_dot_and_norms(
+            treemath.tree_map(lambda z: z[i], xs), gs))
+        per_call[i] = {"grad_dot": sum(c for key, c in ran
+                                       if GDOT_KERNEL in key
+                                       or SUM_KERNEL in key),
+                       "all": sum(c for _, c in ran), "kernels": ran}
+        if per_call[i]["grad_dot"] != want:
+            raise AssertionError(f"client {i}'s tree_dot_and_norms ran "
+                                 f"{ran}: want {want} grad_dot_stats "
+                                 f"kernels for leaves of {sizes}")
     xd, gd64 = x.double(), g.double()
     dot_scale = (xd.abs() * gd64.abs()[None]).sum(1)
     errs = {
@@ -1196,8 +1335,9 @@ def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
             sums_err([c[2]], [sqg], [sqg.double().abs()])[1]
             for c in per_client)}
     out = {"phase": "ops", "model": "cnn", "clients": k,
-           "params": x.shape[1], "leaves": leaves, "launches": launches,
-           "norm_err": errs}
+           "params": x.shape[1], "leaves": leaves, "leaf_sizes": sizes,
+           "launches": launches, "norm_err": errs,
+           "device_kernels_of_one_client_call": per_call}
     emit(out)
     bad = {key: e for key, e in errs.items() if not e <= TOL}
     if bad:
@@ -1244,33 +1384,39 @@ def main() -> int:
         _build.library_path("flash_attn"), fa.KERNELS[dt],
         ("HMMA", "HGMMA")).items()}
         for dt in (torch.bfloat16, torch.float32)}
-    # the wire kernels: no integer-to-float conversion, 16-byte loads
+    # the wire kernels, the bf16 statistics and grad_dot: 16-byte loads
+    # (and in the wire kernels no integer-to-float conversion)
     wire_sass = {}
-    for source, kernels in (("weighted_agg_q", WIRE_AGG_KERNELS),
-                            ("round_stats_q", (WIRE_STATS_KERNEL,))):
-        regs = ptxas_registers(logs.get(source, ""))
+    for source, (kernels, _) in SASS_INSTANCES.items():
+        regs = kernel_registers(source, logs)
         wire_sass[source] = {}
         for kernel in kernels:
             for fn, c in sass_counts(_build.library_path(source), kernel,
                                      ("I2F", "LDG.E.128")).items():
                 wire_sass[source][fn] = {"registers": regs.get(fn), **c}
+    # the bf16 statistics' grid at the main shape: one wave, unmasked
+    wave = bf16_stats_wave(rs, wire_sass["round_stats"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas,
           "flash_sass_mma_count": {fa.KERNELS[dt]: c
                                    for dt, c in mma.items()},
-          "wire_sass": wire_sass})
+          "wire_sass": wire_sass, "bf16_stats_wave": wave})
     for dt, counts in mma.items():
         if len(counts) != len(fa.HEAD_DIMS) or not all(counts.values()):
             raise AssertionError(f"{fa.KERNELS[dt]}: want HMMA or HGMMA in "
                                  f"each of {len(fa.HEAD_DIMS)} head-dim "
                                  f"instances, got {counts}")
-    for source, want in WIRE_SASS_INSTANCES.items():
+    for source, (_, want) in SASS_INSTANCES.items():
         counts = wire_sass[source]
-        if len(counts) != want or any(c["I2F"] or not c["LDG.E.128"]
-                                      for c in counts.values()):
+        if len(counts) != want or any(
+                (source in NO_I2F and c["I2F"]) or not c["LDG.E.128"]
+                for c in counts.values()):
             raise AssertionError(f"{source}: want {want} kernel instances "
-                                 f"with no I2F and 16-byte loads in their "
-                                 f"SASS: {counts}")
+                                 f"with 16-byte loads in their SASS (and "
+                                 f"no I2F in {NO_I2F}): {counts}")
+    if not wave["one_wave"]:
+        raise AssertionError(f"the bf16 statistics' main grid needs more "
+                             f"than one wave: {wave}")
 
     table = phase_kernels(wa, rs, tq, dev)
     lm_table = {**phase_ops_kernels(wa, gd, dev),
@@ -1295,6 +1441,8 @@ def main() -> int:
         serve_out["f32_parity"]["flash_launches"]
     for name in ("batched_dot", "grad_dot_stats"):
         lm_table[name]["launches"] = ops_launches[name]
+    lm_table["grad_dot_stats_off8"]["launches"] = \
+        ops_launches["grad_dot_stats"]
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

@@ -1,5 +1,6 @@
-// Loads of the f32 and bf16 client-delta rows, widened to f32: shared by
-// weighted_agg.cu and round_stats.cu. bf16 rides as its raw 16 bits
+// Loads of the f32 and bf16 client-delta rows, widened to f32: load1 /
+// load4 shared by weighted_agg.cu and batched_dot.cu, the widening by
+// round_stats.cu and grad_dot.cu too. bf16 rides as its raw 16 bits
 // (uint16_t), and widening it to f32 is a 16-bit shift.
 #pragma once
 

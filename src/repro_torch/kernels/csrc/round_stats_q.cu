@@ -44,13 +44,13 @@
 //   the end each block adds its warps' sums in warp order and writes its
 //   (2K + 1) partials once. Blocks of two warps and a register cap keep
 //   the main shape's grid in one wave and its blocks even over the SMs.
-// * Two launches a call. stats_sum_kernel adds each statistic's block
-//   partials in a fixed order (they lie statistic-major: one contiguous
-//   run each) and writes out. It is launched as a programmatic dependent
-//   launch: its blocks start while stats_q_kernel still runs and wait in
-//   griddepcontrol.wait until that grid has finished and its writes are
-//   visible, which hides most of a second launch's start. No atomics: the
-//   same bits every run.
+// * Two launches a call. stats_sum_kernel (stats_reduce.cuh) adds each
+//   statistic's block partials in a fixed order (they lie
+//   statistic-major: one contiguous run each) and writes out. It is
+//   launched as a programmatic dependent launch: its blocks start while
+//   stats_q_kernel still runs and wait in griddepcontrol.wait until that
+//   grid has finished and its writes are visible, which hides most of a
+//   second launch's start. No atomics: the same bits every run.
 //
 // Tried and measured slower (PERF.md has the times): one launch whose
 // last block, told by ticket counters, sums every block's partials (the
@@ -77,7 +77,6 @@ constexpr int kWarps = 2;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTiles = 31;  // 16-byte tiles of a warp: lane 31 only lends
 constexpr int kRows = 2;    // rows of a warp in flight: the butterfly's two
-constexpr int kSumThreads = 256;  // stats_sum_kernel's block
 // Blocks an SM must hold, which caps the registers a thread, so that the
 // main shape's grid is one wave: int8 runs 12.7 blocks an SM there (72
 // registers fit 14), int4 holds 32 g values a lane in 6.4 (128 fit 8).
@@ -98,25 +97,6 @@ struct Args {
   bool vec;      // g and mask 16-byte aligned
   long long blocks;
 };
-
-// v[0..C) = p[0..nv), zeros after. vec: p 16-byte aligned.
-template <int C>
-__device__ __forceinline__ void load_cols(const float* __restrict__ p,
-                                          int nv, bool vec, float (&v)[C]) {
-  if (nv == C && vec) {
-#pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + i);
-      v[4 * i] = a.x;
-      v[4 * i + 1] = a.y;
-      v[4 * i + 2] = a.z;
-      v[4 * i + 3] = a.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < C; ++i) v[i] = i < nv ? __ldg(p + i) : 0.f;
-  }
-}
 
 // The bytes of a lane's 16 that hold one of its nv logical columns (int4:
 // the nibbles), as an and-mask of 4 words.
@@ -210,23 +190,6 @@ __device__ __forceinline__ void sums_int4(const uint4& b, const float* gw,
   if (kInt) q = exact_f32(u2 - 16u * u1 + 64u * 32u);
 }
 
-// The warp's sums of two rows' (d, q) pairs by a butterfly in a fixed
-// order, 6 shuffles: lane l ends with row (l >> 4) & 1's d (bit 3 clear)
-// or q (bit 3 set).
-__device__ __forceinline__ float butterfly(float d0, float q0, float d1,
-                                           float q1, int lane) {
-  const bool up = lane & 16, mid = lane & 8;
-  const float a = (up ? d1 : d0) +
-                  __shfl_xor_sync(repro::kFullWarp, up ? d0 : d1, 16);
-  const float b = (up ? q1 : q0) +
-                  __shfl_xor_sync(repro::kFullWarp, up ? q0 : q1, 16);
-  float c = (mid ? b : a) + __shfl_xor_sync(repro::kFullWarp, mid ? a : b, 8);
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1)
-    c += __shfl_xor_sync(repro::kFullWarp, c, off);
-  return c;
-}
-
 // The rows k0 + u (u < kRows) of the lane's tile that exist, and their
 // scales when one covers the lane (WIDE).
 template <bool WIDE>
@@ -265,10 +228,10 @@ stats_q_kernel(Args a) {
   const long long sc_col = min(col >> a.lg, static_cast<long long>(a.G - 1));
 
   float gw[kCols], mw[kCols];  // mw: masked only
-  load_cols<kCols>(a.g + col, nv, a.vec, gw);
+  repro::lane_cols<kCols>(a.g + col, nv, a.vec, gw);
   float sg = 0.f;
   if constexpr (MASKED) {
-    load_cols<kCols>(a.mask + col, nv, a.vec, mw);
+    repro::lane_cols<kCols>(a.mask + col, nv, a.vec, mw);
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const float gm = gw[i] * mw[i];
@@ -322,7 +285,7 @@ stats_q_kernel(Args a) {
         }
       }
     }
-    const float v = butterfly(dq[0], dq[1], dq[2], dq[3], lane);
+    const float v = repro::butterfly(dq[0], dq[1], dq[2], dq[3], lane);
     const int k = k0 + (lane >> 4);
     if ((lane & 7) == 0 && k < K) mine[(lane & 8) ? K + k : k] = v;
   }
@@ -334,38 +297,6 @@ stats_q_kernel(Args a) {
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) acc += red[w * S + j];
     a.part[j * a.blocks + blockIdx.x] = acc;
-  }
-}
-
-// out[j] = the sum of part[j, 0..blocks), one block a statistic: thread t
-// adds blocks t, t + 256, .. in order (their loads 8 at a time), then the
-// warps' sums by shuffles and the 8 warps' in order. It waits for
-// stats_q_kernel's writes.
-__global__ void __launch_bounds__(kSumThreads)
-stats_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                 long long blocks) {
-  __shared__ float warps[kSumThreads / 32];
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const float* p = part + blockIdx.x * blocks;
-  float acc = 0.f;
-  for (long long b0 = threadIdx.x; b0 < blocks; b0 += 8 * kSumThreads) {
-    float v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const long long b = b0 + u * kSumThreads;
-      v[u] = b < blocks ? p[b] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc += v[u];
-  }
-  acc = repro::warp_sum(acc);
-  if (threadIdx.x % 32 == 0) warps[threadIdx.x / 32] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kSumThreads / 32; ++w) t += warps[w];
-    out[blockIdx.x] = t;
   }
 }
 
@@ -383,32 +314,8 @@ long long row_bytes_of(long long n, int lg) {
 
 template <bool INT4, bool WIDE, bool MASKED>
 cudaError_t launch(const Args& a, float* out, cudaStream_t stream) {
-  const long long smem = static_cast<long long>(kWarps) * (2 * a.K + 1) *
-                         static_cast<long long>(sizeof(float));
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_q_kernel<INT4, WIDE, MASKED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  stats_q_kernel<INT4, WIDE, MASKED>
-      <<<static_cast<unsigned>(a.blocks), kThreads,
-         static_cast<size_t>(smem), stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(2 * a.K + 1));
-  cfg.blockDim = dim3(kSumThreads);
-  cfg.stream = stream;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, stats_sum_kernel,
-                         static_cast<const float*>(a.part), out, a.blocks);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return repro::launch_stats(stats_q_kernel<INT4, WIDE, MASKED>, a, kWarps,
+                             out, stream);
 }
 
 Args make_args(const int8_t* q, const float* scales, const float* g,

@@ -1,6 +1,9 @@
 // Reading the quantized uplink wire (repro_torch/transport/quantize.py)
 // in registers. Both wire kernels use all of it: weighted_agg_q.cu (the
-// aggregations) and round_stats_q.cu (the statistics).
+// aggregations) and round_stats_q.cu (the statistics). round_stats.cu's
+// bf16 statistics read the bf16 wire the same way, 32 bytes a lane
+// (load_row2, row_bytes2), and load g as round_stats_q.cu does
+// (lane_cols).
 //
 // int8 wire: one signed byte per parameter; rows are N bytes apart.
 // int4 wire: byte j of a row holds logical elements 2j (low nibble) and
@@ -76,6 +79,66 @@ __device__ __forceinline__ uint4 row_bytes(const RowLoad& l) {
                                 __shfl_down_sync(kFullWarp, l.word.z, 1),
                                 __shfl_down_sync(kFullWarp, l.word.w, 1));
   return realign16(l.word, next, l.r);
+}
+
+// The same for a lane that owns 32 row bytes: the aligned words 2 * tile
+// and 2 * tile + 1 of the row's span (each zero when it holds no byte of
+// the row). Its 32 row bytes are bytes r..15 of its first word, all of its
+// second, and bytes 0..r-1 of its right neighbour's first word: one word
+// borrowed by shuffles, as above. Lane 31 only lends its first word.
+struct RowLoad2 {
+  uint4 lo, hi;
+  unsigned int r;
+};
+
+__device__ __forceinline__ RowLoad2 load_row2(const int8_t* q, int k,
+                                              long long nb, long long tile) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(q) +
+                      static_cast<uintptr_t>(k) * nb;
+  const uint4* w = reinterpret_cast<const uint4*>(p & ~uintptr_t{15});
+  RowLoad2 out;
+  out.r = static_cast<unsigned int>(p & 15);
+  out.lo = out.hi = make_uint4(0u, 0u, 0u, 0u);
+  if (32 * tile < nb + out.r) out.lo = __ldg(w + 2 * tile);
+  if (32 * tile + 16 < nb + out.r) out.hi = __ldg(w + 2 * tile + 1);
+  return out;
+}
+
+// The lane's 32 row bytes as two words. Every lane of the warp calls it.
+__device__ __forceinline__ void row_bytes2(const RowLoad2& l, uint4& lo,
+                                           uint4& hi) {
+  if (l.r == 0) {
+    lo = l.lo;
+    hi = l.hi;
+    return;
+  }
+  const uint4 next = make_uint4(__shfl_down_sync(kFullWarp, l.lo.x, 1),
+                                __shfl_down_sync(kFullWarp, l.lo.y, 1),
+                                __shfl_down_sync(kFullWarp, l.lo.z, 1),
+                                __shfl_down_sync(kFullWarp, l.lo.w, 1));
+  lo = realign16(l.lo, l.hi, l.r);
+  hi = realign16(l.hi, next, l.r);
+}
+
+// ---- a lane's share of the f32 server-side vectors (g, the mask)
+
+// v[0..C) = p[0..nv), zeros after. vec: p 16-byte aligned.
+template <int C>
+__device__ __forceinline__ void lane_cols(const float* __restrict__ p,
+                                          int nv, bool vec, float (&v)[C]) {
+  if (nv == C && vec) {
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = a.x;
+      v[4 * i + 1] = a.y;
+      v[4 * i + 2] = a.z;
+      v[4 * i + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C; ++i) v[i] = i < nv ? __ldg(p + i) : 0.f;
+  }
 }
 
 // ---- exact f32 values built from bits

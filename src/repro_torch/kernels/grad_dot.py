@@ -4,14 +4,16 @@ against the global update, over a parameter leaf.
 
 `grad_dot_stats(a, b)` replaces the Pallas kernel
 `repro/kernels/grad_dot.py::grad_dot_stats` (`_kernel`); CUDA source
-`csrc/grad_dot.cu` (a fixed split into blocks and a fixed-order second
-stage, so the sums are the same from run to run). It lies on no round
-path: `kernels/ops.py::tree_dot_and_norms` calls it.
+`csrc/grad_dot.cu` (a fixed split into blocks of 2,048 elements: one
+launch for one block, else a fixed-order second stage as a programmatic
+dependent launch, so the sums are the same from run to run; 16-byte
+loads at any offset of a and b). It lies on no round path:
+`kernels/ops.py::tree_dot_and_norms` calls it.
 
 The wrapper takes the plain version only for tensors that lie on the
 CPU. On CUDA tensors it launches the kernel or raises.
-`grad_dot_stats.launches` counts its calls on the card (both stages
-together).
+`grad_dot_stats.launches` counts its calls on the card (one per call,
+whatever the number of launches).
 """
 from __future__ import annotations
 
@@ -61,11 +63,14 @@ def grad_dot_stats(a: torch.Tensor, b: torch.Tensor):
     blocks_for.argtypes, blocks_for.restype = [_L], _L
     fn.argtypes, fn.restype = [_P, _P, _P, _P, _L, _I, _L, _P], _I
     nblocks = blocks_for(n)
-    part = torch.empty(nblocks * 3, dtype=torch.float32, device=a.device)
+    # one block writes out itself and needs no partials
+    part = torch.empty(nblocks * 3, dtype=torch.float32,
+                       device=a.device) if nblocks > 1 else None
     out = torch.empty(3, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(),
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 None if part is None else part.data_ptr(), out.data_ptr(),
                  n, int(a.dtype == torch.bfloat16), nblocks, stream)
     if err:
         raise RuntimeError(f"grad_dot_stats kernel launch failed: CUDA error "

@@ -4,9 +4,9 @@ dots[k] = <x_k, g>, sqs[k] = ||x_k||^2, sqg = ||g||^2, optionally over
 the subspace of an (N,) 0/1 segment mask (angle_filter="dense_only"), on
 every wire of the uplink:
 
-* `round_stats(x, g, mask)`: x f32 or bf16, CUDA source
-  `csrc/round_stats.cu`; it replaces the Pallas kernels
-  `repro/kernels/round_stats.py::round_stats` (`_stats_kernel`,
+* `round_stats(x, g, mask)`: x f32 or bf16 (the bf16 wire), CUDA source
+  `csrc/round_stats.cu`, a kernel for each type; it replaces the Pallas
+  kernels `repro/kernels/round_stats.py::round_stats` (`_stats_kernel`,
   `_stats_kernel_masked`).
 * `round_stats_q(values, scales, g, mask)`: the int8 wire, and
   `round_stats_q4(values, scales, g, mask, group_size=)`: the packed int4
@@ -16,11 +16,11 @@ every wire of the uplink:
 
 All are bound by bytes: one read of x or the wire plus g (and the
 mask). Each reduces per column block into 2K+1 partials a block, and a
-second launch reduces those in a fixed order (for the wire kernels a
-programmatic dependent launch, whose blocks start before the first grid
-ends), so the result is the same from run to run (the source files'
-headers have the designs). g and the mask are f32 and in logical
-columns; sums are f32.
+second launch reduces those in a fixed order (for bf16 x and the int8 /
+int4 wires a programmatic dependent launch, whose blocks start before
+the first grid ends), so the result is the same from run to run (the
+source files' headers have the designs). g and the mask are f32 and in
+logical columns; sums are f32.
 
 A wrapper takes its plain version (`*_plain`) only for tensors that lie
 on the CPU. On a CUDA tensor it launches the kernels or raises.
@@ -52,8 +52,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # x, g, mask, part, out, K, N, blocks, stream
     "repro_round_stats_f32": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
-    "repro_round_stats_bf16": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
     "repro_round_stats_blocks": [_L],
+    # x, g, mask, part, out, K, N, stream
+    "repro_wire_stats_bf16": [_P, _P, _P, _P, _P, _I, _L, _P],
+    # K, N -> floats of part
+    "repro_wire_stats_bf16_floats": [_I, _L],
     # q, scales, g, mask, part, out, K, N, C, stream
     "repro_wire_stats_q8": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     # q, scales, g, mask, part, out, K, n, G, log2(group_size), stream
@@ -61,7 +64,8 @@ _SIGNATURES = {
     # K, n, lg (0: the int8 wire) -> floats of part
     "repro_wire_stats_floats": [_I, _L, _I],
 }
-_RETURNS = {"repro_round_stats_blocks": _L, "repro_wire_stats_floats": _L}
+_RETURNS = {"repro_round_stats_blocks": _L, "repro_wire_stats_floats": _L,
+            "repro_wire_stats_bf16_floats": _L}
 
 
 def _fn(source: str, name: str):
@@ -76,35 +80,26 @@ def _raise_on(err: int, name: str, sizes) -> None:
                            f"at K, N, ... = {sizes}")
 
 
-def _run(name: str, k: int, width: int, device, ptrs, sizes):
-    """Launch round_stats' two stages with fresh scratch; returns
-    (dots, sqs, sqg)."""
-    nblocks = _fn("round_stats", "repro_round_stats_blocks")(width)
-    part = torch.empty(nblocks * (2 * k + 1), dtype=torch.float32,
-                       device=device)
+def _launch(source: str, name: str, k: int, floats: int, device, ptrs,
+            sizes, tail=()):
+    """One call of a statistics entry point `name` of `source` with fresh
+    scratch of `floats` floats; `tail` goes between the sizes and the
+    stream. Returns (dots, sqs, sqg)."""
+    part = torch.empty(floats, dtype=torch.float32, device=device)
     out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fn("round_stats", name)(*ptrs, part.data_ptr(),
-                                       out.data_ptr(), *sizes, nblocks,
-                                       stream)
+        err = _fn(source, name)(*ptrs, part.data_ptr(), out.data_ptr(),
+                                *sizes, *tail, stream)
     _raise_on(err, name, sizes)
     return out[:k], out[k:2 * k], out[2 * k]
 
 
 def _run_wire(name: str, k: int, n: int, lg: int, device, ptrs, sizes):
     """The two launches of a wire statistics kernel (lg = 0: int8, else
-    int4 at group size 2^lg) with fresh scratch; returns (dots, sqs,
-    sqg)."""
+    int4 at group size 2^lg)."""
     floats = _fn("round_stats_q", "repro_wire_stats_floats")(k, n, lg)
-    part = torch.empty(floats, dtype=torch.float32, device=device)
-    out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fn("round_stats_q", name)(*ptrs, part.data_ptr(),
-                                         out.data_ptr(), *sizes, stream)
-    _raise_on(err, name, sizes)
-    return out[:k], out[k:2 * k], out[2 * k]
+    return _launch("round_stats_q", name, k, floats, device, ptrs, sizes)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -131,8 +126,7 @@ def round_stats_plain(x: torch.Tensor, g: torch.Tensor,
     return xf @ gf, torch.sum(xf * xf, dim=1), torch.dot(gf, gf)
 
 
-_WIRE_FN = {torch.float32: "repro_round_stats_f32",
-            torch.bfloat16: "repro_round_stats_bf16"}
+_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x, g, mask) -> None:
@@ -145,7 +139,7 @@ def _check(x, g, mask) -> None:
                 "must be on one CUDA device (CPU tensors take the plain "
                 "version)")
         if t.dtype != torch.float32 and not (name == "x"
-                                             and t.dtype in _WIRE_FN):
+                                             and t.dtype in _X_DTYPES):
             raise TypeError(f"round_stats: the kernel takes f32 or bf16 x "
                             f"and f32 g and mask, {name} is {t.dtype}")
         if not t.is_contiguous():
@@ -172,13 +166,27 @@ def round_stats(x: torch.Tensor, g: torch.Tensor,
         return round_stats_plain(x, g, mask)
     _check(x, g, mask)
     k, n = x.shape
-    out = _run(_WIRE_FN[x.dtype], k, n, x.device,
-               (x.data_ptr(), g.data_ptr(), _ptr(mask)), (k, n))
+    ptrs = (x.data_ptr(), g.data_ptr(), _ptr(mask))
+    if x.dtype == torch.bfloat16:
+        floats = _fn("round_stats", "repro_wire_stats_bf16_floats")(k, n)
+        out = _launch("round_stats", "repro_wire_stats_bf16", k, floats,
+                      x.device, ptrs, (k, n))
+    else:
+        nblocks = _fn("round_stats", "repro_round_stats_blocks")(n)
+        out = _launch("round_stats", "repro_round_stats_f32", k,
+                      nblocks * (2 * k + 1), x.device, ptrs, (k, n),
+                      (nblocks,))
     round_stats.launches += 1
     return out
 
 
 round_stats.launches = 0
+
+
+def bf16_stats_blocks(k: int, n: int) -> int:
+    """The blocks of the bf16 statistics kernel's grid for x (k, n)."""
+    floats = _fn("round_stats", "repro_wire_stats_bf16_floats")(k, n)
+    return floats // (2 * k + 1)
 
 
 # ---------------------------------------------------------------- int8 / int4

@@ -79,21 +79,39 @@ def test_weighted_agg_matches_pallas(k, n):
     assert_agg_close(got.numpy(), want, w, x)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("k", [1, 3, 33])
-@pytest.mark.parametrize("n", [100, 16385, 33000])
-def test_round_stats_matches_pallas(k, n, masked):
+def _round_stats_against_pallas(k, n, masked, x_dtype):
+    """The port's round_stats and the JAX package's (interpret mode, the
+    Pallas path forced) on the same inputs, x cast to x_dtype in each
+    framework (round to nearest even in both, so the same bits)."""
     import jax.numpy as jnp
     from repro.kernels import round_stats as jrs
 
     x, g, _, mask = _inputs(k, n, masked=masked)
-    want = jrs.round_stats(jnp.asarray(x), jnp.asarray(g),
+    want = jrs.round_stats(jnp.asarray(x).astype(getattr(jnp, x_dtype)),
+                           jnp.asarray(g),
                            None if mask is None else jnp.asarray(mask),
                            min_kernel_elems=0)
-    got = trs.round_stats(torch.from_numpy(x), torch.from_numpy(g),
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    got = trs.round_stats(tx, torch.from_numpy(g),
                           None if mask is None else torch.from_numpy(mask))
     assert [tuple(t.shape) for t in got] == [(k,), (k,), ()]
-    assert_stats_close([t.numpy() for t in got], want, x, g, mask)
+    assert_stats_close([t.numpy() for t in got], want, tx.float().numpy(),
+                       g, mask)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 33])
+@pytest.mark.parametrize("n", [100, 16385, 33000])
+def test_round_stats_matches_pallas(k, n, masked):
+    _round_stats_against_pallas(k, n, masked, "float32")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 33])
+@pytest.mark.parametrize("n", [100, 16385, 33000])
+def test_round_stats_bf16_matches_pallas(k, n, masked):
+    """The same with x in bf16 (the bf16 uplink), sums in f32."""
+    _round_stats_against_pallas(k, n, masked, "bfloat16")
 
 
 def test_mask_restricts_to_the_subspace():
@@ -182,6 +200,33 @@ class TestKernelsOnCard:
         want = trs.round_stats_plain(*dev)
         assert_stats_close([t.cpu().numpy() for t in got],
                            [t.cpu().numpy() for t in want], x, g, mask)
+        again = trs.round_stats(*dev)  # no atomics: same bits every run
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("offset", [0, 4, 8, 12])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("k,n", [(10, 1_663_370), (3, 16385), (4, 13),
+                                     (37, 7850)])
+    def test_round_stats_bf16(self, cuda_device, k, n, masked, offset):
+        """bf16 x whose storage starts `offset` bytes past a 16-byte
+        boundary (and rows at every even offset along the way)."""
+        x, g, _, mask = _inputs(k, n, masked=masked)
+        flat = torch.zeros(k * n + 8, dtype=torch.bfloat16,
+                           device=cuda_device)
+        xb = flat[offset // 2: offset // 2 + k * n].view(k, n)
+        xb.copy_(torch.from_numpy(x).to(cuda_device).to(torch.bfloat16))
+        assert xb.data_ptr() % 16 == offset
+        dev = [xb] + [torch.from_numpy(a).to(cuda_device) if a is not None
+                      else None for a in (g, mask)]
+        before = trs.round_stats.launches
+        got = trs.round_stats(*dev)
+        torch.cuda.synchronize()
+        assert trs.round_stats.launches == before + 1
+        want = trs.round_stats_plain(*dev)
+        assert_stats_close([t.cpu().numpy() for t in got],
+                           [t.cpu().numpy() for t in want],
+                           xb.float().cpu().numpy(), g, mask)
         again = trs.round_stats(*dev)  # no atomics: same bits every run
         for a, b in zip(got, again):
             assert torch.equal(a, b)

@@ -225,3 +225,28 @@ class TestOpsKernelsOnCard:
         assert_sums_close(got, tgd.grad_dot_stats_plain(a, b),
                           [np.abs(ar * br).sum(), (ar * ar).sum(),
                            (br * br).sum()])
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("oa,ob", [(0, 0), (8, 0), (0, 8), (8, 8)])
+    @pytest.mark.parametrize("n", [10, 2048, 2049, 1_663_370])
+    def test_grad_dot_stats_at_offsets(self, cuda_device, n, oa, ob, dtype):
+        """a and b whose storage starts oa / ob bytes past a 16-byte
+        boundary (an odd client's row of the round's f32 buffer starts 8
+        bytes past one), on one block (n <= 2,048) and on several."""
+        def placed(seed, offset):
+            z = _torch(_normal(seed, (n + 8,)), dtype, cuda_device)
+            v = z[offset // z.element_size():][:n]
+            assert v.data_ptr() % 16 == offset
+            return v
+
+        a, b = placed(0, oa), placed(1, ob)
+        before = tgd.grad_dot_stats.launches
+        got = tgd.grad_dot_stats(a, b)
+        torch.cuda.synchronize()
+        assert tgd.grad_dot_stats.launches == before + 1
+        ar, br = _as64(a), _as64(b)
+        assert_sums_close(got, tgd.grad_dot_stats_plain(a, b),
+                          [np.abs(ar * br).sum(), (ar * ar).sum(),
+                           (br * br).sum()])
+        again = tgd.grad_dot_stats(a, b)  # no atomics: same bits every run
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
