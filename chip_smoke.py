@@ -7,8 +7,9 @@ It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`
 with nvcc, checks and times each against its plain torch version, and
 drives the port's paths: the synchronous FedAdp round of the flat engine
 through `repro_torch.FedServer`, at the full width of the paper's CNN,
-on every uplink wire (f32, bf16, int8, int4); the algorithm on the MLR
-golden task; dense-LM serving (`launch.serve.generate`: gemma-2b at full
+on every uplink wire (f32, bf16, int8, int4), with the quantized and
+delta downlink, in sequential mode and as the buffered-async server; the
+algorithm on the MLR golden task; dense-LM serving (`launch.serve.generate`: gemma-2b at full
 width and depth in bf16, prefill on the flash-attention kernel, then
 greedy decode); and `kernels/ops.py` on a real CNN round's deltas. Each
 phase prints one JSON line; any failure raises and the script exits
@@ -23,7 +24,8 @@ f32 kernels on f32 and bf16 input and of the int8 / int4 wire kernels at
 the main path's shape and at edge shapes, a second launch of each wire
 kernel giving the same bits, then timing of every kernel variant, and
 the device kernels of one call of each wire kernel, by a profile: one per
-aggregation, two per statistics call; batched_dot and
+aggregation, two per statistics call; round_stats at (1, N), sequential
+mode's shape; batched_dot and
 grad_dot_stats the same; flash attention at the reference test's cases,
 at every head dim of both kernels, causal and not, at ragged T, through
 gqa_flash with grouped KV heads, and at gemma-2b's prefill shape, where
@@ -32,9 +34,25 @@ is named from a profile), wire (the quantizer on the card equals the quantizer o
 bit for bit), slice (per wire: 3 CNN rounds with eval, with 2
 aggregation + 1 statistics launches of the wire's kernels per round, the
 quantizer's time, flat == tree on the card, one more round under
-torch.profiler; and one int8 run with error feedback), algorithm (fedadp
-reaches 85% on MLR in no more rounds than fedavg, per uplink f32, bf16,
-int8 and int4; each wire's fedadp rounds over f32's printed), serve
+torch.profiler; and one int8 run with error feedback), downlink (3 CNN
+rounds each of an int8 broadcast on the f32 uplink, a bf16 broadcast with
+error feedback on the int8 uplink, and an int8 delta broadcast with a
+2-deep ring on the int4 uplink at 5 of 10 clients: 2 + 1 launches of the
+uplink wire's kernels a round, flat == tree, the (1, N) compress on the
+card == on the CPU, every client's pull replayed from the ring bitwise
+onto the head or refused as a resync, `ver` and `head_ver` as the
+cohorts imply; round ms and bytes), sequential (3 CNN rounds of the
+exact round and of stale_angles: 10 round_stats launches a round at
+(1, N), none of weighted_agg; ms a round; the exact round == the
+parallel tree round at 2e-4 / 2e-5), buffered (buffered(m = K) == sync,
+f32 bit for bit and int8 at 1e-5; the golden buffered schedule's 8 ticks
+on the int8 uplink: 2 + 1 f32 kernel launches a tick, none of the _q
+ones, flushes on the ticks of the same schedule's CPU run; ms a tick),
+algorithm (fedadp reaches 85% on MLR in no more rounds than fedavg, per
+uplink f32, bf16, int8 and int4, on the golden delta section's wires at
+5 of 10 clients, and in sequential mode; buffered fedadp under the
+golden schedule in no more ticks than sync fedavg, on f32/f32 and
+int4/int8; each wire's fedadp rounds over f32's printed), serve
 (gemma-2b, B = 4, prompt 1024, 32 greedy steps: 18
 flash launches per prefill and none in decode, prefill and decode times,
 peak memory, the tensor-core kernel's share of a profiled prefill, where
@@ -89,6 +107,7 @@ MAIN_GS = 512  # FLConfig's default int4 group size
 WIDE_K = 128  # a second timing of each kernel, at 12.8x the main K
 REPS = 50
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: the host's head start
+HEAD_START = 8  # throwaway sleep kernels that begin a counted trace
 WIRES = ("f32", "bf16", "int8", "int4")
 SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
            "flash_attn", "batched_dot", "grad_dot")
@@ -526,6 +545,59 @@ def expected_launches(transport: str, rounds: int) -> dict:
     return want
 
 
+def excess_err(pairs: dict, rtol: float, atol: float) -> tuple[float, str]:
+    """The worst of max(|a - b| - rtol |b|) - atol over `pairs` ({name:
+    (a, b)}) and its name: <= 0 passes."""
+    excess = {}
+    for key, (a, b) in pairs.items():
+        d = (a.double() - b.double()).abs() - rtol * b.double().abs()
+        excess[key] = float(d.max()) - atol
+    worst = max(excess, key=excess.get)
+    return excess[worst], worst
+
+
+def state_pairs(a, ma, b, mb, keys=None) -> dict:
+    """{name: (a's tensor, b's)} over two rounds' new states and metrics:
+    params, angles, prev_delta, the EF residuals, the broadcast head."""
+    pairs = {f"params/{k}": (a.params[k], b.params[k]) for k in a.params}
+    pairs.update({f"prev_delta/{k}": (a.prev_delta[k], b.prev_delta[k])
+                  for k in a.prev_delta})
+    pairs["angle"] = (a.angle.smoothed, b.angle.smoothed)
+    for field in ("ef", "dl_ef"):
+        if getattr(a, field) is not None:
+            pairs[field] = (getattr(a, field), getattr(b, field))
+    if a.bcast is not None:
+        pairs["bcast/head"] = (a.bcast.head, b.bcast.head)
+    pairs.update({f"metrics/{k}": (ma[k], mb[k]) for k in (keys or ma)})
+    return pairs
+
+
+def counted_rounds(server, wrappers, rounds: int, eval_every: int = 1,
+                   after=None):
+    """`rounds` steps of `server` with every wrapper's count set to 0
+    first: (ms of each step, its host metrics, the counts). Every metric
+    must be finite and a flush's weights sum to 1. `after(server)` runs
+    after each step, outside the timed span."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    ms, metrics = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        m = server.step(eval_every=eval_every)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(server)
+        for key, v in m.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"metric {key} is not finite: {v}")
+        if int(m.get("flushed", 1)) and abs(
+                float(np.sum(m["weights"])) - 1.0) > 1e-6:
+            raise AssertionError(f"weights sum to {np.sum(m['weights'])}")
+        metrics.append(m)
+    return ms, metrics, {name: fn.launches for name, fn in wrappers.items()}
+
+
 def phase_slice(wa, rs, tq, dev, nodes, test, transport) -> dict:
     import repro_torch
     from repro_torch.core import fl as fl_mod
@@ -542,22 +614,8 @@ def phase_slice(wa, rs, tq, dev, nodes, test, transport) -> dict:
     torch.cuda.synchronize()
 
     # the main path, counted: every launch of every wrapper in these rounds
-    wrappers = counters(wa, rs)
-    for fn in wrappers.values():
-        fn.launches = 0
-    round_ms, accs = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        m = server.step(eval_every=1)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t0) * 1e3)
-        for key, v in m.items():
-            if not np.all(np.isfinite(v)):
-                raise AssertionError(f"metric {key} is not finite: {v}")
-        if abs(float(np.sum(m["weights"])) - 1.0) > 1e-6:
-            raise AssertionError(f"weights sum to {np.sum(m['weights'])}")
-        accs.append(float(m["accuracy"]))
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    round_ms, ms, launches = counted_rounds(server, counters(wa, rs), 3)
+    accs = [float(m["accuracy"]) for m in ms]
     if launches != expected_launches(transport, 3):
         raise AssertionError(f"{transport}: 3 rounds launched {launches}, "
                              "want 2 aggregations + 1 statistics per round "
@@ -600,25 +658,18 @@ def phase_slice(wa, rs, tq, dev, nodes, test, transport) -> dict:
             server.state, batches, sel, sizes)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
-    (sf, mf), (st, mt) = outs["flat"], outs["tree"]
-    pairs = {f"params/{k}": (sf.params[k], st.params[k]) for k in sf.params}
-    pairs["angle"] = (sf.angle.smoothed, st.angle.smoothed)
-    pairs.update({f"metrics/{k}": (mf[k], mt[k]) for k in mf})
-    excess = {}  # max of |flat - tree| - 1e-5 |tree|: <= 1e-5 passes
-    for key, (a, b) in pairs.items():
-        d = (a.double() - b.double()).abs() - 1e-5 * b.double().abs()
-        excess[key] = float(d.max())
-    worst = max(excess, key=excess.get)
-    if excess[worst] > 1e-5:
-        raise AssertionError(f"{transport}: flat and tree rounds differ: "
-                             f"{excess}")
+    worst, where = excess_err(state_pairs(*outs["flat"], *outs["tree"]),
+                              1e-5, 1e-5)
+    if worst > 0:
+        raise AssertionError(f"{transport}: flat and tree rounds differ at "
+                             f"{where}: {worst}")
 
     out = {"phase": "slice", "model": "cnn", "transport": transport,
            "params": n_params, "clients": 10, "local_steps": 12,
            "batch": 50, "round_ms": round_ms, "accuracy": accs,
            "launches": launches, **quant,
-           "flat_vs_tree_excess_err": excess[worst],
-           "flat_vs_tree_worst": worst, "profile": profile_round(server)}
+           "flat_vs_tree_excess_err": worst,
+           "flat_vs_tree_worst": where, "profile": profile_round(server)}
     emit(out)
     return launches
 
@@ -658,6 +709,409 @@ def phase_error_feedback(nodes, test, dev) -> dict:
     return out
 
 
+# ---- the rest of the server round: the downlink, sequential mode and the
+# buffered-async server ----
+
+# (name, FLConfig fields, clients a round) of the downlink phase
+DOWNLINK_CONFIGS = (
+    ("int8_down", dict(transport="f32", downlink="int8"), 10),
+    ("bf16_down_ef_int8_up", dict(transport="int8", downlink="bf16",
+                                  downlink_error_feedback=True), 10),
+    ("int8_delta_ring2_int4_up", dict(transport="int4", downlink="int8",
+                                      downlink_delta=True, downlink_ring=2),
+     5),
+)
+SEQ_TOL = (2e-4, 2e-5)  # rtol, atol of the reference's seq == parallel
+# local steps of the seq == parallel round: sequential mode trains a
+# client's batch of 50 alone, vmap folds the K clients into one batch of
+# 500, and the convs round the two differently; local training amplifies
+# that (on the CPU, 12 steps from a trained state put 2.4% between one
+# client's two deltas), so the engines are compared over 2 steps
+SEQ_TAU = 2
+# the metrics buffered(m = K) and sync share the formula of (divergence
+# averages over the landed rows in the buffered tick)
+EQUIV_KEYS = ("loss", "theta", "theta_smoothed", "weights", "cos",
+              "expected_contribution")
+
+
+def cnn_loss(p, b):
+    from repro_torch.models import small
+
+    return small.classification_loss(small.cnn_apply, p, *b)
+
+
+def check_decode(downlink, bcast, base, w: int, ring: int) -> str:
+    """A client at version w pulling `bcast`'s head: "decoded" when it
+    replays the ring bitwise onto the head, "resync" when it must (and
+    client_decode refuses); raises otherwise."""
+    v = int(bcast.head_ver)
+    if bool(downlink.resync_mask(w, v, ring)):
+        try:
+            downlink.client_decode(bcast, base, w)
+        except ValueError:
+            return "resync"
+        raise AssertionError(f"client_decode replayed {w} -> {v} past a "
+                             f"{ring}-deep ring")
+    got = downlink.client_decode(bcast, base, w)
+    if not torch.equal(got.view(torch.int32), bcast.head.view(torch.int32)):
+        raise AssertionError(f"a client at version {w} decodes version {v} "
+                             "off the head")
+    return "decoded"
+
+
+def phase_downlink(wa, rs, tq, dev, nodes, test) -> dict:
+    """The quantized and delta downlink on the CNN at full width: per
+    config, 3 counted rounds through FedServer (2 + 1 launches of the
+    uplink wire's kernels a round), flat == tree, the (1, N) compress on
+    the card == on the CPU, and, for the delta config, every pull against
+    the ring: a client re-selected after sitting out decodes bitwise to
+    the head, `ver` and `head_ver` follow the recorded cohorts."""
+    import repro_torch
+    from repro_torch.core import driver
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.core import treemath
+    from repro_torch.transport import downlink
+
+    wrappers = counters(wa, rs)
+    out = {"phase": "downlink", "model": "cnn", "params": MAIN_N,
+           "configs": {}}
+    for name, kw, k in DOWNLINK_CONFIGS:
+        cfg = dataclasses.replace(slice_config(**kw), clients_per_round=k)
+        server = repro_torch.FedServer("cnn", cfg, nodes, test,
+                                       batch_size=50, device=dev)
+        server.step(eval_every=0)  # warm-up
+        server.reset()
+        torch.cuda.synchronize()
+        cohorts, real_select = [], driver.select_clients
+
+        def record(gen, num_clients, kk):
+            sel = real_select(gen, num_clients, kk)
+            cohorts.append(sel.tolist())
+            return sel
+
+        heads = {}
+
+        def keep_head(s):
+            if s.state.bcast is not None:
+                heads[int(s.state.bcast.head_ver)] = s.state.bcast.head.clone()
+
+        driver.select_clients = record
+        try:
+            round_ms, _, launches = counted_rounds(server, wrappers, 3,
+                                                   after=keep_head)
+        finally:
+            driver.select_clients = real_select
+        if launches != expected_launches(cfg.transport, 3):
+            raise AssertionError(f"{name}: 3 rounds launched {launches}")
+        st = server.state
+        n_params = fl_mod.param_count(st.params)
+        if n_params != MAIN_N:
+            raise AssertionError(f"CNN has {n_params} params, want {MAIN_N}")
+        row = {"clients": k, "round_ms": round_ms, "launches": launches,
+               "round_bytes": tq.round_bytes(
+                   k, n_params, cfg.transport, cfg.downlink,
+                   group_size=cfg.group_size),
+               "cohorts": cohorts}
+
+        # the (1, N) compress on the card against the CPU's, bit for bit
+        pvec, _ = treemath.tree_ravel(st.params)
+        vecs = {"params": pvec}
+        if cfg.downlink_delta:
+            vecs["diff"] = pvec - st.bcast.head
+        for vname, vec in vecs.items():
+            a = downlink.compress(vec, cfg.downlink)
+            b = downlink.compress(vec.cpu(), cfg.downlink)
+            if not (torch.equal(a.values.cpu().view(torch.uint8),
+                                b.values.view(torch.uint8))
+                    and (b.scales is None or torch.equal(
+                        a.scales.cpu().view(torch.int32),
+                        b.scales.view(torch.int32)))):
+                raise AssertionError(f"{name}: the card's (1, N) compress "
+                                     f"of {vname} differs from the CPU's")
+        row["compress_bit_equal"] = list(vecs)
+
+        if cfg.downlink_delta:
+            row.update(delta_checks(fl_mod, driver, downlink, server, cfg,
+                                    cohorts, heads))
+        elif cfg.downlink_error_feedback:
+            res = float(st.dl_ef.abs().max())
+            if not (math.isfinite(res) and res > 0):
+                raise AssertionError(f"{name}: dl_ef is {res}")
+            row["dl_ef_abs_max"] = res
+
+        # flat == tree, from the same state and batches
+        gen = torch.Generator(device=dev).manual_seed(321)
+        sel = driver.select_clients(gen, 10, k)
+        batches = driver.epoch_batches(gen, server.data, sel)
+        sizes = server.data.sizes[sel].float()
+        torch.backends.cudnn.deterministic = True
+        outs = {e: fl_mod.make_round_fn(cnn_loss, dataclasses.replace(
+            cfg, engine=e))(st, batches, sel, sizes)
+            for e in ("flat", "tree")}
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        worst, where = excess_err(state_pairs(*outs["flat"], *outs["tree"]),
+                                  1e-5, 1e-5)
+        if worst > 0:
+            raise AssertionError(f"{name}: flat and tree rounds differ at "
+                                 f"{where}: {worst}")
+        row.update(flat_vs_tree_excess_err=worst, flat_vs_tree_worst=where)
+        out["configs"][name] = row
+        del server, outs, st
+    emit(out)
+    return out
+
+
+def delta_checks(fl_mod, driver, downlink, server, cfg, cohorts,
+                 heads) -> dict:
+    """The delta downlink's per-client state after the counted rounds:
+    `ver` and `head_ver` as the recorded cohorts imply; then two more
+    rounds with the last cohort sitting out one, so that each of its
+    clients is re-selected two versions on and must decode bitwise onto
+    the head from the base it pulled, and every other pull decodes or is
+    a resync as the ring's depth says. `heads`: the head of each version
+    the counted rounds published."""
+    st = server.state
+    want = [downlink.NEVER_PULLED] * cfg.num_clients
+    for r, sel in enumerate(cohorts):
+        for c in sel:
+            want[c] = r
+    if st.bcast.ver.tolist() != want or int(st.bcast.head_ver) != \
+            len(cohorts) - 1:
+        raise AssertionError(f"ver {st.bcast.ver.tolist()} / head_ver "
+                             f"{int(st.bcast.head_ver)}, want {want} / "
+                             f"{len(cohorts) - 1}")
+    last = cohorts[-1]
+    rest = [c for c in range(cfg.num_clients) if c not in last]
+    rest = rest[:cfg.clients_per_round]
+    round_fn = fl_mod.make_round_fn(cnn_loss, cfg)
+    gen = torch.Generator(device=st.bcast.head.device).manual_seed(99)
+    outcome = {"decoded": 0, "resync": 0}
+    for sel in (rest, last):
+        ver_before = st.bcast.ver.clone()
+        sel_t = torch.tensor(sel, device=gen.device)
+        batches = driver.epoch_batches(gen, server.data, sel_t)
+        st, _ = round_fn(st, batches, sel_t,
+                         server.data.sizes[sel_t].float())
+        heads[int(st.bcast.head_ver)] = st.bcast.head.clone()
+        for c in sel:
+            w = int(ver_before[c])
+            outcome[check_decode(downlink, st.bcast, heads.get(w), w,
+                                 cfg.downlink_ring)] += 1
+    torch.cuda.synchronize()
+    if outcome["decoded"] < len(last):
+        raise AssertionError(f"the re-selected cohort {last} did not all "
+                             f"decode: {outcome}")
+    v = int(st.bcast.head_ver)
+    if [int(st.bcast.ver[c]) for c in last] != [v] * len(last):
+        raise AssertionError("the re-selected clients' ver did not move")
+    return {"pulls_after": outcome, "ver": st.bcast.ver.tolist(),
+            "head_ver": v}
+
+
+def phase_sequential(wa, rs, dev, nodes, test) -> tuple[dict, int]:
+    """Sequential mode on the CNN at full width, K = 10, fedadp, the
+    exact round and stale_angles: 3 counted rounds each through
+    FedServer, exactly K round_stats launches a round at (1, N) and no
+    aggregation; then one exact round against the parallel tree round
+    from the initial model and the same batches (continuous images,
+    SEQ_TAU local steps, deterministic cuDNN) at the reference's 2e-4 /
+    2e-5. Returns (the phase's line,
+    the exact round's round_stats launches)."""
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+
+    wrappers = counters(wa, rs)
+    out = {"phase": "sequential", "model": "cnn", "params": MAIN_N,
+           "clients": 10, "local_steps": 12, "batch": 50}
+    k1_launches = 0
+    for stale in (False, True):
+        cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
+                                   local_steps=12, method="fedadp",
+                                   mode="sequential", stale_angles=stale,
+                                   base_lr=0.05)
+        server = repro_torch.FedServer("cnn", cfg, nodes, test,
+                                       batch_size=50, device=dev)
+        server.step(eval_every=0)  # warm-up
+        server.reset()
+        torch.cuda.synchronize()
+        state = server.state
+        round_ms, ms, launches = counted_rounds(server, wrappers, 3)
+        want = {name: 0 for name in wrappers}
+        want["round_stats"] = 3 * 10
+        if launches != want:
+            raise AssertionError(f"sequential (stale={stale}): 3 rounds "
+                                 f"launched {launches}, want {want}")
+        key = "stale" if stale else "exact"
+        out[key] = {"round_ms": round_ms, "launches": launches,
+                    "accuracy": [float(m["accuracy"]) for m in ms]}
+        if not stale:
+            k1_launches = launches["round_stats"]
+            start = state
+        del server
+
+    # the exact round against the parallel tree round, from the initial
+    # model, over SEQ_TAU local steps
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand((10, SEQ_TAU, 50, 28, 28, 1), generator=gen, device=dev)
+    y = torch.randint(0, 10, (10, SEQ_TAU, 50), generator=gen, device=dev)
+    sel = torch.arange(10, device=dev)
+    sizes = torch.full((10,), 600.0, device=dev)
+    base = dict(num_clients=10, clients_per_round=10, local_steps=12,
+                method="fedadp", base_lr=0.05)
+    torch.backends.cudnn.deterministic = True
+    outs = {mode: fl_mod.make_round_fn(cnn_loss, repro_torch.FLConfig(
+        mode=mode, **base))(start, (x, y), sel, sizes)
+        for mode in ("sequential", "parallel")}
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    worst, where = excess_err(state_pairs(
+        *outs["sequential"], *outs["parallel"],
+        keys=("theta", "theta_smoothed", "weights")), *SEQ_TOL)
+    out.update(seq_vs_parallel_excess_err=worst, seq_vs_parallel_worst=where,
+               tol=list(SEQ_TOL), seq_vs_parallel_local_steps=SEQ_TAU)
+    emit(out)
+    if worst > 0:
+        raise AssertionError(f"sequential and parallel rounds differ at "
+                             f"{where}: {worst}")
+    return out, k1_launches
+
+
+def golden_schedule():
+    """The golden buffered task's arrival schedule (delays, drops), (T, K)
+    numpy, and its task, from tests/golden/convergence.json."""
+    with open(os.path.join(ROOT, "tests", "golden", "convergence.json")) as f:
+        t = json.load(f)["buffered"]["task"]
+    s = t["schedule"]
+    delays = np.zeros((s["ticks"], s["num_clients"]), np.int32)
+    drops = np.zeros_like(delays, bool)
+    for tk, c in s["stragglers"]:
+        delays[tk, c] = s["delay"]
+    for tk, c in s["drops"]:
+        drops[tk, c] = True
+    return delays, drops, t
+
+
+def buffered_config(transport: str, task: dict, **kw):
+    import repro_torch
+
+    return repro_torch.FLConfig(
+        num_clients=10, clients_per_round=10, local_steps=12,
+        method="fedadp", engine="flat", base_lr=0.05, transport=transport,
+        group_size=task["group_size"], aggregation="buffered",
+        buffer_m=task["buffer_m"], staleness_beta=task["staleness_beta"],
+        **kw)
+
+
+def phase_buffered(wa, rs, dev, nodes, test) -> dict:
+    """The buffered-async server on the CNN at full width: buffered(m = K)
+    == sync from one state and batches (f32: bit for bit; int8 uplink:
+    1e-5, the sync round reading the wire with the _q kernels), then the
+    golden buffered schedule's 8 ticks through FedServer on the int8
+    uplink: each tick runs 2 + 1 f32 kernel launches over the buffer's
+    dequantized rows and no _q kernel, and flushes on the ticks of the
+    same schedule's CPU run."""
+    import repro_torch
+    from repro_torch.core import driver
+    from repro_torch.core import fl as fl_mod
+
+    delays, drops, task = golden_schedule()
+    out = {"phase": "buffered", "model": "cnn", "params": MAIN_N,
+           "buffer_m": task["buffer_m"],
+           "staleness_beta": task["staleness_beta"]}
+
+    # buffered(m = K, no stragglers) == sync
+    state_srv = repro_torch.FedServer("cnn", slice_config("f32"), nodes,
+                                      test, batch_size=50, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sel = driver.select_clients(gen, 10, 10)
+    batches = driver.epoch_batches(gen, state_srv.data, sel)
+    sizes = state_srv.data.sizes[sel].float()
+    out["equivalence"] = {}
+    torch.backends.cudnn.deterministic = True
+    for transport, tol in (("f32", 0.0), ("int8", 1e-5)):
+        sync_cfg = slice_config(transport)
+        buf_cfg = dataclasses.replace(sync_cfg, aggregation="buffered")
+        a = fl_mod.make_round_fn(cnn_loss, sync_cfg)(
+            fl_mod.init_round_state(sync_cfg, state_srv.params), batches,
+            sel, sizes)
+        b = fl_mod.make_round_fn(cnn_loss, buf_cfg)(
+            fl_mod.init_round_state(buf_cfg, state_srv.params), batches,
+            sel, sizes)
+        torch.cuda.synchronize()
+        worst, where = excess_err(state_pairs(*b, *a, keys=EQUIV_KEYS),
+                                  0.0, tol)
+        out["equivalence"][transport] = {"tol": tol, "excess_err": worst,
+                                         "worst": where}
+        if worst > 0 or not bool(b[0].buf.free.all()):
+            raise AssertionError(f"buffered(m = K) != sync on {transport} at "
+                                 f"{where}: {worst}")
+    torch.backends.cudnn.deterministic = False
+    del state_srv
+
+    # the golden schedule: the CPU's flush ticks (MLR: they depend on the
+    # schedule alone), then the card's on the CNN, counted
+    cpu = repro_torch.FedServer(
+        "mlr", buffered_config("int8", task), nodes, test, batch_size=50,
+        device="cpu",
+        arrival_fn=repro_torch.fixed_arrival_schedule(delays, drops))
+    cpu_flush = [int(cpu.step()["flushed"]) for _ in range(len(delays))]
+    server = repro_torch.FedServer(
+        "cnn", buffered_config("int8", task), nodes, test, batch_size=50,
+        device=dev,
+        arrival_fn=repro_torch.fixed_arrival_schedule(delays, drops))
+    server.step(eval_every=0)  # warm-up
+    server.reset()
+    torch.cuda.synchronize()
+    wrappers = counters(wa, rs)
+    tick_ms, ms, launches = counted_rounds(server, wrappers, len(delays))
+    flush = [int(m["flushed"]) for m in ms]
+    ticks = len(delays)
+    want = {name: 0 for name in wrappers}
+    want.update(weighted_agg=2 * ticks, round_stats=ticks)
+    out.update(transport="int8", ticks=ticks, tick_ms=tick_ms,
+               flushed=flush, cpu_flushed=cpu_flush,
+               landed=[int(m["buffer_landed"]) for m in ms],
+               staleness=[float(m["staleness"]) for m in ms],
+               accuracy=[float(m["accuracy"]) for m in ms],
+               launches=launches)
+    emit(out)
+    if flush != cpu_flush:
+        raise AssertionError(f"flush ticks {flush}, the CPU's {cpu_flush}")
+    if launches != want:
+        raise AssertionError(f"{ticks} ticks launched {launches}, want "
+                             f"{want}")
+    return out
+
+
+def phase_k1_stats(rs, dev) -> dict:
+    """round_stats (f32) at (1, N), the shape sequential mode gives it
+    (one client's row against g): checked against its plain version and
+    timed, with its bound."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(1, MAIN_N, device=dev, generator=gen)
+    g = torch.randn(MAIN_N, device=dev, generator=gen)
+    abs_err, norm_err = 0.0, 0.0
+    for m in (None, (torch.rand(MAIN_N, device=dev, generator=gen)
+                     > 0.25).float()):
+        a, e = stats_err(rs.round_stats(x, g, m),
+                         rs.round_stats_plain(x, g, m), x, g, m)
+        abs_err, norm_err = max(abs_err, a), max(norm_err, e)
+    if not norm_err <= TOL:
+        raise AssertionError(f"round_stats at K = 1 disagrees with its plain "
+                             f"version: {norm_err}")
+    flush = torch.zeros(64 << 20, device=dev)
+    row = timing_entry(
+        "round_stats_k1", "round_stats.cu",
+        "src/repro/kernels/round_stats.py:157",
+        lambda: rs.round_stats(x, g), lambda: rs.round_stats_plain(x, g),
+        None, 4 * 2 * MAIN_N + 12, 6 * MAIN_N, flush, abs_err, TOL,
+        (1, MAIN_N))
+    row.update(max_err=norm_err, wire="f32")
+    emit({"phase": "kernels", "timing": row})
+    return row
+
+
 def union_us(spans) -> float:
     """The length of the union of (start, end) intervals."""
     busy, end = 0.0, -math.inf
@@ -695,11 +1149,13 @@ def profile_round(server) -> dict:
 
 def device_kernels(fn, top: int = 50) -> list:
     """[(kernel name, calls)] of one call of `fn`, from the fullest of a
-    few traces (`profile_whole`). Each trace begins with a short sleep
-    kernel of its own, left out of the list: a trace on the H100 now and
-    then loses its first device event."""
+    few traces (`profile_whole`). Each trace begins with HEAD_START short
+    sleep kernels of its own, left out of the list: a trace on the H100
+    now and then loses its first device event, and in a process that has
+    launched many kernels it loses its first three, every time."""
     def run():
-        torch.cuda._sleep(1000)
+        for _ in range(HEAD_START):
+            torch.cuda._sleep(1000)
         fn()
 
     return [(t["kernel"], t["calls"])
@@ -803,8 +1259,70 @@ def phase_algorithm(dev, nodes, test) -> dict:
     # moves a threshold crossing by whole rounds in either package
     ratio = {t: rounds[f"{t}/fedadp"] / rounds["f32/fedadp"]
              for t in WIRES[1:]}
+
+    def run(cfg, max_rounds, target, arrival_fn=None):
+        server = repro_torch.FedServer("mlr", cfg, nodes, test,
+                                       batch_size=50, device=dev,
+                                       arrival_fn=arrival_fn)
+        t0 = time.perf_counter()
+        hist = server.run(max_rounds, target_acc=target, eval_every=1)
+        return hist.rounds_to_target, time.perf_counter() - t0
+
+    def held(adp, avg, what):
+        if adp is None or adp > (math.inf if avg is None else avg):
+            raise AssertionError(f"{what}: fedadp {adp} vs fedavg {avg}")
+
+    # the golden delta section: 5 of 10 clients, an R-deep ring
+    with open(os.path.join(ROOT, "tests", "golden", "convergence.json")) as f:
+        golden = json.load(f)
+    dt = golden["delta"]["task"]
+    delta = {}
+    for up, down in golden["delta"]["wires"]:
+        for method in ("fedadp", "fedavg"):
+            cfg = repro_torch.FLConfig(
+                num_clients=10, clients_per_round=dt["clients_per_round"],
+                local_steps=12, method=method, engine="flat", base_lr=0.05,
+                transport=up, downlink=down, downlink_delta=True,
+                downlink_ring=dt["downlink_ring"],
+                group_size=dt["group_size"])
+            key = f"{method}/{up}/{down}"
+            delta[key], delta[key + "_s"] = run(cfg, dt["max_rounds"],
+                                                dt["target"])
+        held(delta[f"fedadp/{up}/{down}"], delta[f"fedavg/{up}/{down}"],
+             f"delta {up}/{down}")
+    # sequential mode, f32
+    seq = {}
+    for method in ("fedadp", "fedavg"):
+        cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
+                                   local_steps=12, method=method,
+                                   mode="sequential", base_lr=0.05)
+        seq[method], seq[method + "_s"] = run(cfg, 60, 0.85)
+    held(seq["fedadp"], seq["fedavg"], "sequential")
+    # the buffered server under the golden schedule, against sync fedavg
+    delays, drops, bt = golden_schedule()
+    buffered = {}
+    for up, down in (("f32", "f32"), ("int4", "int8")):
+        key = f"{up}/{down}"
+        cfg = dataclasses.replace(buffered_config(up, bt), downlink=down)
+        buffered[key], buffered[key + "_s"] = run(
+            cfg, bt["max_rounds"], bt["target"],
+            repro_torch.fixed_arrival_schedule(delays, drops))
+        if key == "f32/f32":
+            sync_avg = rounds["f32/fedavg"]
+        else:
+            sync_avg, buffered["sync_fedavg_" + key + "_s"] = run(
+                repro_torch.FLConfig(
+                    num_clients=10, clients_per_round=10, local_steps=12,
+                    method="fedavg", engine="flat", base_lr=0.05,
+                    transport=up, downlink=down,
+                    group_size=bt["group_size"]), 60, 0.85)
+        buffered["sync_fedavg_" + key] = sync_avg
+        held(buffered[key], sync_avg, f"buffered {key}")
     out = {"phase": "algorithm", "model": "mlr", "target": 0.85,
-           "rounds_to_target": rounds, "fedadp_rounds_over_f32": ratio}
+           "rounds_to_target": rounds, "fedadp_rounds_over_f32": ratio,
+           "delta_rounds_to_target": delta,
+           "sequential_rounds_to_target": seq,
+           "buffered_ticks_to_target": buffered}
     emit(out)
     return out
 
@@ -1419,6 +1937,7 @@ def main() -> int:
                              f"than one wave: {wave}")
 
     table = phase_kernels(wa, rs, tq, dev)
+    k1_row = phase_k1_stats(rs, dev)
     lm_table = {**phase_ops_kernels(wa, gd, dev),
                 **phase_flash_kernel(fa, dev)}
     phase_wire(tq, dev)
@@ -1426,6 +1945,9 @@ def main() -> int:
     launches = {t: phase_slice(wa, rs, tq, dev, nodes, test, t)
                 for t in WIRES}
     phase_error_feedback(nodes, test, dev)
+    phase_downlink(wa, rs, tq, dev, nodes, test)
+    _, k1_row["launches"] = phase_sequential(wa, rs, dev, nodes, test)
+    phase_buffered(wa, rs, dev, nodes, test)
     phase_algorithm(dev, nodes, test)
     serve_out = phase_serve(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
@@ -1443,6 +1965,7 @@ def main() -> int:
         lm_table[name]["launches"] = ops_launches[name]
     lm_table["grad_dot_stats_off8"]["launches"] = \
         ops_launches["grad_dot_stats"]
+    table["round_stats_k1"] = k1_row  # launches: 3 sequential rounds
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

@@ -1,8 +1,9 @@
 """FedAdp in PyTorch for one NVIDIA Hopper GPU: the port of `repro`.
 
-The synchronous FedAdp round of the flat engine (paper Eqs. 8-11) with
-its two passes over the (K, N) client-delta buffer written by hand in
-CUDA C++ (`repro_torch.kernels`). Modules mirror the JAX package's names:
+The FedAdp round (paper Eqs. 8-11) with its passes over the (K, N)
+client-delta buffer written by hand in CUDA C++ (`repro_torch.kernels`):
+the parallel round on every uplink and downlink wire, sequential mode and
+the buffered-async server. Modules mirror the JAX package's names:
 
     import repro_torch
 
@@ -28,17 +29,25 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+from repro_torch import transport  # noqa: E402
 from repro_torch.core.fl import (  # noqa: E402
     FLConfig,
+    RoundState,
     init_round_state,
     make_round_fn,
 )
-from repro_torch.core.server import FedServer  # noqa: E402
+from repro_torch.core.server import (  # noqa: E402
+    FedServer,
+    fixed_arrival_schedule,
+)
 
 __all__ = [
     "FLConfig",
     "FedServer",
+    "RoundState",
     "default_device",
+    "fixed_arrival_schedule",
     "init_round_state",
     "make_round_fn",
+    "transport",
 ]

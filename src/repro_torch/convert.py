@@ -79,13 +79,36 @@ def lm_params_from_numpy(tree, cfg, device=None):
     return params
 
 
+def _fields(x) -> dict:
+    """A NamedTuple (the JAX package's or the port's) or a mapping as a
+    dict of numpy arrays."""
+    d = x._asdict() if hasattr(x, "_asdict") else dict(x)
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def _like(name: str, value, want: torch.Tensor) -> torch.Tensor:
+    """`value` as a tensor of `want`'s dtype on its device; ValueError
+    when the shapes differ."""
+    t = torch.as_tensor(np.array(value)).to(want.device, want.dtype)
+    if t.shape != want.shape:
+        raise ValueError(f"{name} must be {tuple(want.shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
 def round_state_from_numpy(fl: fl_mod.FLConfig, params, angle_smoothed,
                            angle_count, round: int = 0, device=None,
-                           ef=None) -> fl_mod.RoundState:
+                           ef=None, dl_ef=None, bcast=None, buf=None,
+                           prev_delta=None) -> fl_mod.RoundState:
     """A RoundState from numpy params and Eq. 9 angle state (smoothed
     (num_clients,) f32, count (num_clients,) int), at round `round`.
-    `ef`, a (num_clients, N) array, replaces the uplink error-feedback
-    residual (zeros when None and `fl.error_feedback` is set)."""
+
+    Each optional field replaces the fresh state's, and must be one the
+    config allocates (ValueError otherwise, or on a shape mismatch): `ef`
+    the (num_clients, N) uplink residual, `dl_ef` the (N,) downlink
+    residual, `bcast` the broadcast state and `buf` the report buffer
+    (each a NamedTuple of either package or a mapping of its fields), and
+    `prev_delta` a tree shaped like `params`."""
     dev = _device(device)
     state = fl_mod.init_round_state(fl, params_from_numpy(params, dev))
     angle = AngleState(
@@ -93,12 +116,48 @@ def round_state_from_numpy(fl: fl_mod.FLConfig, params, angle_smoothed,
                               device=dev),
         count=torch.tensor(np.asarray(angle_count, np.int32), device=dev))
     state = state._replace(angle=angle, round=int(round))
-    if ef is not None:
-        if state.ef is None:
-            raise ValueError("ef given but fl.error_feedback is not set")
-        ef = torch.tensor(np.asarray(ef, np.float32), device=dev)
-        if ef.shape != state.ef.shape:
-            raise ValueError(f"ef must be {tuple(state.ef.shape)}, got "
-                             f"{tuple(ef.shape)}")
-        state = state._replace(ef=ef)
+    for name, flag, value in (
+            ("ef", "error_feedback", ef),
+            ("dl_ef", "downlink_error_feedback", dl_ef),
+            ("bcast", "downlink_delta", bcast),
+            ("buf", "aggregation='buffered'", buf)):
+        if value is None:
+            continue
+        have = getattr(state, name)
+        if have is None:
+            raise ValueError(f"{name} given but the config does not set "
+                             f"{flag}")
+        if isinstance(have, torch.Tensor):
+            new = _like(name, value, have)
+        else:
+            got = _fields(value)
+            new = type(have)(**{
+                k: _like(f"{name}.{k}", got[k], getattr(have, k))
+                for k in have._fields})
+        state = state._replace(**{name: new})
+    if prev_delta is not None:
+        state = state._replace(prev_delta=treemath.tree_map(
+            lambda v, p: _like("prev_delta", v, p), prev_delta,
+            state.prev_delta))
     return state
+
+
+def round_state_to_numpy(state: fl_mod.RoundState) -> dict:
+    """The inverse of `round_state_from_numpy`: a dict of its arguments
+    (params, angle_smoothed, angle_count, round, ef, dl_ef, bcast, buf,
+    prev_delta) as numpy, None for the fields the config leaves out;
+    `bcast` and `buf` as dicts of their fields."""
+    def tup(x):
+        return None if x is None else {k: _array(v) for k, v in
+                                       x._asdict().items()}
+
+    return {
+        "params": params_to_numpy(state.params),
+        "angle_smoothed": _array(state.angle.smoothed),
+        "angle_count": _array(state.angle.count),
+        "round": int(state.round),
+        "ef": None if state.ef is None else _array(state.ef),
+        "dl_ef": None if state.dl_ef is None else _array(state.dl_ef),
+        "bcast": tup(state.bcast), "buf": tup(state.buf),
+        "prev_delta": params_to_numpy(state.prev_delta),
+    }

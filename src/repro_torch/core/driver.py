@@ -6,7 +6,9 @@ node datasets are stacked once into device tensors (`stack_nodes`); every
 round draws its cohort and each client's epoch permutation from the
 state's `torch.Generator` on the device (`select_clients`,
 `epoch_batches`), runs the round, and evaluates when due
-(`make_step_fn`). Nothing is copied from the host between rounds.
+(`make_step_fn`). Nothing is copied from the host between rounds. A
+buffered config's partial-participation cohort avoids the clients whose
+report is still in flight (`select_clients_avoiding`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import fl as fl_mod
 
 # the accuracy reported on rounds where the eval did not run (the
@@ -76,6 +79,21 @@ def select_clients(gen: torch.Generator, num_clients: int,
     return torch.randperm(num_clients, generator=gen, device=gen.device)[:k]
 
 
+def select_clients_avoiding(gen: torch.Generator, num_clients: int, k: int,
+                            busy: torch.Tensor) -> torch.Tensor:
+    """(k,) int64 slots preferring clients with no report in flight: the
+    uniform keys of busy clients get +1, so every free client sorts
+    before every busy one and the k smallest win (busy ones come in only
+    when fewer than k are free, and admission masks them out). Full
+    participation is the identity, as in `select_clients`: it draws
+    nothing."""
+    if k >= num_clients:
+        return torch.arange(num_clients, device=gen.device)
+    u = torch.rand(num_clients, generator=gen, device=gen.device)
+    u = torch.where(busy, u + 1.0, u)
+    return torch.argsort(u)[:k]
+
+
 def epoch_batches(gen: torch.Generator, data: ClientData,
                   sel: torch.Tensor):
     """One epoch of shuffled minibatches per selected client, on device:
@@ -121,18 +139,33 @@ def make_eval_fn(apply_fn: Callable, test_x, test_y, device: torch.device,
 
 def make_step_fn(loss_fn: Callable, fl: fl_mod.FLConfig, data: ClientData,
                  *, eval_fn: Optional[Callable] = None,
-                 angle_pred: Optional[Callable] = None) -> Callable:
+                 angle_pred: Optional[Callable] = None,
+                 arrival_fn: Optional[Callable] = None) -> Callable:
     """One federated round on the device.
 
     step(state, eval_every) -> (state, metrics): select this round's
     cohort and draw each client's epoch batches from `state.rng`, run the
     round, and (when `eval_fn` is given) add metrics["accuracy"]:
     evaluated after rounds where (r+1) % eval_every == 0, EVAL_SENTINEL
-    otherwise (eval_every = 0 disables it)."""
-    round_fn = fl_mod.make_round_fn(loss_fn, fl, angle_pred=angle_pred)
+    otherwise (eval_every = 0 disables it).
+
+    With `fl.aggregation == "buffered"` a step is one server tick: under
+    partial participation the cohort avoids busy clients
+    (`select_clients_avoiding` over `state.buf`), and `arrival_fn` goes
+    to the round (`core.server.fixed_arrival_schedule`)."""
+    round_fn = fl_mod.make_round_fn(loss_fn, fl, angle_pred=angle_pred,
+                                    arrival_fn=arrival_fn)
+    avoid = (fl.aggregation == "buffered"
+             and fl.clients_per_round < fl.num_clients)
 
     def step(state: fl_mod.RoundState, eval_every: int):
-        sel = select_clients(state.rng, fl.num_clients, fl.clients_per_round)
+        if avoid:
+            busy = buffer_mod.population_busy(state.buf, fl.num_clients)
+            sel = select_clients_avoiding(state.rng, fl.num_clients,
+                                          fl.clients_per_round, busy)
+        else:
+            sel = select_clients(state.rng, fl.num_clients,
+                                 fl.clients_per_round)
         batches = epoch_batches(state.rng, data, sel)
         sizes = data.sizes[sel].to(torch.float32)
         state, metrics = round_fn(state, batches, sel, sizes)

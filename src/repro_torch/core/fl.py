@@ -1,13 +1,20 @@
-"""The synchronous FedAdp / FedAvg / FedProx round, parallel mode, in torch.
+"""The FedAdp / FedAvg / FedProx round in torch: parallel, sequential
+and buffered-async.
 
-The counterpart of `repro/core/fl.py` for the main path:
-`make_round_fn(loss_fn, fl)` returns
+The counterpart of `repro/core/fl.py` (without its flat_sharded engine
+and telemetry). `make_round_fn(loss_fn, fl)` returns
 
     round_fn(state, batches, sel_idx, data_sizes) -> (state, metrics)
 
-with the reference's signature, state contract and metrics keys. Inside
-one round:
+with the reference's signature, state contract and metrics keys. The
+parallel round (mode="parallel", aggregation="sync"):
 
+* the downlink: with `downlink` "bf16" or "int8" the params are raveled
+  and compressed once (`transport.downlink`; their diff against the
+  broadcast chain head under `downlink_delta`, the carried residual
+  replayed in under `downlink_error_feedback`); every client trains from
+  the same reconstruction, and the aggregate lands on the server's
+  uncompressed master copy;
 * the K clients run tau SGD steps each, batched over clients with
   `torch.func.vmap` over `torch.func.grad_and_value` of the functional
   loss (the tau steps are a Python loop);
@@ -27,11 +34,17 @@ one round:
 * between the passes, O(K) scalar math: the Eq. 8 angles, the Eq. 9
   scatter and the Eq. 10-11 weights (`weighting`).
 
+mode="sequential" trains one client at a time, twice (or once against
+the previous round's delta with `stale_angles`), with each client's
+statistics through `round_stats` on a (1, N) view. aggregation="buffered"
+makes a call one tick of the buffered-async server (`core.buffer`): its
+flat engine streams the buffer's f32 rows through the f32 kernels.
+
 Angle convention: the paper's theta_i is between grad F and grad F_i with
 grad F_i = -Delta_i/eta; the -1/eta factors cancel in the cosine, so the
 deltas are correlated directly.
 
-What the slice does not carry yet raises NotImplementedError naming the
+What the port does not carry yet raises NotImplementedError naming the
 ROADMAP item (Queue 1) that will bring it.
 """
 from __future__ import annotations
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import transport
+from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import treemath, weighting
 from repro_torch.core.weighting import AngleState
 from repro_torch.kernels.round_stats import (
@@ -55,7 +69,7 @@ from repro_torch.kernels.weighted_agg import (
     weighted_agg_q,
     weighted_agg_q4,
 )
-from repro_torch.transport import DOWNLINKS, GROUP_SIZE, TRANSPORTS
+from repro_torch.transport import DOWNLINKS, GROUP_SIZE, TRANSPORTS, downlink
 
 Tree = Any
 
@@ -157,7 +171,8 @@ class FLConfig:
             if self.transport != "f32":
                 raise ValueError(
                     "transport compresses the stacked parallel uplink "
-                    "buffer; use mode='parallel' for quantized transport")
+                    "buffer; sequential mode streams one client at a "
+                    "time (use mode='parallel' for quantized transport)")
             if self.downlink != "f32":
                 raise ValueError(
                     "quantized downlink is threaded through the parallel "
@@ -205,19 +220,14 @@ class FLConfig:
         return self
 
 
+
+
 def check_in_slice(fl: FLConfig) -> None:
     """Raise NotImplementedError for a valid config that the port does
     not run yet, naming the ROADMAP (Queue 1) item that will bring it."""
     missing = [
         (fl.engine == "flat_sharded",
          "engine='flat_sharded' (ROADMAP Queue 1 item 13)"),
-        (fl.mode == "sequential",
-         "mode='sequential' (ROADMAP Queue 1 item 10)"),
-        (fl.downlink != "f32" or fl.downlink_delta
-         or fl.downlink_error_feedback,
-         "a quantized or delta downlink (ROADMAP Queue 1 item 9)"),
-        (fl.aggregation == "buffered",
-         "aggregation='buffered' (ROADMAP Queue 1 item 11)"),
         (fl.telemetry is not None,
          "telemetry (ROADMAP Queue 1 item 12)"),
     ]
@@ -228,18 +238,20 @@ def check_in_slice(fl: FLConfig) -> None:
 
 
 class RoundState(NamedTuple):
-    """The server-side carry of a round: the reference's RoundState for
-    the sync path with the uplink wire (the downlink and buffer fields
-    arrive with their slices).
+    """The server-side carry of a round, the reference's RoundState field
+    for field. Optional fields are None when their FLConfig flag is off.
 
     `rng` is the driver's `torch.Generator`; it advances in place as the
-    driver draws selections and batches (round_fn never touches it).
-    `round` is a host int (it drives the lr schedule)."""
+    driver draws selections and batches (and a stochastic buffered tick
+    its arrivals). `round` is a host int (it drives the lr schedule)."""
 
-    params: Tree  # the server's master model
+    params: Tree  # the server's uncompressed master model
     angle: AngleState  # Eq. 9 smoothed angles + participation counts
     prev_delta: Tree  # last FedAvg-weighted global delta, f32 leaves
     ef: Optional[torch.Tensor] = None  # (num_clients, N) uplink EF residual
+    dl_ef: Optional[torch.Tensor] = None  # (N,) downlink EF residual
+    bcast: Optional[downlink.BroadcastState] = None  # downlink_delta state
+    buf: Optional[buffer_mod.ReportBuffer] = None  # buffered reports
     rng: Optional[torch.Generator] = None
     round: int = 0
 
@@ -259,8 +271,9 @@ def init_round_state(fl: FLConfig, params: Tree,
                      seed: "int | torch.Generator" = 0) -> RoundState:
     """Fresh RoundState for `params` under `fl`, on the params' device.
     `seed` is an int (a new generator on that device is seeded with it)
-    or an existing `torch.Generator`. The uplink EF residual is allocated
-    only when `fl.error_feedback` is set."""
+    or an existing `torch.Generator`. Allocates exactly the optional
+    buffers the config asks for: the uplink EF rows, the downlink EF
+    vector, the broadcast state and the report buffer."""
     fl.validate()
     check_in_slice(fl)
     device = treemath.tree_leaves(params)[0].device
@@ -268,13 +281,21 @@ def init_round_state(fl: FLConfig, params: Tree,
         rng = seed
     else:
         rng = torch.Generator(device=device).manual_seed(int(seed))
-    ef = (transport.init_error_feedback(fl.num_clients, param_count(params),
-                                        device)
-          if fl.error_feedback else None)
-    return RoundState(params=params,
-                      angle=AngleState.init(fl.num_clients, device),
-                      prev_delta=init_prev_delta(params), ef=ef, rng=rng,
-                      round=0)
+    n = param_count(params)
+    return RoundState(
+        params=params,
+        angle=AngleState.init(fl.num_clients, device),
+        prev_delta=init_prev_delta(params),
+        ef=(transport.init_error_feedback(fl.num_clients, n, device)
+            if fl.error_feedback else None),
+        dl_ef=(downlink.init_downlink_error_feedback(n, device)
+               if fl.downlink_error_feedback else None),
+        bcast=(downlink.init_broadcast_state(n, fl.num_clients,
+                                             fl.downlink_ring, device)
+               if fl.downlink_delta else None),
+        buf=(buffer_mod.init_report_buffer(fl.clients_per_round, n, device)
+             if fl.aggregation == "buffered" else None),
+        rng=rng, round=0)
 
 
 def local_update(loss_fn: Callable, params: Tree, batches: Tree, lr,
@@ -339,6 +360,22 @@ def _scatter_angles(state: AngleState, sel_idx: torch.Tensor,
     return weighting.update_smoothed_angle(state, theta_full, mask)
 
 
+def _scatter_angles_masked(state: AngleState, sel_idx: torch.Tensor,
+                           theta: torch.Tensor,
+                           valid: torch.Tensor) -> AngleState:
+    """Eq. 9 over the rows where `valid` only: the other rows are routed
+    to a spare last slot that is cut off, so a buffered flush smooths the
+    angles of the reports it aggregated. With `valid` all True this is
+    `_scatter_angles`."""
+    n = state.smoothed.shape[0]
+    idx = torch.where(valid, sel_idx.to(torch.int64), n)
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=theta.device)
+    mask[idx] = True
+    theta_full = torch.zeros(n + 1, dtype=torch.float32, device=theta.device)
+    theta_full[idx] = theta
+    return weighting.update_smoothed_angle(state, theta_full[:n], mask[:n])
+
+
 def _lr_at(fl: FLConfig, round_idx: int) -> float:
     """base_lr * lr_decay ** round, in f32 as the reference computes it."""
     r = np.float32(round_idx)
@@ -367,37 +404,146 @@ def _stats_wire(wire: transport.QuantizedDelta, g: torch.Tensor,
     return round_stats_q(wire.values, wire.scales, g, mask)
 
 
-def make_round_fn(loss_fn: Callable, fl: FLConfig,
-                  angle_pred: Optional[Callable] = None) -> Callable:
-    """Build the synchronous parallel round (engine "flat" or "tree").
+def _check_state(fl: FLConfig, state: RoundState) -> None:
+    """Raise ValueError for a state that lacks a buffer the config
+    needs."""
+    for flag, field, how in (
+            (fl.error_feedback, "ef", "transport.init_error_feedback"),
+            (fl.downlink_error_feedback, "dl_ef",
+             "transport.downlink.init_downlink_error_feedback"),
+            (fl.downlink_delta, "bcast",
+             "transport.downlink.init_broadcast_state"),
+            (fl.aggregation == "buffered", "buf",
+             "core.buffer.init_report_buffer")):
+        if flag and getattr(state, field) is None:
+            raise ValueError(
+                f"the config needs state.{field}, which is missing; build "
+                f"the state with init_round_state (or {how})")
 
-    round_fn(state, batches, sel_idx, data_sizes) -> (state, metrics):
+
+def _broadcast(fl: FLConfig, state: RoundState):
+    """The server->client downlink: (the params the clients train from,
+    the new downlink EF residual, the new broadcast state). The params
+    are compressed once as an (N,) vector (its diff against the chain
+    head under delta encoding, with the residual replayed in under error
+    feedback), and every client trains from the same reconstruction. The
+    caller moves the pulling clients' `ver` rows."""
+    if fl.downlink == "f32":
+        return state.params, state.dl_ef, state.bcast
+    pvec, punravel = treemath.tree_ravel(state.params)
+    if fl.downlink_delta:
+        pvec = pvec - state.bcast.head
+    if fl.downlink_error_feedback:
+        pvec = pvec + state.dl_ef
+    recon = downlink.decompress(downlink.compress(pvec, fl.downlink))
+    new_dl = pvec - recon if fl.downlink_error_feedback else state.dl_ef
+    new_bcast = state.bcast
+    if fl.downlink_delta:
+        new_bcast = downlink.advance_broadcast(state.bcast, recon)
+        recon = new_bcast.head
+    return punravel(recon), new_dl, new_bcast
+
+
+def _segment_masks(angle_pred: Optional[Callable]) -> Callable:
+    """params -> the (N,) f32 segment mask of `angle_pred` on the params'
+    device, built once a device (None without a predicate)."""
+    masks: dict = {}
+
+    def get(params) -> Optional[torch.Tensor]:
+        if not angle_pred:
+            return None
+        dev = treemath.tree_leaves(params)[0].device
+        if dev not in masks:
+            masks[dev] = treemath.segment_mask(
+                params, angle_keep_list(params, angle_pred))
+        return masks[dev]
+
+    return get
+
+
+def _tree_stats(deltas: Tree, g_avg: Tree, params: Tree,
+                angle_pred: Optional[Callable]):
+    """(dots, sqs, sqg) of the tree engine: per-leaf reductions over the
+    kept leaves."""
+    angle_mask = build_angle_mask(params, angle_pred) if angle_pred else None
+    d_view = angle_mask(deltas) if angle_mask else deltas
+    g_view = angle_mask(g_avg) if angle_mask else g_avg
+    return (treemath.tree_vdot_batched(d_view, g_view),
+            treemath.tree_sqnorm_batched(d_view),
+            treemath.tree_sqnorm(g_view))
+
+
+def _metrics(losses, theta, theta_sm, w, div, lr, dev) -> dict:
+    cos = torch.cos(theta)
+    return {
+        "loss": torch.mean(losses), "theta": theta,
+        "theta_smoothed": theta_sm, "weights": w, "divergence": div,
+        "lr": torch.tensor(lr, dtype=torch.float32, device=dev),
+        "cos": cos,
+        "expected_contribution": weighting.expected_contribution(w, cos),
+    }
+
+
+def make_round_fn(loss_fn: Callable, fl: FLConfig,
+                  angle_pred: Optional[Callable] = None,
+                  arrival_fn: Optional[Callable] = None) -> Callable:
+    """Build the round: round_fn(state, batches, sel_idx, data_sizes) ->
+    (state, metrics), with the reference's signature, state contract and
+    metrics keys.
+
     batches' leaves are (K, tau, B, ...), sel_idx (K,) integer population
     slots, data_sizes (K,) f32, all on the state's device. When
     `angle_pred` is None, `fl.angle_filter` picks the built-in predicate
-    ("dense_only" -> `moe_dense_only_pred`). With `fl.error_feedback` the
-    round reads and rewrites `state.ef` (a new tensor: the input state is
-    left as it was).
+    ("dense_only" -> `moe_dense_only_pred`). `fl.mode` picks the parallel
+    round (engine "flat" or "tree") or the sequential one;
+    `fl.aggregation="buffered"` makes each call one buffered-async server
+    tick, whose arrivals `arrival_fn(tick) -> (delay (K,), drop (K,))`
+    (`core.server.fixed_arrival_schedule`) overrides; the sync round
+    ignores it. The round returns new tensors for every field it changes:
+    the input state is left as it was.
     """
     fl.validate()
     check_in_slice(fl)
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
-    masks: dict = {}  # (N,) segment mask per device, built once
+    if fl.mode == "sequential":
+        return _make_sequential_round(loss_fn, fl, angle_pred)
+    if fl.aggregation == "buffered":
+        return _make_buffered_round(loss_fn, fl, angle_pred, arrival_fn)
+    return _make_parallel_round(loss_fn, fl, angle_pred)
+
+
+def _clients(loss_fn: Callable, fl: FLConfig) -> Callable:
+    """(params, batches, lr) -> (deltas, losses): the K clients' local
+    updates batched with torch.func.vmap."""
 
     def clients(params, batches, lr):
         return torch.func.vmap(
             lambda b: local_update(loss_fn, params, b, lr, fl.prox_mu),
             randomness="error")(batches)
 
+    return clients
+
+
+def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
+                         angle_pred: Optional[Callable]) -> Callable:
+    clients = _clients(loss_fn, fl)
+    segment_mask = _segment_masks(angle_pred)
+
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
-        if fl.error_feedback and state.ef is None:
-            raise ValueError(
-                "fl.error_feedback=True: state.ef is missing; build the "
-                "state with init_round_state (or pass an (num_clients, N) "
-                "f32 residual from transport.init_error_feedback)")
-        params, angle_state = state.params, state.angle
+        _check_state(fl, state)
+        angle_state = state.angle
+        sel = sel_idx.to(torch.int64)
         lr = _lr_at(fl, state.round)
+        # ---- the downlink: the clients train from its reconstruction,
+        # the aggregate lands on the uncompressed master copy ----
+        params_srv = state.params
+        params, new_dl, new_bcast = _broadcast(fl, state)
+        if fl.downlink_delta:
+            # every selected client pulls version v
+            v = new_bcast.head_ver.expand(sel.shape[0])
+            new_bcast = new_bcast._replace(
+                ver=new_bcast.ver.index_copy(0, sel, v))
         deltas, losses = clients(params, batches, lr)
         psi_avg = weighting.fedavg_weights(data_sizes)
         new_ef = state.ef
@@ -405,7 +551,6 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
         # ---- the uplink: ravel once, compress once to the wire ----
         if fl.engine == "flat" or fl.transport != "f32":
             flat, unravel = treemath.tree_ravel_stacked(deltas)
-            sel = sel_idx.to(torch.int64)
             if fl.error_feedback:
                 # EF-SGD: replay the carried residual into this round's
                 # signal, then carry what quantization drops this round
@@ -423,31 +568,18 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                                                        torch.float32)
 
         if fl.engine == "flat":
-            maskv = None
-            if angle_pred:
-                dev = data_sizes.device
-                if dev not in masks:
-                    masks[dev] = treemath.segment_mask(
-                        params, angle_keep_list(params, angle_pred))
-                maskv = masks[dev]
             g_flat = _agg_wire(psi_avg, wire)
-            dots, sqs, sqg = _stats_wire(wire, g_flat, maskv)
+            dots, sqs, sqg = _stats_wire(wire, g_flat, segment_mask(params))
             g_avg = unravel(g_flat, torch.float32)
         else:
-            angle_mask = (build_angle_mask(params, angle_pred)
-                          if angle_pred else None)
             g_avg = treemath.tree_weighted_sum(deltas, psi_avg,
                                                torch.float32)
-            d_view = angle_mask(deltas) if angle_mask else deltas
-            g_view = angle_mask(g_avg) if angle_mask else g_avg
-            dots = treemath.tree_vdot_batched(d_view, g_view)
-            sqs = treemath.tree_sqnorm_batched(d_view)
-            sqg = treemath.tree_sqnorm(g_view)
+            dots, sqs, sqg = _tree_stats(deltas, g_avg, params, angle_pred)
         theta = weighting.instantaneous_angle(dots, sqs, sqg)
 
         # Eq. 9 scatter, one copy for both engines
-        new_angle = _scatter_angles(angle_state, sel_idx, theta)
-        theta_sm = new_angle.smoothed[sel_idx.to(torch.int64)]
+        new_angle = _scatter_angles(angle_state, sel, theta)
+        theta_sm = new_angle.smoothed[sel]
         if fl.method == "fedadp":
             w = weighting.fedadp_weights(theta_sm, data_sizes, fl.alpha)
         else:  # fedavg / fedprox aggregate by data size
@@ -461,22 +593,256 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
             delta = treemath.tree_map(
                 lambda d, p: d.to(p.dtype),
                 treemath.tree_weighted_sum(deltas, w, torch.float32), params)
-        new_params = treemath.tree_add(params, delta)
+        new_params = treemath.tree_add(params_srv, delta)
 
         # Fig. 7 divergence: (1/K) sum_i ||dF - dF_i|| with dF ~ -delta/lr
         div = torch.mean(torch.sqrt(
             torch.clamp(sqs - 2 * dots + sqg, min=0.0))) / lr
-        cos = torch.cos(theta)
-        metrics = {
-            "loss": torch.mean(losses), "theta": theta,
-            "theta_smoothed": theta_sm, "weights": w, "divergence": div,
-            "lr": torch.tensor(lr, dtype=torch.float32,
-                               device=data_sizes.device),
-            "cos": cos,
-            "expected_contribution": weighting.expected_contribution(w, cos),
-        }
+        metrics = _metrics(losses, theta, theta_sm, w, div, lr,
+                           data_sizes.device)
         return state._replace(params=new_params, angle=new_angle,
-                              prev_delta=g_avg, ef=new_ef,
+                              prev_delta=g_avg, ef=new_ef, dl_ef=new_dl,
+                              bcast=new_bcast,
+                              round=state.round + 1), metrics
+
+    return round_fn
+
+
+def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
+                         angle_pred: Optional[Callable],
+                         arrival_fn: Optional[Callable]) -> Callable:
+    """The buffered-async server tick (aggregation="buffered"), the
+    reference's `_make_buffered_round` without its flat_sharded branch.
+
+    One call is one server tick: the K candidates pull the current
+    broadcast and train; free slots of `state.buf` admit the reports of
+    candidates with no report in flight whose upload did not drop; the
+    params move only on ticks where at least `buffer_m` reports have
+    landed. `state.round` counts ticks, a report's `age` flushes. Every
+    choice is a mask or a `torch.where` on a device flag, so a tick runs
+    the same launches flush or not (flat engine: two f32 aggregations and
+    one f32 statistics call over the buffer's dequantized rows, on every
+    wire) and waits on nothing. With buffer_m == K and no stragglers or
+    drops each masked op reduces to its sync counterpart bit for bit.
+    """
+    clients = _clients(loss_fn, fl)
+    segment_mask = _segment_masks(angle_pred)
+    stochastic = (arrival_fn is None
+                  and (fl.straggle_prob > 0 or fl.dropout_prob > 0))
+    m_flush = fl.buffer_m if fl.buffer_m > 0 else fl.clients_per_round
+    k = fl.clients_per_round
+
+    def round_fn(state: RoundState, batches, sel_idx, data_sizes):
+        _check_state(fl, state)
+        angle_state = state.angle
+        dev = data_sizes.device
+        sel = sel_idx.to(torch.int64)
+        lr = _lr_at(fl, state.round)
+
+        # ---- arrivals: the generator is drawn from only when the config
+        # is stochastic, so a deterministic tick leaves it as the sync
+        # round does ----
+        if arrival_fn is not None:
+            delay, drop = arrival_fn(state.round)
+            delay = torch.as_tensor(delay).to(dev, torch.int32,
+                                              non_blocking=True)
+            drop = torch.as_tensor(drop).to(dev, torch.bool,
+                                            non_blocking=True)
+        elif stochastic:
+            delay, drop = buffer_mod.draw_arrivals(
+                state.rng, k, fl.straggle_prob, fl.straggle_max,
+                fl.dropout_prob)
+        else:
+            delay = torch.zeros(k, dtype=torch.int32, device=dev)
+            drop = torch.zeros(k, dtype=torch.bool, device=dev)
+
+        # ---- the downlink, as in the sync round; the version rows move
+        # for the admitted candidates only (admission is the pull) ----
+        params_srv = state.params
+        params, new_dl, new_bcast = _broadcast(fl, state)
+        deltas, losses = clients(params, batches, lr)
+
+        busy = buffer_mod.population_busy(state.buf, fl.num_clients)
+        admit = state.buf.free & ~busy[sel] & ~drop
+        if fl.downlink_delta:
+            ver_sel = new_bcast.ver[sel]
+            new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
+                0, sel, torch.where(admit, new_bcast.head_ver, ver_sel)))
+
+        # ---- the uplink: compress to the wire, buffer the f32
+        # reconstruction ----
+        flat0, unravel0 = treemath.tree_ravel_stacked(deltas)
+        new_ef = state.ef
+        if fl.transport == "f32":
+            rows = flat0
+        else:
+            if fl.error_feedback:
+                flat0 = flat0 + state.ef[sel]
+            rows = transport.dequantize(transport.quantize(
+                flat0, fl.transport, group_size=fl.group_size))
+            if fl.error_feedback:
+                # a report that was not admitted never shipped: its
+                # residual stays carried
+                new_ef = state.ef.index_copy(0, sel, torch.where(
+                    admit[:, None], flat0 - rows, state.ef[sel]))
+        buf = buffer_mod.admit(state.buf, admit, rows, sel, data_sizes,
+                               delay)
+        landed = buffer_mod.landed_mask(buf)
+        num_landed = torch.sum(landed.to(torch.int32))
+        do_flush = num_landed >= m_flush
+        slot = buf.slot.to(torch.int64)
+
+        # the staleness-discounted FedAvg weights of the landed rows: the
+        # angle reference g (psi_avg when every row landed at age 0)
+        psi_b = weighting.buffered_fedavg_weights(
+            buf.sizes, buf.age, landed, fl.staleness_beta)
+        if fl.engine == "flat":
+            g_flat = weighted_agg(psi_b, buf.data, out_dtype=torch.float32)
+            dots, sqs, sqg = round_stats(buf.data, g_flat,
+                                         segment_mask(params))
+            g_avg = unravel0(g_flat, torch.float32)
+        else:
+            deltas_b = treemath.tree_unravel_stacked(deltas, buf.data,
+                                                     torch.float32)
+            g_avg = treemath.tree_weighted_sum(deltas_b, psi_b,
+                                               torch.float32)
+            dots, sqs, sqg = _tree_stats(deltas_b, g_avg, params,
+                                         angle_pred)
+        theta = weighting.instantaneous_angle(dots, sqs, sqg)
+
+        # Eq. 9 over the landed rows, kept only on a flush tick
+        ang_flushed = _scatter_angles_masked(angle_state, slot, theta,
+                                             landed)
+        new_angle = AngleState(*(torch.where(do_flush, a, b) for a, b in
+                                 zip(ang_flushed, angle_state)))
+        theta_sm = new_angle.smoothed[slot]
+        if fl.method == "fedadp":
+            w = weighting.buffered_fedadp_weights(
+                theta_sm, buf.sizes, buf.age, landed, fl.alpha,
+                fl.staleness_beta)
+        else:
+            w = psi_b
+        if fl.engine == "flat":
+            delta_flat = (weighted_agg(w, buf.data, out_dtype=torch.float32)
+                          if fl.method == "fedadp" else g_flat)
+            delta = unravel0(delta_flat)
+        else:
+            delta = treemath.tree_map(
+                lambda d, p: d.to(p.dtype),
+                treemath.tree_weighted_sum(deltas_b, w, torch.float32),
+                params)
+
+        # a flush applies the delta to the master params; any other tick
+        # carries params and prev_delta as they were
+        new_params = treemath.tree_map(
+            lambda a, b: torch.where(do_flush, a, b),
+            treemath.tree_add(params_srv, delta), params_srv)
+        new_prev = treemath.tree_map(lambda a, b: torch.where(do_flush, a, b),
+                                     g_avg, state.prev_delta)
+        final_buf = buffer_mod.advance(buf, landed, do_flush)
+
+        nl_f = torch.clamp(num_landed.to(torch.float32), min=1.0)
+        div = torch.sum(torch.where(
+            landed, torch.sqrt(torch.clamp(sqs - 2 * dots + sqg, min=0.0)),
+            0.0)) / nl_f / lr
+        metrics = _metrics(losses, theta, theta_sm, w, div, lr, dev)
+        metrics.update({
+            "flushed": do_flush.to(torch.int32),
+            "buffer_landed": num_landed,
+            "staleness": torch.sum(torch.where(landed, buf.age, 0)
+                                   .to(torch.float32)) / nl_f,
+        })
+        return state._replace(
+            params=new_params, angle=new_angle, prev_delta=new_prev,
+            ef=new_ef, dl_ef=new_dl, bcast=new_bcast, buf=final_buf,
+            round=state.round + 1), metrics
+
+    return round_fn
+
+
+def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
+                           angle_pred: Optional[Callable]) -> Callable:
+    """Sequential mode: one model copy, the K clients in a Python loop.
+
+    FedAdp needs the round's global delta before it can weight, so the
+    exact round runs two passes: pass 1 trains each client and sums the
+    FedAvg-weighted global delta g; pass 2 trains each client again,
+    measures its angle to g through `round_stats` on a (1, N) view (one
+    launch a client, with the angle filter's segment mask), and sums
+    w_i * delta_i and w_i online (w_i = D_i e^{f(theta~_i)}: Eq. 11's
+    softmax has one scalar denominator). `stale_angles=True` is the
+    one-pass variant against the previous round's `prev_delta`. Nothing
+    in the loop waits on the device."""
+    segment_mask = _segment_masks(angle_pred)
+
+    def client(params, batches, i, lr):
+        return local_update(loss_fn, params,
+                            treemath.tree_map(lambda a: a[i], batches), lr,
+                            fl.prox_mu)
+
+    def round_fn(state: RoundState, batches, sel_idx, data_sizes):
+        params, angle_state = state.params, state.angle
+        sel = sel_idx.to(torch.int64)
+        k = sel.shape[0]
+        lr = _lr_at(fl, state.round)
+        maskv = segment_mask(params)
+        sizes = data_sizes.to(torch.float32)
+        psi_avg = sizes / torch.sum(sizes)
+        zeros32 = init_prev_delta(params)
+
+        losses = None
+        if not fl.stale_angles:
+            # ---- pass 1: the FedAvg-weighted global delta ----
+            g_ref, pass1 = zeros32, []
+            for i in range(k):
+                d_i, loss = client(params, batches, i, lr)
+                g_ref = treemath.tree_axpy(psi_avg[i], d_i, g_ref)
+                pass1.append(loss)
+            losses = torch.stack(pass1)
+        else:
+            g_ref = state.prev_delta
+        g_flat, _ = treemath.tree_ravel(g_ref)
+
+        # ---- pass 2 (or the one stale pass): the statistics and the
+        # online weighted sum ----
+        cnt = angle_state.count[sel].to(torch.float32) + 1.0
+        prev_sm = angle_state.smoothed[sel]
+        num, den, g_acc = zeros32, torch.zeros((), device=sizes.device), \
+            zeros32
+        stats, pass2 = [], []
+        for i in range(k):
+            d_i, loss = client(params, batches, i, lr)
+            d_flat, _ = treemath.tree_ravel(d_i)
+            dots_i, sqs_i, sqg_i = round_stats(d_flat[None], g_flat, maskv)
+            theta_i = weighting.instantaneous_angle(dots_i[0], sqs_i[0],
+                                                    sqg_i)
+            sm = ((cnt[i] - 1.0) * prev_sm[i] + theta_i) / cnt[i]
+            if fl.method == "fedadp":
+                w_i = sizes[i] * torch.exp(weighting.gompertz(sm, fl.alpha))
+            else:
+                w_i = sizes[i]
+            num = treemath.tree_axpy(w_i, d_i, num)
+            den = den + w_i
+            g_acc = treemath.tree_axpy(psi_avg[i], d_i, g_acc)
+            stats.append(torch.stack([theta_i, sm, dots_i[0], sqs_i[0],
+                                      sqg_i]))
+            pass2.append(loss)
+        theta, theta_sm, dots, sqs, sqgs = torch.stack(stats, dim=1)
+        delta = treemath.tree_scale(num, 1.0 / torch.clamp(den, min=1e-12))
+        new_params = treemath.tree_map(
+            lambda p, d: (p.to(torch.float32) + d).to(p.dtype), params,
+            delta)
+        new_angle = _scatter_angles(angle_state, sel, theta)
+        w = (weighting.fedadp_weights(theta_sm, sizes, fl.alpha)
+             if fl.method == "fedadp" else psi_avg)
+        div = torch.mean(torch.sqrt(
+            torch.clamp(sqs - 2 * dots + sqgs, min=0.0))) / lr
+        metrics = _metrics(losses if losses is not None
+                           else torch.stack(pass2), theta, theta_sm, w, div,
+                           lr, sizes.device)
+        # prev_delta is pass 2's FedAvg-weighted sum, as in the reference
+        return state._replace(params=new_params, angle=new_angle,
+                              prev_delta=g_acc,
                               round=state.round + 1), metrics
 
     return round_fn

@@ -5,6 +5,11 @@ wrapper over `core.driver`. The node datasets are stacked onto the device
 once; every round (selection, epoch batching, the round, the eval) runs
 on the device from the state's generator.
 
+Every round the port runs goes through it: the parallel round on either
+engine and every uplink and downlink wire, sequential mode, and the
+buffered-async server (`fixed_arrival_schedule` gives it an explicit
+arrival schedule).
+
 `FedServer(..., device=None)` runs on CUDA and raises when there is no
 GPU: pass device="cpu" to run on the CPU (the kernels' plain versions).
 """
@@ -20,6 +25,30 @@ import repro_torch
 from repro_torch.core import driver as driver_mod
 from repro_torch.core import fl as fl_mod
 from repro_torch.models import small
+
+
+def fixed_arrival_schedule(delays, drops):
+    """An explicit arrival schedule for the buffered server: `delays`
+    (T, K) int, the delay in ticks of each of tick t's K candidate
+    reports (0 = on time), and `drops` (T, K) bool, the reports lost in
+    transit. Returns `arrival_fn(tick) -> (delay (K,), drop (K,))` for
+    `fl.make_round_fn` / `FedServer(arrival_fn=)`, which replaces the
+    config's random draw. Ticks at or past T reuse the last row. The
+    schedule stays on the host; the round copies a tick's row to the
+    device without waiting for it."""
+    delays = torch.tensor(np.asarray(delays), dtype=torch.int32)
+    drops = torch.tensor(np.asarray(drops), dtype=torch.bool)
+    if delays.shape != drops.shape:
+        raise ValueError(
+            f"delays {tuple(delays.shape)} and drops {tuple(drops.shape)} "
+            "must be the same (T, K) shape")
+    t_max = delays.shape[0] - 1
+
+    def arrival_fn(tick):
+        t = min(int(tick), t_max)
+        return delays[t], drops[t]
+
+    return arrival_fn
 
 
 @dataclasses.dataclass
@@ -45,7 +74,7 @@ class FedServer:
 
     def __init__(self, model: str, fl: fl_mod.FLConfig, nodes: list, test,
                  batch_size: int, seed: int = 0, angle_pred=None,
-                 device=None):
+                 device=None, arrival_fn=None):
         self.device = (repro_torch.default_device() if device is None
                        else torch.device(device))
         self.fl = fl
@@ -62,7 +91,8 @@ class FedServer:
         eval_fn = driver_mod.make_eval_fn(self.apply_fn, test.x, test.y,
                                           self.device)
         self._step_fn = driver_mod.make_step_fn(
-            loss_fn, fl, self.data, eval_fn=eval_fn, angle_pred=angle_pred)
+            loss_fn, fl, self.data, eval_fn=eval_fn, angle_pred=angle_pred,
+            arrival_fn=arrival_fn)
         self._seed = seed
         self.state = self._fresh_state(seed)
 

@@ -96,6 +96,11 @@ def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(a: Tree, s) -> Tree:
+    """a * s, computed in f32, cast back to each leaf's dtype."""
+    return tree_map(lambda x: (x.to(torch.float32) * s).to(x.dtype), a)
+
+
 def tree_axpy(alpha, x: Tree, y: Tree) -> Tree:
     """alpha * x + y, computed in f32, cast back to y's dtype."""
     return tree_map(

@@ -90,3 +90,44 @@ def expected_contribution(weights: torch.Tensor,
                           cos_theta: torch.Tensor) -> torch.Tensor:
     """E_{i|t}[cos theta_i], the Theorem-1 expectation term."""
     return torch.sum(weights * cos_theta)
+
+
+# ---------------------------------------------------------------- buffered
+# Staleness-aware variants for the buffered-async server: a flush
+# aggregates only the LANDED reports, and a report applied `age` model
+# versions after its pull is discounted by exp(-beta * age). With every
+# report landed at age 0 they reduce bit for bit to Eqs. 1 / 11
+# (subtracting beta * 0 and multiplying by exp(-0) are exact). Rows that
+# did not land are removed by torch.where, never by a multiply by the
+# mask: a free row's statistics are 0/0 and its logit -inf.
+
+
+def staleness_discount(age: torch.Tensor, beta: float) -> torch.Tensor:
+    """exp(-beta * age), the decay of a report `age` versions stale."""
+    return torch.exp(-beta * age.to(torch.float32))
+
+
+def buffered_fedadp_weights(smoothed_theta: torch.Tensor,
+                            data_sizes: torch.Tensor, age: torch.Tensor,
+                            landed: torch.Tensor,
+                            alpha: float = DEFAULT_ALPHA,
+                            beta: float = 0.0) -> torch.Tensor:
+    """Eq. 11 over the landed reports with the decay in the logits:
+    softmax(f(theta~) + log D - beta * age), other rows at -inf (weight
+    0). Zeros when nothing landed (the softmax of all -inf is NaN)."""
+    f = gompertz(smoothed_theta.to(torch.float32), alpha)
+    logits = (f + torch.log(data_sizes.to(torch.float32))
+              - beta * age.to(torch.float32))
+    logits = torch.where(landed, logits, -torch.inf)
+    w = torch.softmax(logits, dim=0)
+    return torch.where(torch.any(landed), w, torch.zeros_like(w))
+
+
+def buffered_fedavg_weights(data_sizes: torch.Tensor, age: torch.Tensor,
+                            landed: torch.Tensor,
+                            beta: float = 0.0) -> torch.Tensor:
+    """Eq. 1 over the landed reports with the decay applied to D:
+    psi_i = D_i e^{-beta age_i} / sum over the landed of the same."""
+    s = torch.where(landed, data_sizes.to(torch.float32)
+                    * staleness_discount(age, beta), 0.0)
+    return s / torch.clamp(torch.sum(s), min=1e-12)

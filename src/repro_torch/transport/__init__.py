@@ -1,4 +1,4 @@
-"""Delta transport: the client->server uplink wire of the round.
+"""Delta transport: both wires of the round.
 
 `quantize` compresses a client-stacked (K, N) f32 delta buffer into the
 configured wire format (f32 passthrough, bf16 cast, int8 with per-chunk
@@ -8,9 +8,11 @@ registers (`kernels.weighted_agg.weighted_agg_q{,4}`,
 `kernels.round_stats.round_stats_q{,4}`); the tree engine never reads
 it: it dequantizes back to the stacked tree first.
 
-The port's counterpart of `repro/transport`; the quantized and delta
-downlink (`repro/transport/downlink.py`) is not ported yet (ROADMAP
-Queue 1 item 9).
+The server->client broadcast (`transport.downlink`) reuses the same
+formats on one (1, N) row (f32, bf16 or int8), optionally with error
+feedback and delta encoding against a per-client broadcast ring.
+
+The port's counterpart of `repro/transport`.
 """
 from repro_torch.transport.quantize import (  # noqa: F401
     CHUNK,
@@ -30,3 +32,4 @@ from repro_torch.transport.quantize import (  # noqa: F401
     validate_group_size,
     wire_bytes,
 )
+from repro_torch.transport import downlink  # noqa: F401,E402

@@ -424,11 +424,7 @@ def test_error_feedback_needs_the_residual():
 
 
 @pytest.mark.parametrize("change", [
-    dict(transport="int8", downlink="int8"),
-    dict(transport="int4", downlink="bf16", downlink_delta=True),
     dict(transport="bf16", error_feedback=True, engine="flat_sharded"),
-    dict(mode="sequential"),
-    dict(transport="int8", aggregation="buffered"),
     dict(transport="int4", telemetry="node"),
 ])
 def test_what_is_not_ported_still_raises(change):

@@ -72,12 +72,7 @@ def test_default_device_is_cuda_or_raises(monkeypatch, golden_task):
 
 @pytest.mark.parametrize("change", [
     dict(engine="flat_sharded"),
-    dict(mode="sequential"),
-    dict(transport="int8", downlink="bf16"),
     dict(transport="bf16", error_feedback=True, engine="flat_sharded"),
-    dict(downlink="int8"),
-    dict(downlink="bf16", downlink_delta=True),
-    dict(aggregation="buffered"),
     dict(telemetry="node"),
 ])
 def test_configs_outside_the_slice_raise(change):
