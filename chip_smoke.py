@@ -8,7 +8,8 @@ with nvcc, checks and times each against its plain torch version, and
 drives the port's paths: the synchronous FedAdp round of the flat engine
 through `repro_torch.FedServer`, at the full width of the paper's CNN,
 on every uplink wire (f32, bf16, int8, int4), with the quantized and
-delta downlink, in sequential mode and as the buffered-async server; the
+delta downlink, in sequential mode and as the buffered-async server,
+scanned with a bit-exact kill/resume and with round telemetry; the
 algorithm on the MLR golden task; dense-LM serving (`launch.serve.generate`: gemma-2b at full
 width and depth in bf16, prefill on the flash-attention kernel, then
 greedy decode); and `kernels/ops.py` on a real CNN round's deltas. Each
@@ -48,7 +49,21 @@ parallel tree round at 2e-4 / 2e-5), buffered (buffered(m = K) == sync,
 f32 bit for bit and int8 at 1e-5; the golden buffered schedule's 8 ticks
 on the int8 uplink: 2 + 1 f32 kernel launches a tick, none of the _q
 ones, flushes on the ticks of the same schedule's CPU run; ms a tick),
-algorithm (fedadp reaches 85% on MLR in no more rounds than fedavg, per
+resume (kill/resume on the CNN: a scanned run of 2 blocks x 2 rounds
+with checkpoints, and a fresh FedServer restored at the first block edge
+running the second block, on the int8 uplink with EF and the int8 delta
+downlink with EF at 5 of 10 clients, and on the buffered server (int8 +
+EF, a report in flight at the edge): state, generator and History bit
+for bit, deterministic cuDNN; 2 + 1 wire kernel launches a round on both
+sides; the checkpoint's bytes, write and read ms), telemetry
+(telemetry="node" into a JSONLSink on the f32 round and on the int8
+uplink with the int8 delta downlink at 5 of 10: the stream validates, K
+node events a round, bytes_up / bytes_down as `round_bytes` or the split
+the recorded cohorts imply; on == off bit for bit with the same launches
+and no more host syncs a round; the sequential round on == off; the
+device kernels telemetry adds to a profiled round; ms a round stepwise
+against scanned, block = 8, in turns; the idle share of a profiled
+scanned block), algorithm (fedadp reaches 85% on MLR in no more rounds than fedavg, per
 uplink f32, bf16, int8 and int4, on the golden delta section's wires at
 5 of 10 clients, and in sequential mode; buffered fedadp under the
 golden schedule in no more ticks than sync fedavg, on f32/f32 and
@@ -1084,6 +1099,447 @@ def phase_buffered(wa, rs, dev, nodes, test) -> dict:
     return out
 
 
+# ---- the run surface: scanned mode, checkpoint and kill/resume, round
+# telemetry ----
+
+RESUME_BLOCK = 2  # rounds a block; the uninterrupted run is 2 blocks
+
+
+def tree_mismatches(a, b) -> list:
+    """The paths at which two trees of tensors (and GeneratorStates)
+    differ in any bit, dtype or shape."""
+    from repro_torch.core import treemath
+
+    pa, pb = treemath.tree_paths(a), treemath.tree_paths(b)
+    if pa != pb:
+        return ["<structure>"]
+    bad = []
+    for path, x, y in zip(pa, treemath.tree_leaves(a),
+                          treemath.tree_leaves(b)):
+        if isinstance(x, torch.Tensor):
+            same = (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+                x.detach().contiguous().reshape(-1).view(torch.uint8),
+                y.detach().contiguous().reshape(-1).view(torch.uint8)))
+        else:
+            same = x == y
+        if not same:
+            bad.append("/".join(map(str, path)))
+    return bad
+
+
+def history_mismatches(h, h_ref, start: int) -> list:
+    """The History fields where `h` differs from `h_ref`'s rounds from
+    `start` on, bit for bit."""
+    bad = [key for key in ("accuracy", "loss", "divergence")
+           if getattr(h, key) != getattr(h_ref, key)[start:]]
+    for key in ("thetas", "weights"):
+        got, want = getattr(h, key), getattr(h_ref, key)[start:]
+        if len(got) != len(want) or any(
+                a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+            bad.append(key)
+    return bad
+
+
+def phase_resume(wa, rs, dev, nodes, test) -> dict:
+    """Kill/resume on the CNN at full width, bit for bit: an uninterrupted
+    scanned run of 2 blocks x 2 rounds with a checkpoint at each block
+    edge, then a fresh FedServer restored from the first edge's archive
+    runs block 2. Params, both EF residuals, the broadcast ring, head and
+    `ver`, the report buffer, the angles, the round, the generator's
+    state and every History entry must equal the uninterrupted run's bit
+    for bit, and the two generators draw the same next numbers. Two
+    configs: the int8 uplink with EF and the int8 delta downlink with EF
+    at 5 of 10 clients (every optional sync field live), and the buffered
+    server on the int8 uplink with EF under the golden schedule one tick
+    later (a report in flight at the edge). Both sides launch 2 + 1 of
+    the wire's kernels a round. Deterministic cuDNN: a cuDNN training
+    sums with atomics otherwise, and two runs part in the last bits."""
+    import shutil
+    import tempfile
+
+    import repro_torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import fl as fl_mod
+
+    delays, drops, task = golden_schedule()
+    # one tick later (its last tick, all on time, first), so that a
+    # straggler's report is in flight at the block edge
+    delays, drops = np.roll(delays, 1, axis=0), np.roll(drops, 1, axis=0)
+    wrappers = counters(wa, rs)
+    configs = {
+        "int8ef_up_int8ef_delta_down_5of10": (dataclasses.replace(
+            slice_config("int8", error_feedback=True, downlink="int8",
+                         downlink_error_feedback=True, downlink_delta=True),
+            clients_per_round=5), None),
+        "buffered_int8ef_golden_schedule_late": (
+            buffered_config("int8", task, error_feedback=True),
+            (delays, drops)),
+    }
+    rounds = 2 * RESUME_BLOCK
+    t_phase = time.perf_counter()
+    out = {"phase": "resume", "model": "cnn", "params": MAIN_N,
+           "block": RESUME_BLOCK, "rounds": rounds, "configs": {}}
+    torch.backends.cudnn.deterministic = True
+    for name, (cfg, sched) in configs.items():
+        buffered = cfg.aggregation == "buffered"
+
+        def server():
+            s = repro_torch.FedServer(
+                "cnn", cfg, nodes, test, batch_size=50, device=dev,
+                arrival_fn=(repro_torch.fixed_arrival_schedule(*sched)
+                            if sched else None))
+            s.step(eval_every=0)  # warm-up: cuDNN plans, allocator
+            s.reset()
+            torch.cuda.synchronize()
+            return s
+
+        def want(n):
+            if buffered:  # the buffer's f32 rows on every wire
+                return {k: ({"weighted_agg": 2 * n, "round_stats": n}
+                            .get(k, 0)) for k in wrappers}
+            return expected_launches(cfg.transport, n)
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+        try:
+            ref = server()
+            for fn in wrappers.values():
+                fn.launches = 0
+            h_ref = ref.run(rounds, eval_every=1, mode="scanned",
+                            block=RESUME_BLOCK, ckpt_dir=tmp, ckpt_keep=0)
+            launches_ref = {k: fn.launches for k, fn in wrappers.items()}
+            saved = dict(ckpt_io.list_checkpoints(tmp))
+            edge = RESUME_BLOCK
+            res = server()
+            for fn in wrappers.values():
+                fn.launches = 0
+            if res.restore(saved[edge]) != edge:
+                raise AssertionError(f"{name}: restored at round "
+                                     f"{res.round}, want {edge}")
+            h_res = res.run(rounds - edge, eval_every=1, mode="scanned",
+                            block=RESUME_BLOCK)
+            launches_res = {k: fn.launches for k, fn in wrappers.items()}
+            torch.cuda.synchronize()
+            bad = tree_mismatches(fl_mod.state_to_tree(res.state),
+                                  fl_mod.state_to_tree(ref.state))
+            bad += history_mismatches(h_res, h_ref, edge)
+            draws = [torch.rand(4, generator=s.state.rng, device=dev)
+                     for s in (ref, res)]
+            same_stream = torch.equal(*draws)
+
+            # one checkpoint's size, write and read (+ restore) times
+            path = os.path.join(tmp, "timed")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt_io.save(path, fl_mod.state_to_tree(ref.state))
+            write_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            back = fl_mod.state_from_tree(cfg, ckpt_io.load(path),
+                                          device=dev)
+            torch.cuda.synchronize()
+            read_ms = (time.perf_counter() - t0) * 1e3
+            bad += [f"reread/{p}" for p in tree_mismatches(
+                fl_mod.state_to_tree(back), fl_mod.state_to_tree(ref.state))]
+            row = {"checkpoints": sorted(saved),
+                   "bytes": os.path.getsize(path),
+                   "write_ms": write_ms, "read_restore_ms": read_ms,
+                   "launches_uninterrupted": launches_ref,
+                   "launches_resumed": launches_res,
+                   "mismatches": bad, "generator_continues": same_stream,
+                   "accuracy": h_ref.accuracy}
+            if buffered:
+                row["in_flight_at_edge"] = int(
+                    (~ckpt_io.load(saved[edge])["buf"]["free"]).sum())
+            if ref.state.bcast is not None:
+                row["ver"] = ref.state.bcast.ver.tolist()
+            out["configs"][name] = row
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if bad or not same_stream:
+            emit(out)
+            raise AssertionError(f"resume {name}: the resumed run differs "
+                                 f"at {bad} (generator continues: "
+                                 f"{same_stream})")
+        if launches_ref != want(rounds) or launches_res != want(
+                rounds - edge):
+            emit(out)
+            raise AssertionError(f"resume {name}: launches {launches_ref} / "
+                                 f"{launches_res}, want {want(rounds)} / "
+                                 f"{want(rounds - edge)}")
+        if buffered and not row["in_flight_at_edge"]:
+            emit(out)
+            raise AssertionError(f"resume {name}: no report in flight at "
+                                 "the block edge")
+        del ref, res, back
+    torch.backends.cudnn.deterministic = False
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA calls `fn` makes (torch's sync debug mode,
+    counted from its warnings)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's first use also warns that it is a prototype: not a sync
+    return sum(str(w.message).startswith("called a synchronizing")
+               for w in caught)
+
+
+def expected_down_split(cohorts, ring: int, unit: int) -> list:
+    """(delta bytes, full bytes) of each round's pulls under a delta
+    downlink, from the recorded cohorts: one payload per version a
+    client is behind, a full model when it never pulled or is more than
+    `ring` versions behind."""
+    last, out = {}, []
+    for v, sel in enumerate(cohorts):
+        d = f = 0
+        for c in sel:
+            w = last.get(c)
+            if w is None or v - w > ring:
+                f += 1
+            else:
+                d += v - w
+            last[c] = v
+        out.append((d * unit, f * unit))
+    return out
+
+
+def timed_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_telemetry(wa, rs, tq, dev, nodes, test) -> dict:
+    """FLConfig(telemetry="node") on the CNN at full width: per config
+    (the f32 round; the int8 uplink with the int8 delta downlink at 5 of
+    10), 3 rounds with telemetry on into a JSONLSink and 3 with it off
+    from the same seed. The stream validates, each round has K node
+    events, bytes_up is `round_bytes`'s, bytes_down its K pulls or, under
+    delta, the split the recorded cohorts imply; the two runs' states and
+    Histories are bitwise equal and launch the same 2 + 1 wire kernels a
+    round; a round with telemetry on makes no more host syncs than one
+    with it off. Then the sequential round on and off (bitwise, 10
+    round_stats launches each), the device kernels of one profiled round
+    with telemetry off and on, ms a round stepwise against scanned
+    (block = 8) in turns, and the idle share of one profiled scanned
+    block beside 8 profiled stepwise rounds. Deterministic cuDNN for the
+    bitwise comparisons."""
+    import shutil
+    import tempfile
+
+    import repro_torch
+    from repro_torch.core import driver
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.telemetry import schema, sinks
+
+    wrappers = counters(wa, rs)
+    t_phase = time.perf_counter()
+    out = {"phase": "telemetry", "model": "cnn", "params": MAIN_N,
+           "configs": {}}
+    configs = {
+        "f32": slice_config("f32"),
+        "int8_up_int8_delta_down_5of10": dataclasses.replace(
+            slice_config("int8", downlink="int8", downlink_delta=True),
+            clients_per_round=5),
+    }
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, cfg in configs.items():
+            k = cfg.clients_per_round
+            runs = {}
+            for tel in ("node", None):
+                s = repro_torch.FedServer(
+                    "cnn", dataclasses.replace(cfg, telemetry=tel), nodes,
+                    test, batch_size=50, device=dev)
+                s.step(eval_every=0)  # warm-up
+                s.reset()
+                torch.cuda.synchronize()
+                sink = sinks.JSONLSink(os.path.join(tmp, f"{name}.jsonl")) \
+                    if tel else None
+                cohorts, real_select = [], driver.select_clients
+
+                def record(gen, num_clients, kk):
+                    sel = real_select(gen, num_clients, kk)
+                    cohorts.append(sel.tolist())
+                    return sel
+
+                for fn in wrappers.values():
+                    fn.launches = 0
+                driver.select_clients = record
+                try:
+                    hist = s.run(3, eval_every=1, sink=sink)
+                finally:
+                    driver.select_clients = real_select
+                launches = {key: fn.launches for key, fn in wrappers.items()}
+                if sink is not None:
+                    sink.close()
+                # the host syncs inside one round, outside the metrics copy
+                syncs = host_syncs(lambda: s._step_fn(s.state, 1))
+                runs[tel] = (s, hist, launches, cohorts, syncs)
+            (s_on, h_on, l_on, cohorts, sync_on) = runs["node"]
+            (s_off, h_off, l_off, _, sync_off) = runs[None]
+            events = sinks.load_events(os.path.join(tmp, f"{name}.jsonl"))
+            counts = schema.validate_events(events)
+            rounds = [e for e in events if e["event"] == "round"]
+            rb = tq.round_bytes(k, MAIN_N, cfg.transport, cfg.downlink,
+                                group_size=cfg.group_size)
+            bad = []
+            if counts["round"] != 3 or counts["node"] != 3 * k:
+                bad.append(f"event counts {counts}")
+            if cfg.downlink_delta:
+                split = expected_down_split(
+                    cohorts, cfg.downlink_ring,
+                    tq.wire_bytes(1, MAIN_N, cfg.downlink))
+                got = [(e["bytes_down_delta"], e["bytes_down_full"])
+                       for e in rounds]
+                if got != split or any(
+                        e["bytes_down"] != sum(p) for e, p in
+                        zip(rounds, split)):
+                    bad.append(f"bytes_down split {got}, want {split}")
+            elif any(e["bytes_down"] != rb["down"] for e in rounds):
+                bad.append("bytes_down")
+            if any(e["bytes_up"] != rb["up"] for e in rounds):
+                bad.append("bytes_up")
+            diff = tree_mismatches(fl_mod.state_to_tree(s_on.state),
+                                   fl_mod.state_to_tree(s_off.state))
+            diff += history_mismatches(h_on, h_off, 0)
+            if diff:
+                bad.append(f"on != off at {diff}")
+            if l_on != l_off or l_on != expected_launches(cfg.transport, 3):
+                bad.append(f"launches on {l_on} / off {l_off}")
+            if sync_on > sync_off:
+                bad.append(f"host syncs a round on {sync_on} > off "
+                           f"{sync_off}")
+            out["configs"][name] = {
+                "clients": k, "events": counts, "launches": l_on,
+                "host_syncs_round": {"on": sync_on, "off": sync_off},
+                "bytes_up": [e["bytes_up"] for e in rounds],
+                "bytes_down": [e["bytes_down"] for e in rounds],
+                "bytes_down_delta": [e.get("bytes_down_delta")
+                                     for e in rounds],
+                "bytes_down_full": [e.get("bytes_down_full")
+                                    for e in rounds],
+                "cohorts": cohorts,
+                "weight_entropy": [e["weight_entropy"] for e in rounds],
+                "mismatches": bad}
+            if bad:
+                emit(out)
+                raise AssertionError(f"telemetry {name}: {bad}")
+
+        # the sequential round, on and off
+        seq = {}
+        for tel in ("node", None):
+            cfg = repro_torch.FLConfig(
+                num_clients=10, clients_per_round=10, local_steps=12,
+                method="fedadp", mode="sequential", base_lr=0.05,
+                telemetry=tel)
+            s = repro_torch.FedServer("cnn", cfg, nodes, test,
+                                      batch_size=50, device=dev)
+            _, ms, launches = counted_rounds(s, wrappers, 1)
+            seq[tel] = (s, ms[0], launches,
+                        host_syncs(lambda: s._step_fn(s.state, 1)))
+        diff = tree_mismatches(fl_mod.state_to_tree(seq["node"][0].state),
+                               fl_mod.state_to_tree(seq[None][0].state))
+        diff += [k for k in seq[None][1]
+                 if seq[None][1][k].tobytes() != seq["node"][1][k].tobytes()]
+        want = {name: 0 for name in wrappers}
+        want["round_stats"] = 10
+        out["sequential"] = {"launches": seq["node"][2],
+                             "tel_keys": sorted(k for k in seq["node"][1]
+                                                if k.startswith("tel/")),
+                             "host_syncs_round": {"on": seq["node"][3],
+                                                  "off": seq[None][3]},
+                             "mismatches": diff}
+        if (diff or seq["node"][2] != want or seq[None][2] != want
+                or seq["node"][3] > seq[None][3]):
+            emit(out)
+            raise AssertionError(f"telemetry sequential: {out['sequential']}")
+        del seq
+
+        # the host syncs inside a buffered tick (the golden schedule)
+        delays, drops, task = golden_schedule()
+        syncs = {}
+        for tel in ("node", None):
+            s = repro_torch.FedServer(
+                "cnn", buffered_config("int8", task, telemetry=tel), nodes,
+                test, batch_size=50, device=dev,
+                arrival_fn=repro_torch.fixed_arrival_schedule(delays, drops))
+            s.step(eval_every=0)
+            syncs[tel] = host_syncs(lambda: s._step_fn(s.state, 1))
+        out["buffered_host_syncs_tick"] = {"on": syncs["node"],
+                                           "off": syncs[None]}
+        if syncs["node"] > syncs[None]:
+            emit(out)
+            raise AssertionError(f"telemetry buffered: {syncs}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the device kernels of one round with telemetry off and on (f32)
+    kern = {}
+    for tel in (None, "node"):
+        s = repro_torch.FedServer(
+            "cnn", slice_config("f32", telemetry=tel), nodes, test,
+            batch_size=50, device=dev)
+        s.step(eval_every=0)
+        kern[tel] = dict(device_kernels(lambda: s.step(eval_every=0),
+                                        top=400))
+    extra = {k: c - kern[None].get(k, 0) for k, c in kern["node"].items()
+             if c != kern[None].get(k, 0)}
+    out["round_kernels"] = {
+        "off": {"distinct": len(kern[None]),
+                "launches": sum(kern[None].values())},
+        "on": {"distinct": len(kern["node"]),
+               "launches": sum(kern["node"].values())},
+        "added_by_telemetry": extra,
+        "missing_with_telemetry": sorted(set(kern[None]) - set(kern["node"]))}
+
+    # ms a round, stepwise against scanned (block = 8), in turns, and the
+    # idle share of a profiled scanned block beside 8 stepwise rounds
+    s = repro_torch.FedServer("cnn", slice_config("f32"), nodes, test,
+                              batch_size=50, device=dev)
+    s.step(eval_every=0)
+    turns = []
+    for mode in ("stepwise", "scanned", "scanned", "stepwise"):
+        s.reset()
+        turns.append((mode, timed_ms(lambda: s.run(
+            8, eval_every=1, mode=mode, block=8)) / 8))
+    out["ms_per_round"] = {
+        "turns": turns,
+        "stepwise": [t for m, t in turns if m == "stepwise"],
+        "scanned_block8": [t for m, t in turns if m == "scanned"]}
+    # the profiler's own host cost slows the run it traces, so the idle
+    # share is also given against the same mode's unprofiled time
+    prof = {}
+    for mode in ("scanned", "stepwise"):
+        s.reset()
+        p = profile_device(lambda: s.run(8, eval_every=1, mode=mode,
+                                         block=8))
+        unprofiled_us = 8e3 * float(np.mean(
+            [t for m, t in turns if m == mode]))
+        prof[mode] = {k: p[k] for k in (
+            "wall_us", "device_busy_union_us", "device_idle_share_union",
+            "device_idle_share_sum", "device_events")}
+        prof[mode]["idle_share_vs_unprofiled_wall"] = \
+            1.0 - p["device_busy_union_us"] / unprofiled_us
+    out["profile_8_rounds"] = prof
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def phase_k1_stats(rs, dev) -> dict:
     """round_stats (f32) at (1, N), the shape sequential mode gives it
     (one client's row against g): checked against its plain version and
@@ -1948,6 +2404,8 @@ def main() -> int:
     phase_downlink(wa, rs, tq, dev, nodes, test)
     _, k1_row["launches"] = phase_sequential(wa, rs, dev, nodes, test)
     phase_buffered(wa, rs, dev, nodes, test)
+    phase_resume(wa, rs, dev, nodes, test)
+    phase_telemetry(wa, rs, tq, dev, nodes, test)
     phase_algorithm(dev, nodes, test)
     serve_out = phase_serve(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)

@@ -3,14 +3,17 @@
 The FedAdp round (paper Eqs. 8-11) with its passes over the (K, N)
 client-delta buffer written by hand in CUDA C++ (`repro_torch.kernels`):
 the parallel round on every uplink and downlink wire, sequential mode and
-the buffered-async server. Modules mirror the JAX package's names:
+the buffered-async server; stepwise or scanned runs, checkpoints with a
+bit-exact kill/resume, and round telemetry. Modules mirror the JAX
+package's names, and `__all__` mirrors `repro.__all__`:
 
     import repro_torch
 
     cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
                                local_steps=12, engine="flat")
     server = repro_torch.FedServer("cnn", cfg, nodes, test, batch_size=50)
-    hist = server.run(60, target_acc=0.85)
+    hist = server.run(60, target_acc=0.85, mode="scanned", block=8,
+                      ckpt_dir="ckpts", sink=repro_torch.MemorySink())
 
 Entry points run on CUDA unless the caller passes device="cpu"; without a
 GPU they raise rather than fall back. This package never imports jax or
@@ -29,25 +32,44 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-from repro_torch import transport  # noqa: E402
+from repro_torch import telemetry, transport  # noqa: E402
 from repro_torch.core.fl import (  # noqa: E402
     FLConfig,
     RoundState,
     init_round_state,
     make_round_fn,
+    state_from_tree,
+    state_to_tree,
 )
 from repro_torch.core.server import (  # noqa: E402
     FedServer,
+    History,
     fixed_arrival_schedule,
 )
+from repro_torch.telemetry.manifest import run_manifest  # noqa: E402
+from repro_torch.telemetry.sinks import (  # noqa: E402
+    CSVSink,
+    JSONLSink,
+    MemorySink,
+)
+from repro_torch.telemetry.spans import SpanTimer  # noqa: E402
 
 __all__ = [
+    "CSVSink",
     "FLConfig",
     "FedServer",
+    "History",
+    "JSONLSink",
+    "MemorySink",
     "RoundState",
+    "SpanTimer",
     "default_device",
     "fixed_arrival_schedule",
     "init_round_state",
     "make_round_fn",
+    "run_manifest",
+    "state_from_tree",
+    "state_to_tree",
+    "telemetry",
     "transport",
 ]

@@ -57,8 +57,7 @@ def population_busy(buf: ReportBuffer, num_clients: int) -> torch.Tensor:
     cut off."""
     idx = torch.where(buf.free, num_clients, buf.slot).to(torch.int64)
     busy = torch.zeros(num_clients + 1, dtype=torch.bool,
-                       device=buf.free.device)
-    busy[idx] = True
+                       device=buf.free.device).index_fill(0, idx, True)
     return busy[:num_clients]
 
 

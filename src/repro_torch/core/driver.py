@@ -1,14 +1,21 @@
-"""The federated training step on the device: data, selection, batching,
-the round, and the eval.
+"""The federated training loop on the device: data, selection, batching,
+the round, the eval, and the scanned driver.
 
-The counterpart of `repro/core/driver.py` for the stepwise path. The
-node datasets are stacked once into device tensors (`stack_nodes`); every
-round draws its cohort and each client's epoch permutation from the
-state's `torch.Generator` on the device (`select_clients`,
-`epoch_batches`), runs the round, and evaluates when due
-(`make_step_fn`). Nothing is copied from the host between rounds. A
-buffered config's partial-participation cohort avoids the clients whose
-report is still in flight (`select_clients_avoiding`).
+The counterpart of `repro/core/driver.py`. The node datasets are stacked
+once into device tensors (`stack_nodes`); every round draws its cohort
+and each client's epoch permutation from the state's `torch.Generator`
+on the device (`select_clients`, `epoch_batches`), runs the round, and
+evaluates when due (`make_step_fn`). Nothing is copied from the host
+between rounds. A buffered config's partial-participation cohort avoids
+the clients whose report is still in flight (`select_clients_avoiding`).
+
+The same step drives both run modes. `FedServer.step` copies each
+round's metrics to the host; the scanned driver (`make_scan_runner`,
+`run_rounds`) runs a block of rounds with their metrics left on the
+device, stacks them, copies them to the host once a block, and checks
+for early exit between blocks. It snapshots the whole RoundState at
+block boundaries (`ckpt_dir=`), so a killed run restores bit for bit
+(`fl.state_from_tree` + `checkpoint.io.load_latest`).
 """
 from __future__ import annotations
 
@@ -17,12 +24,16 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import fl as fl_mod
+from repro_torch.telemetry import schema as tel_schema
+from repro_torch.telemetry import sinks as tel_sinks
+from repro_torch.telemetry import spans as tel_spans
 
-# the accuracy reported on rounds where the eval did not run (the
-# reference's telemetry.schema.EVAL_SENTINEL)
-EVAL_SENTINEL = -1.0
+# the accuracy reported on rounds where the eval did not run, owned by
+# the telemetry schema so that sinks and flstat mask the same constant
+EVAL_SENTINEL = tel_schema.EVAL_SENTINEL
 
 
 class ClientData(NamedTuple):
@@ -173,8 +184,113 @@ def make_step_fn(loss_fn: Callable, fl: fl_mod.FLConfig, data: ClientData,
             if eval_every > 0 and state.round % eval_every == 0:
                 acc = eval_fn(state.params)
             else:
-                acc = torch.tensor(EVAL_SENTINEL, device=sizes.device)
+                acc = torch.full((), EVAL_SENTINEL, dtype=torch.float32,
+                                 device=sizes.device)
             metrics = dict(metrics, accuracy=acc)
         return state, metrics
 
     return step
+
+
+def make_scan_runner(step_fn: Callable) -> Callable:
+    """A block of rounds: run_block(state, eval_every, length) -> (state,
+    metrics), `length` calls of `step_fn` with every round's metrics left
+    on the device and stacked over a leading round axis. Nothing in a
+    block waits for the device. (The reference compiles the block as one
+    `lax.scan`; here the launches of its rounds are queued back to
+    back.)"""
+
+    def run_block(state, eval_every: int, length: int):
+        per_round = []
+        for _ in range(length):
+            state, metrics = step_fn(state, eval_every)
+            per_round.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_round])
+                       for k in per_round[0]}
+
+    return run_block
+
+
+def _to_host(metrics: dict) -> dict:
+    """One block's stacked device metrics as numpy: every copy is queued,
+    then one wait for the device."""
+    host = {k: v.to("cpu", non_blocking=True) for k, v in metrics.items()}
+    tel_spans.SpanTimer.sync(metrics)
+    return {k: v.numpy() for k, v in host.items()}
+
+
+def run_rounds(run_block: Callable, state: fl_mod.RoundState, rounds: int,
+               *, eval_every: int = 1, target_acc: Optional[float] = None,
+               block: int = 8, ckpt_dir: Optional[str] = None,
+               ckpt_every_blocks: int = 1, ckpt_keep: int = 3,
+               sink=None, telemetry_every: int = 1,
+               spans: Optional[tel_spans.SpanTimer] = None):
+    """Blocks of rounds with host-side early exit and optional
+    block-boundary checkpointing, the reference's `run_rounds`.
+
+    Runs `block` rounds per call of `run_block` (the last block is the
+    remainder); between blocks the host checks the blocks' accuracies
+    against `target_acc`. rounds_to_target is the exact (r+1) of the
+    first eval round at or above the target, even though the device ran
+    to the end of that block. Rounds are counted from `state.round`: a
+    state restored at round R resumes at R, its eval cadence stays in
+    phase, and rounds_to_target reports what the uninterrupted run
+    would.
+
+    `ckpt_dir` snapshots the whole RoundState (fl.state_to_tree ->
+    checkpoint.io.save_checkpoint: atomic write, `latest` pointer, the
+    newest `ckpt_keep` archives kept) after every `ckpt_every_blocks`-th
+    block and always at exit.
+
+    `sink` (a `telemetry.sinks.TelemetrySink`) receives schema events at
+    every block boundary: one ``round`` event per round run (the last
+    block is exact-length) plus per-node rows under `telemetry="node"`;
+    `telemetry_every` subsamples the emitted rounds. `spans` (a
+    `telemetry.spans.SpanTimer`; one over `sink` when omitted) bounds
+    each block and its host copy as a ``scan_block`` span, checkpoint
+    writes as ``checkpoint``, and event emission as ``sink_emit``.
+
+    Returns (state, metrics, rounds_to_target, rounds_run): metrics holds
+    per-round host arrays stacked over every round run by this call
+    (`rounds_run` counts them; rounds_to_target is absolute).
+    """
+    base = int(state.round)
+    saved_at = None
+    if spans is None:
+        spans = tel_spans.SpanTimer(sink)
+
+    def checkpoint(round_now):
+        nonlocal saved_at
+        with spans.span("checkpoint", round=round_now):
+            ckpt_io.save_checkpoint(ckpt_dir, round_now,
+                                    fl_mod.state_to_tree(state),
+                                    keep=ckpt_keep)
+        saved_at = round_now
+
+    blocks = []
+    done = 0
+    n_blocks = 0
+    rounds_to_target = None
+    while done < rounds and rounds_to_target is None:
+        length = min(block, rounds - done)
+        with spans.span("scan_block", round=base + done):
+            state, ms = run_block(state, eval_every, length)
+            ms = _to_host(ms)
+        blocks.append(ms)
+        if sink is not None:
+            with spans.span("sink_emit", round=base + done):
+                tel_sinks.emit_round_block(sink, ms, base + done,
+                                           every=telemetry_every)
+        if target_acc is not None and "accuracy" in ms:
+            hit = np.flatnonzero(ms["accuracy"] >= target_acc)
+            if hit.size:
+                rounds_to_target = base + done + int(hit[0]) + 1
+        done += length
+        n_blocks += 1
+        if ckpt_dir is not None and n_blocks % ckpt_every_blocks == 0:
+            checkpoint(base + done)
+    if ckpt_dir is not None and saved_at != base + done:
+        checkpoint(base + done)
+    metrics = {k: np.concatenate([m[k] for m in blocks])
+               for k in blocks[0]} if blocks else {}
+    return state, metrics, rounds_to_target, done

@@ -1,8 +1,8 @@
 """The FedAdp / FedAvg / FedProx round in torch: parallel, sequential
 and buffered-async.
 
-The counterpart of `repro/core/fl.py` (without its flat_sharded engine
-and telemetry). `make_round_fn(loss_fn, fl)` returns
+The counterpart of `repro/core/fl.py` (without its flat_sharded engine).
+`make_round_fn(loss_fn, fl)` returns
 
     round_fn(state, batches, sel_idx, data_sizes) -> (state, metrics)
 
@@ -40,6 +40,12 @@ statistics through `round_stats` on a (1, N) view. aggregation="buffered"
 makes a call one tick of the buffered-async server (`core.buffer`): its
 flat engine streams the buffer's f32 rows through the f32 kernels.
 
+`FLConfig(telemetry="node")` adds the reference's ``tel/*`` metrics to
+every round (`_telemetry_metrics`), computed on the device; with
+telemetry off the round never reaches that code. `state_to_tree` /
+`state_from_tree` are the RoundState codec of `checkpoint.io`, with
+elastic K.
+
 Angle convention: the paper's theta_i is between grad F and grad F_i with
 grad F_i = -Delta_i/eta; the -1/eta factors cancel in the cosine, so the
 deltas are correlated directly.
@@ -55,7 +61,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+import repro_torch
 from repro_torch import transport
+from repro_torch.checkpoint.io import GeneratorState
 from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import treemath, weighting
 from repro_torch.core.weighting import AngleState
@@ -220,21 +228,13 @@ class FLConfig:
         return self
 
 
-
-
 def check_in_slice(fl: FLConfig) -> None:
     """Raise NotImplementedError for a valid config that the port does
     not run yet, naming the ROADMAP (Queue 1) item that will bring it."""
-    missing = [
-        (fl.engine == "flat_sharded",
-         "engine='flat_sharded' (ROADMAP Queue 1 item 13)"),
-        (fl.telemetry is not None,
-         "telemetry (ROADMAP Queue 1 item 12)"),
-    ]
-    for cond, what in missing:
-        if cond:
-            raise NotImplementedError(f"the torch port does not run {what} "
-                                      "yet")
+    if fl.engine == "flat_sharded":
+        raise NotImplementedError(
+            "the torch port does not run engine='flat_sharded' (ROADMAP "
+            "Queue 1 item 13) yet")
 
 
 class RoundState(NamedTuple):
@@ -298,6 +298,186 @@ def init_round_state(fl: FLConfig, params: Tree,
         rng=rng, round=0)
 
 
+def state_to_tree(state: RoundState) -> dict:
+    """RoundState -> a nested dict `checkpoint.io.save` can round-trip,
+    field for field as the reference's: NamedTuples become dicts,
+    optional fields stay None (io writes `__none__` sentinels), `round`
+    is a 0-d int32 tensor, and the generator is snapshotted as a
+    `checkpoint.io.GeneratorState` (its device type and `get_state()`
+    bytes). `state_from_tree` is the inverse."""
+    return {
+        "params": state.params,
+        "angle": {"smoothed": state.angle.smoothed,
+                  "count": state.angle.count},
+        "prev_delta": state.prev_delta,
+        "ef": state.ef,
+        "dl_ef": state.dl_ef,
+        "bcast": None if state.bcast is None else state.bcast._asdict(),
+        "buf": None if state.buf is None else state.buf._asdict(),
+        "rng": None if state.rng is None else GeneratorState.of(state.rng),
+        "round": torch.tensor(state.round, dtype=torch.int32),
+    }
+
+
+def _resize_rows(a: torch.Tensor, k_new: int, fill=0) -> torch.Tensor:
+    """Truncate / pad axis 0 to `k_new` rows (elastic-K restore). New
+    rows are `fill`: zero for angle/EF state (fresh clients start like
+    round-0 clients), `downlink.NEVER_PULLED` for the broadcast version
+    vector (fresh clients need a full-model resync)."""
+    k_old = a.shape[0]
+    if k_new <= k_old:
+        return a[:k_new]
+    pad = torch.full((k_new - k_old,) + tuple(a.shape[1:]), fill,
+                     dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad])
+
+
+def _named_leaves(state: RoundState) -> dict:
+    """{path: leaf} over every field of `state` but rng and round, None
+    leaves included, in flatten order."""
+    tree = state_to_tree(state._replace(rng=None))
+    del tree["rng"], tree["round"]
+    return {"/".join(map(str, p)): leaf for p, leaf in
+            zip(treemath.tree_paths(tree), treemath.tree_leaves(tree))}
+
+
+def state_from_tree(cfg: FLConfig, tree: dict, device=None) -> RoundState:
+    """Rebuild a RoundState from `state_to_tree`'s dict under `cfg`, on
+    `device` (CUDA when None: raises without a GPU), with every check of
+    the reference's `state_from_tree`.
+
+    Each optional field (ef / dl_ef / bcast / buf) must be present
+    exactly when the matching flag is on, and every leaf is validated
+    (shape AND dtype) against `init_round_state`'s allocation for this
+    config, built on the meta device (it costs nothing at full width),
+    so a checkpoint from a different model or an incompatible config
+    fails loudly instead of mis-resuming.
+
+    Elastic K: when `cfg.num_clients` differs from the checkpoint's, the
+    angle rows and uplink-EF rows are truncated or padded with 0 and
+    `bcast.ver` is padded with `NEVER_PULLED`, so new clients start like
+    round-0 clients; the report buffer `buf` restores verbatim (a K
+    mismatch fails the shape check). A checkpoint of the legacy shared
+    'prev_broadcast' vector is rejected. The generator continues its
+    stream on `device`; a generator state of another device type raises
+    ValueError naming both."""
+    missing = [k for k in ("params", "angle", "prev_delta", "rng", "round")
+               if tree.get(k) is None]
+    if missing:
+        raise ValueError(
+            f"checkpoint tree lacks required RoundState fields {missing} "
+            "— was it written by fl.state_to_tree?")
+    if tree.get("prev_broadcast") is not None:
+        raise ValueError(
+            "checkpoint carries the legacy shared 'prev_broadcast' vector "
+            "— it was written by a pre-ring repo revision whose "
+            "downlink-delta state had no per-client decode bases; the "
+            "per-client BroadcastState (ring/head/ver) cannot be "
+            "reconstructed from it. Re-run the training (or restore under "
+            "the revision that wrote it)")
+    for name, flag, want in (
+            ("ef", "error_feedback", cfg.error_feedback),
+            ("dl_ef", "downlink_error_feedback", cfg.downlink_error_feedback),
+            ("bcast", "downlink_delta", cfg.downlink_delta)):
+        have = tree.get(name) is not None
+        if want and not have:
+            raise ValueError(
+                f"cfg.{flag}=True but the checkpoint has no {name!r} — it "
+                "was written under a config with the feature off; restore "
+                "with a matching config (or re-init that buffer yourself)")
+        if have and not want:
+            raise ValueError(
+                f"checkpoint carries {name!r} but cfg.{flag}=False — "
+                "dropping a live residual would silently change the run; "
+                "restore with a matching config")
+    buffered = cfg.aggregation == "buffered"
+    have_buf = tree.get("buf") is not None
+    if buffered and not have_buf:
+        raise ValueError(
+            "cfg.aggregation='buffered' but the checkpoint has no 'buf' — "
+            "it was written by a sync-aggregation run; restore with a "
+            "matching config (or re-init the report buffer yourself)")
+    if have_buf and not buffered:
+        raise ValueError(
+            "checkpoint carries 'buf' but cfg.aggregation='sync' — "
+            "dropping the in-flight reports would silently change the "
+            "run; restore with a matching config")
+
+    dev = (repro_torch.default_device() if device is None
+           else torch.device(device))
+    rng = tree["rng"]
+    if not isinstance(rng, GeneratorState):
+        raise ValueError(
+            f"checkpoint 'rng' is a {type(rng).__name__}, not a "
+            "torch.Generator state — was it written by fl.state_to_tree?")
+
+    def to(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
+
+    k = cfg.num_clients
+    angle = AngleState(
+        smoothed=_resize_rows(to(tree["angle"]["smoothed"], torch.float32),
+                              k),
+        count=_resize_rows(to(tree["angle"]["count"], torch.int32), k))
+    ef = tree.get("ef")
+    if ef is not None:
+        ef = _resize_rows(to(ef), k)
+    bcast = tree.get("bcast")
+    if bcast is not None:
+        bcast = downlink.BroadcastState(
+            ring=to(bcast["ring"], torch.float32),
+            head=to(bcast["head"], torch.float32),
+            head_ver=to(bcast["head_ver"], torch.int32),
+            ver=_resize_rows(to(bcast["ver"], torch.int32), k,
+                             fill=downlink.NEVER_PULLED))
+    buf = tree.get("buf")
+    if buf is not None:
+        # in-flight reports restore verbatim: resizing a report buffer
+        # would orphan live slot ids
+        buf = buffer_mod.ReportBuffer(
+            data=to(buf["data"], torch.float32),
+            slot=to(buf["slot"], torch.int32),
+            sizes=to(buf["sizes"], torch.float32),
+            age=to(buf["age"], torch.int32),
+            wait=to(buf["wait"], torch.int32),
+            free=to(buf["free"], torch.bool))
+    rnd = torch.as_tensor(tree["round"])
+    if rnd.shape != () or rnd.is_floating_point():
+        raise ValueError(
+            f"checkpoint leaf round has shape {tuple(rnd.shape)} dtype "
+            f"{rnd.dtype}, but the config allocates () torch.int32")
+    dl_ef = tree.get("dl_ef")
+    state = RoundState(
+        params=treemath.tree_map(to, tree["params"]), angle=angle,
+        prev_delta=treemath.tree_map(to, tree["prev_delta"]), ef=ef,
+        dl_ef=None if dl_ef is None else to(dl_ef), bcast=bcast, buf=buf,
+        rng=rng.generator(dev), round=int(rnd))
+
+    # validate against the config's own allocation: the same structure,
+    # and shape/dtype equality on every leaf
+    template = init_round_state(cfg, treemath.tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+        state.params), seed=torch.Generator())
+    got, want = _named_leaves(state), _named_leaves(template)
+    if list(got) != list(want):
+        raise ValueError(
+            "restored RoundState structure does not match "
+            f"init_round_state({cfg.num_clients} clients): got "
+            f"{sorted(set(got) - set(want))}, want "
+            f"{sorted(set(want) - set(got))}")
+    for name, leaf in got.items():
+        ref = want[name]
+        if leaf is None:
+            continue
+        if leaf.shape != ref.shape or leaf.dtype != ref.dtype:
+            raise ValueError(
+                f"checkpoint leaf {name} has shape {tuple(leaf.shape)} "
+                f"dtype {leaf.dtype}, but the config allocates "
+                f"{tuple(ref.shape)} {ref.dtype} — wrong model or "
+                "incompatible config")
+    return state
+
+
 def local_update(loss_fn: Callable, params: Tree, batches: Tree, lr,
                  prox_mu: float = 0.0):
     """tau steps of SGD on one client; batches' leaves are (tau, B, ...).
@@ -353,8 +533,10 @@ def _scatter_angles(state: AngleState, sel_idx: torch.Tensor,
                     theta: torch.Tensor) -> AngleState:
     n = state.smoothed.shape[0]
     sel = sel_idx.to(torch.int64)
-    mask = torch.zeros(n, dtype=torch.bool, device=theta.device)
-    mask[sel] = True
+    # index_fill, not `mask[sel] = True`: on CUDA that assignment copies
+    # the Python scalar from the host and waits for the device
+    mask = torch.zeros(n, dtype=torch.bool,
+                       device=theta.device).index_fill(0, sel, True)
     theta_full = torch.zeros(n, dtype=torch.float32, device=theta.device)
     theta_full[sel] = theta
     return weighting.update_smoothed_angle(state, theta_full, mask)
@@ -369,8 +551,8 @@ def _scatter_angles_masked(state: AngleState, sel_idx: torch.Tensor,
     `_scatter_angles`."""
     n = state.smoothed.shape[0]
     idx = torch.where(valid, sel_idx.to(torch.int64), n)
-    mask = torch.zeros(n + 1, dtype=torch.bool, device=theta.device)
-    mask[idx] = True
+    mask = torch.zeros(n + 1, dtype=torch.bool,
+                       device=theta.device).index_fill(0, idx, True)
     theta_full = torch.zeros(n + 1, dtype=torch.float32, device=theta.device)
     theta_full[idx] = theta
     return weighting.update_smoothed_angle(state, theta_full[:n], mask[:n])
@@ -478,10 +660,82 @@ def _metrics(losses, theta, theta_sm, w, div, lr, dev) -> dict:
     return {
         "loss": torch.mean(losses), "theta": theta,
         "theta_smoothed": theta_sm, "weights": w, "divergence": div,
-        "lr": torch.tensor(lr, dtype=torch.float32, device=dev),
+        "lr": torch.full((), lr, dtype=torch.float32, device=dev),
         "cos": cos,
         "expected_contribution": weighting.expected_contribution(w, cos),
     }
+
+
+def _weight_entropy(w: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy of the (re-normalized) aggregation weights: ln K
+    under FedAvg with equal sizes, falling toward 0 as the Gompertz
+    softmax concentrates on few nodes. Zero-sum rows (buffered non-flush
+    ticks) report 0."""
+    tot = torch.sum(w)
+    p = w / torch.clamp(tot, min=1e-12)
+    plogp = p * torch.log(torch.clamp(p, min=1e-38))
+    h = -torch.sum(torch.where(p > 0, plogp, 0.0))
+    return torch.where(tot > 0, h, 0.0)
+
+
+def _telemetry_metrics(fl: FLConfig, params: Tree, node_ids: torch.Tensor,
+                       w: torch.Tensor,
+                       occupied: Optional[torch.Tensor] = None,
+                       down_split=None) -> dict:
+    """The `FLConfig(telemetry="node")` metrics, one helper for every
+    round kind so the tel/* keys cannot fork: `node_ids` attributes
+    this round's theta/weights rows to population slots (sel_idx for a
+    sync round, the report buffer's slot column for a buffered tick);
+    `occupied` masks the rows that hold a live report (None = all). The
+    wire bytes are the config's `transport.round_bytes`, except under
+    downlink_delta, where the round passes `down_split` = (delta bytes,
+    full bytes) of this round's actual pulls: they replace
+    tel/bytes_down and ride as tel/bytes_down_delta / _full. Every value
+    is made on the device, without a host sync."""
+    dev = w.device
+    rb = transport.round_bytes(fl.clients_per_round, param_count(params),
+                               fl.transport, fl.downlink,
+                               group_size=fl.group_size)
+    ids = node_ids.to(torch.int64)
+    if occupied is not None:
+        ids = torch.where(occupied, ids, fl.num_clients)
+    # a spare last slot takes the unoccupied rows and is cut off
+    cohort = torch.zeros(fl.num_clients + 1, dtype=torch.bool, device=dev)
+    cohort = cohort.index_fill(0, ids, True)[:fl.num_clients]
+    out = {
+        "tel/nodes": node_ids.to(torch.int32),
+        "tel/cohort": cohort,
+        "tel/weight_entropy": _weight_entropy(w),
+        "tel/bytes_up": torch.full((), rb["up"], dtype=torch.float32,
+                                   device=dev),
+        "tel/bytes_down": torch.full((), rb["down"], dtype=torch.float32,
+                                     device=dev),
+    }
+    if down_split is not None:
+        down_delta, down_full = down_split
+        out["tel/bytes_down"] = down_delta + down_full
+        out["tel/bytes_down_delta"] = down_delta
+        out["tel/bytes_down_full"] = down_full
+    return out
+
+
+def _down_byte_split(fl: FLConfig, n: int, ver_rows: torch.Tensor,
+                     v: torch.Tensor, pulled: Optional[torch.Tensor] = None):
+    """The actual downlink bytes of the clients pulling broadcast version
+    `v` from last-pulled versions `ver_rows`: a delta-served client pays
+    one payload per version it is behind, a resync client one full-model
+    payload, each priced at `wire_bytes(1, n, downlink)`. `pulled` masks
+    the rows that pulled this round (buffered admission; None = all).
+    Returns (delta_bytes, full_bytes) as f32 device scalars."""
+    unit = transport.wire_bytes(1, n, fl.downlink)
+    resync = downlink.resync_mask(ver_rows, v, fl.downlink_ring)
+    payloads_d = torch.where(resync, 0, v - ver_rows)
+    payloads_f = resync.to(torch.int32)
+    if pulled is not None:
+        payloads_d = torch.where(pulled, payloads_d, 0)
+        payloads_f = torch.where(pulled, payloads_f, 0)
+    return (torch.sum(payloads_d).to(torch.float32) * unit,
+            torch.sum(payloads_f).to(torch.float32) * unit)
 
 
 def make_round_fn(loss_fn: Callable, fl: FLConfig,
@@ -539,11 +793,15 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         # the aggregate lands on the uncompressed master copy ----
         params_srv = state.params
         params, new_dl, new_bcast = _broadcast(fl, state)
+        down_split = None
         if fl.downlink_delta:
             # every selected client pulls version v
-            v = new_bcast.head_ver.expand(sel.shape[0])
-            new_bcast = new_bcast._replace(
-                ver=new_bcast.ver.index_copy(0, sel, v))
+            v = new_bcast.head_ver
+            if fl.telemetry:
+                down_split = _down_byte_split(fl, param_count(params),
+                                              state.bcast.ver[sel], v)
+            new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
+                0, sel, v.expand(sel.shape[0])))
         deltas, losses = clients(params, batches, lr)
         psi_avg = weighting.fedavg_weights(data_sizes)
         new_ef = state.ef
@@ -600,6 +858,9 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
             torch.clamp(sqs - 2 * dots + sqg, min=0.0))) / lr
         metrics = _metrics(losses, theta, theta_sm, w, div, lr,
                            data_sizes.device)
+        if fl.telemetry:
+            metrics.update(_telemetry_metrics(fl, params, sel_idx, w,
+                                              down_split=down_split))
         return state._replace(params=new_params, angle=new_angle,
                               prev_delta=g_avg, ef=new_ef, dl_ef=new_dl,
                               bcast=new_bcast,
@@ -664,8 +925,14 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
 
         busy = buffer_mod.population_busy(state.buf, fl.num_clients)
         admit = state.buf.free & ~busy[sel] & ~drop
+        down_split = None
         if fl.downlink_delta:
             ver_sel = new_bcast.ver[sel]
+            if fl.telemetry:
+                # only the admitted candidates pulled, and pay bytes
+                down_split = _down_byte_split(
+                    fl, param_count(params), ver_sel, new_bcast.head_ver,
+                    pulled=admit)
             new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
                 0, sel, torch.where(admit, new_bcast.head_ver, ver_sel)))
 
@@ -752,6 +1019,16 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
             "staleness": torch.sum(torch.where(landed, buf.age, 0)
                                    .to(torch.float32)) / nl_f,
         })
+        if fl.telemetry:
+            # attribution follows the buffer's rows (theta and weights
+            # are computed over them), not this tick's candidates
+            metrics.update(_telemetry_metrics(fl, params, buf.slot, w,
+                                              occupied=~buf.free,
+                                              down_split=down_split))
+            metrics["tel/ages"] = buf.age
+            metrics["tel/landed"] = landed
+            metrics["tel/occupancy"] = torch.sum(~buf.free,
+                                                 dtype=torch.int32)
         return state._replace(
             params=new_params, angle=new_angle, prev_delta=new_prev,
             ef=new_ef, dl_ef=new_dl, bcast=new_bcast, buf=final_buf,
@@ -840,6 +1117,8 @@ def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
         metrics = _metrics(losses if losses is not None
                            else torch.stack(pass2), theta, theta_sm, w, div,
                            lr, sizes.device)
+        if fl.telemetry:
+            metrics.update(_telemetry_metrics(fl, params, sel_idx, w))
         # prev_delta is pass 2's FedAvg-weighted sum, as in the reference
         return state._replace(params=new_params, angle=new_angle,
                               prev_delta=g_acc,

@@ -19,18 +19,25 @@ PKG = os.path.join(ROOT, "src", "repro_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 AB = os.path.join(ROOT, "chip_ab.py")
 
-MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.fl",
-           "repro_torch.core.driver", "repro_torch.core.server",
-           "repro_torch.core.treemath", "repro_torch.core.weighting",
-           "repro_torch.kernels.weighted_agg",
-           "repro_torch.kernels.round_stats", "repro_torch.models.small",
-           "repro_torch.data.synthetic", "repro_torch.transport",
-           "repro_torch.transport.quantize",
-           "repro_torch.kernels.flash_attn", "repro_torch.kernels.grad_dot",
-           "repro_torch.kernels.ops", "repro_torch.models.config",
-           "repro_torch.models.layers", "repro_torch.models.attention",
-           "repro_torch.models.transformer", "repro_torch.configs.registry",
-           "repro_torch.launch.serve"]
+
+
+def _modules():
+    """Every module of the port, found by walking its source tree, so a
+    new module is checked without editing a list."""
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        rel = os.path.relpath(dirpath, os.path.join(ROOT, "src"))
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            parts = rel.split(os.sep)
+            if f != "__init__.py":
+                parts.append(f[:-3])
+            mods.append(".".join(parts))
+    return sorted(mods)
+
+
+MODULES = _modules()
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
@@ -44,6 +51,15 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield SMOKE
     yield AB
+
+
+def test_module_walk_finds_every_module():
+    for mod in ("repro_torch", "repro_torch.core.buffer",
+                "repro_torch.transport.downlink",
+                "repro_torch.checkpoint.io", "repro_torch.telemetry.sinks",
+                "repro_torch.launch.serve"):
+        assert mod in MODULES, mod
+    assert len(MODULES) >= 45
 
 
 def test_import_leaves_jax_and_repro_out():

@@ -425,7 +425,7 @@ def test_error_feedback_needs_the_residual():
 
 @pytest.mark.parametrize("change", [
     dict(transport="bf16", error_feedback=True, engine="flat_sharded"),
-    dict(transport="int4", telemetry="node"),
+    dict(transport="int4", engine="flat_sharded", telemetry="node"),
 ])
 def test_what_is_not_ported_still_raises(change):
     cfg = tfl.FLConfig(num_clients=4, clients_per_round=4, local_steps=1,

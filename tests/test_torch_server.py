@@ -7,10 +7,12 @@
   generator streams are not JAX's, so the golden counts themselves are
   not expected.
 * Device policy: `device=None` means CUDA and raises without a GPU.
-* Configs outside the slice raise NotImplementedError.
+* Configs outside the slice (the client-sharded engine) raise
+  NotImplementedError.
 * The client batching (torch.func.vmap over grad) against a per-client
   loop, and the epoch batcher's stream property.
 """
+import dataclasses
 import json
 import os
 
@@ -73,7 +75,7 @@ def test_default_device_is_cuda_or_raises(monkeypatch, golden_task):
 @pytest.mark.parametrize("change", [
     dict(engine="flat_sharded"),
     dict(transport="bf16", error_feedback=True, engine="flat_sharded"),
-    dict(telemetry="node"),
+    dict(engine="flat_sharded", telemetry="node"),
 ])
 def test_configs_outside_the_slice_raise(change):
     cfg = fl.FLConfig(num_clients=4, clients_per_round=4, local_steps=1,
@@ -97,14 +99,20 @@ def test_validate_keeps_the_reference_checks():
 
 
 def test_server_rejects_what_is_not_ported(golden_task):
+    """Since the run surface is ported, the server refuses only the
+    client-sharded engine (item 13) and, as the reference, an unknown
+    run mode."""
     _, nodes, test = golden_task
     cfg = fl.FLConfig(num_clients=10, clients_per_round=10, local_steps=12)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        repro_torch.FedServer(
+            "mlr", dataclasses.replace(cfg, engine="flat_sharded"), nodes,
+            test, batch_size=50, device="cpu")
     server = repro_torch.FedServer("mlr", cfg, nodes, test, batch_size=50,
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        server.run(1, mode="scanned")
-    with pytest.raises(NotImplementedError):
-        server.run(1, ckpt_dir="ckpt")
+    with pytest.raises(ValueError, match="unknown mode"):
+        server.run(1, mode="pipelined")
+    assert server.round == 0
 
 
 def test_step_eval_cadence_and_reset(golden_task):
