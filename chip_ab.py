@@ -13,10 +13,10 @@ an earlier commit's, unpacked with `git archive`; each DIR given is timed
 against the repository's sources in turn. Every kernel variant of
 the round (chip_smoke.py's timing rows, at the main path's shape) whose
 source DIR holds is timed in both builds, and so are the int4 wire kernels
-at group size 8, batched_dot and grad_dot_stats at the CNN's shape (the
-latter also with both inputs 8 bytes past a 16-byte boundary), and
-flash attention at gemma-2b's prefill shape (chip_smoke.FLASH_MAIN), in
-bf16 and in f32 (two kernels of one source). The two builds take turns:
+at group size 8, round_stats at (1, N), batched_dot and grad_dot_stats at
+the CNN's shape (the latter also with both inputs 8 bytes past a 16-byte
+boundary), and flash attention at gemma-2b's prefill shape
+(chip_smoke.FLASH_MAIN), in bf16 and in f32 (two kernels of one source). The two builds take turns:
 repo, DIR, DIR, repo, R times over, each turn the median of
 chip_smoke.REPS launches on a cold L2 (chip_smoke.time_us). It prints one
 JSON line per variant with every turn's time and the two medians (for
@@ -31,7 +31,8 @@ skipped.
 whole repository (an earlier commit's, unpacked with `git archive`). Each
 turn is a process that builds that tree's kernels and runs its own
 chip_smoke.py kernels phase (checks and timings) for the round's kernels,
-batched_dot and grad_dot_stats, in the order DIR, repo,
+round_stats at sequential mode's (1, N), batched_dot and grad_dot_stats,
+in the order DIR, repo,
 repo, DIR, DIR, repo, ... for 2R turns (R each); it prints one JSON line
 per timed variant with every turn's µs and the two medians, then the
 card's name and power limit.
@@ -55,7 +56,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 def build_alt(alt: Path, names, build_dir: Path) -> dict:
     """nvcc each named source of `alt` (one process each, all at once)
-    with the port's flags; returns {name: ctypes.CDLL}."""
+    with the port's flags; returns {name: ctypes.CDLL} and prints ptxas's
+    register and spill lines of each build."""
     from repro_torch.kernels import _build
 
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -75,6 +77,9 @@ def build_alt(alt: Path, names, build_dir: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {alt / name}.cu:\n{log}")
+        print(json.dumps({"alt": str(alt), "source": f"{name}.cu", "ptxas": [
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]}), flush=True)
         libs[name] = ctypes.CDLL(str(out))
     return libs
 
@@ -91,6 +96,7 @@ from repro_torch.kernels import weighted_agg as wa
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build(cs.SOURCES)
 cs.phase_kernels(wa, rs, tq, torch.device("cuda", 0))
+cs.phase_k1_stats(rs, torch.device("cuda", 0))
 cs.phase_ops_kernels(wa, gd, torch.device("cuda", 0))
 """
 
@@ -179,6 +185,9 @@ def main() -> int:
     rows[f"round_stats_q4_gs{gs}"] = dict(
         source="round_stats_q", kernel=lambda: rs.round_stats_q4(
             q4.values, q4.scales, g, group_size=gs))
+    x1 = x[:1].clone()  # sequential mode's shape, (1, N)
+    rows["round_stats_k1"] = dict(source="round_stats", shape=[1, n],
+                                  kernel=lambda: rs.round_stats(x1, g))
     rows["batched_dot"] = dict(source="batched_dot",
                                kernel=lambda: wa.batched_dot(x, g))
     rows["grad_dot_stats"] = dict(source="grad_dot", shape=[cs.MAIN_N],

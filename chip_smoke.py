@@ -123,33 +123,37 @@ WIDE_K = 128  # a second timing of each kernel, at 12.8x the main K
 REPS = 50
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: the host's head start
 HEAD_START = 8  # throwaway sleep kernels that begin a counted trace
+TAIL_END = 8  # and that end it
+SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's device kernel
 WIRES = ("f32", "bf16", "int8", "int4")
 SOURCES = ("weighted_agg", "round_stats", "weighted_agg_q", "round_stats_q",
            "flash_attn", "batched_dot", "grad_dot")
 # device kernels of the ported sources, by name, for the profile
 WIRE_AGG_KERNELS = ("agg_q8_kernel", "agg_q4_kernel")
 WIRE_STATS_KERNEL = "stats_q_kernel"
+F32_STATS_KERNEL = "stats_f32_kernel"  # round_stats on f32 x
 BF16_STATS_KERNEL = "stats_bf16_kernel"  # round_stats on bf16 x
 SUM_KERNEL = "stats_sum_kernel"  # the statistics' dependent second launch
 GDOT_KERNEL = "gdot_kernel"  # grad_dot_stats
-PORTED = ("agg_kernel", *WIRE_AGG_KERNELS, "stats_stage", WIRE_STATS_KERNEL,
-          BF16_STATS_KERNEL, SUM_KERNEL, "flash_tf32_kernel",
-          "flash_mma_kernel", "bdot_stage", GDOT_KERNEL)
-# device kernels of one call of each wire wrapper (the bf16 wire's
-# round_stats included): the aggregations fold w into the scales in their
-# kernel; the statistics write block partials, then sum them in a second
-# (programmatic dependent) launch
+PORTED = ("agg_kernel", *WIRE_AGG_KERNELS, F32_STATS_KERNEL,
+          WIRE_STATS_KERNEL, BF16_STATS_KERNEL, SUM_KERNEL,
+          "flash_tf32_kernel", "flash_mma_kernel", "bdot_stage", GDOT_KERNEL)
+# device kernels of one call of each wire wrapper (round_stats on the f32
+# and bf16 wires included): the aggregations fold w into the scales in
+# their kernel; the statistics write block partials, then sum them in a
+# second (programmatic dependent) launch
 WIRE_CALL_KERNELS = {"agg_q8_kernel": 1, "agg_q4_kernel": 1,
-                     WIRE_STATS_KERNEL: 2, BF16_STATS_KERNEL: 1,
-                     SUM_KERNEL: 3}
+                     WIRE_STATS_KERNEL: 2, F32_STATS_KERNEL: 1,
+                     BF16_STATS_KERNEL: 1, SUM_KERNEL: 4}
 # kernel instances whose SASS must hold 16-byte loads (LDG.E.128), by
 # source: agg_q8_kernel and agg_q4_kernel<WIDE> (3); stats_q_kernel<INT4,
 # WIDE, MASKED> for int8 and both int4 paths, masked and not (6);
-# stats_bf16_kernel<MASKED> (2); gdot_kernel<T, SA, SB> for f32 and bf16,
-# each input aligned or not (8). The wire kernels must hold no I2F.
+# stats_f32_kernel<MASKED> and stats_bf16_kernel<MASKED> (4);
+# gdot_kernel<T, SA, SB> for f32 and bf16, each input aligned or not (8).
+# The wire kernels must hold no I2F.
 SASS_INSTANCES = {"weighted_agg_q": (WIRE_AGG_KERNELS, 3),
                   "round_stats_q": ((WIRE_STATS_KERNEL,), 6),
-                  "round_stats": ((BF16_STATS_KERNEL,), 2),
+                  "round_stats": ((F32_STATS_KERNEL, BF16_STATS_KERNEL), 4),
                   "grad_dot": ((GDOT_KERNEL,), 8)}
 NO_I2F = ("weighted_agg_q", "round_stats_q")
 GDOT_SPAN = 2048  # grad_dot.cu's kSpan: elements a block
@@ -318,13 +322,12 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
     for k, n in shapes:
         x, g, w, mask = inputs(k, n)
         errs = {}
-        # the f32 kernels on f32 and on bf16 input (the bf16 wire); bf16
-        # x also with its storage 4, 8 and 12 bytes past a 16-byte
-        # boundary, and a second call of its statistics giving the same
-        # bits
+        # the f32 kernels on f32 and on bf16 input (the bf16 wire); the
+        # statistics also with x's storage 4, 8 and 12 bytes past a
+        # 16-byte boundary, and a second call giving the same bits
         xb = x.to(torch.bfloat16)
-        for tag, xins in (("", [x]), ("_bf16", [xb] + [
-                shifted(xb, off) for off in (4, 8, 12)])):
+        for tag, xt in (("", x), ("_bf16", xb)):
+            xins = [xt] + [shifted(xt, off) for off in (4, 8, 12)]
             xin, xf = xins[0], xins[0].float()
             errs["weighted_agg" + tag] = agg_err(
                 wa.weighted_agg(w, xin, out_dtype=torch.float32),
@@ -336,9 +339,9 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
                     sa, nm = stats_err(got, rs.round_stats_plain(xi, g, m),
                                        xf, g, m)
                     s_abs, ns = max(s_abs, sa), max(ns, nm)
-                    if tag and not all(torch.equal(a, b) for a, b in zip(
+                    if not all(torch.equal(a, b) for a, b in zip(
                             got, rs.round_stats(xi, g, m))):
-                        raise AssertionError("round_stats_bf16: a second "
+                        raise AssertionError(f"round_stats{tag}: a second "
                                              "launch gave other bits")
             errs["round_stats" + tag] = (s_abs, ns)
             del xins
@@ -404,14 +407,13 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
     # one call of each wire wrapper: exactly the device kernels of
     # WIRE_CALL_KERNELS, and no PyTorch op beside them
     wire = ("weighted_agg_q", "weighted_agg_q4", "round_stats_q",
-            "round_stats_q4", "round_stats_bf16")
-    prof = profile_whole(lambda: [rows[name]["kernel"]() for name in wire])
-    ran = [(t["kernel"], t["calls"]) for t in prof["top"]]
+            "round_stats_q4", "round_stats", "round_stats_bf16")
+    ran = device_kernels(lambda: [rows[name]["kernel"]() for name in wire])
     calls = {key: sum(c for k, c in ran if key in k)
              for key in WIRE_CALL_KERNELS}
     emit({"phase": "kernels", "device_kernels_of_one_call_each": {
         "wrappers": wire, "kernels": ran}})
-    if calls != WIRE_CALL_KERNELS or prof["device_events_distinct"] != sum(
+    if calls != WIRE_CALL_KERNELS or sum(c for _, c in ran) != sum(
             WIRE_CALL_KERNELS.values()):
         raise AssertionError(f"one call each of {wire} ran {ran}, want "
                              f"{WIRE_CALL_KERNELS}")
@@ -1495,7 +1497,7 @@ def phase_telemetry(wa, rs, tq, dev, nodes, test) -> dict:
             batch_size=50, device=dev)
         s.step(eval_every=0)
         kern[tel] = dict(device_kernels(lambda: s.step(eval_every=0),
-                                        top=400))
+                                        whole=False))
     extra = {k: c - kern[None].get(k, 0) for k, c in kern["node"].items()
              if c != kern[None].get(k, 0)}
     out["round_kernels"] = {
@@ -1542,17 +1544,23 @@ def phase_telemetry(wa, rs, tq, dev, nodes, test) -> dict:
 
 def phase_k1_stats(rs, dev) -> dict:
     """round_stats (f32) at (1, N), the shape sequential mode gives it
-    (one client's row against g): checked against its plain version and
-    timed, with its bound."""
+    (one client's row against g): checked against its plain version, with
+    the row also 4, 8 and 12 bytes past a 16-byte boundary and a second
+    call giving the same bits, and timed, with its bound."""
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(1, MAIN_N, device=dev, generator=gen)
     g = torch.randn(MAIN_N, device=dev, generator=gen)
     abs_err, norm_err = 0.0, 0.0
     for m in (None, (torch.rand(MAIN_N, device=dev, generator=gen)
                      > 0.25).float()):
-        a, e = stats_err(rs.round_stats(x, g, m),
-                         rs.round_stats_plain(x, g, m), x, g, m)
-        abs_err, norm_err = max(abs_err, a), max(norm_err, e)
+        for xi in [x] + [shifted(x, off) for off in (4, 8, 12)]:
+            got = rs.round_stats(xi, g, m)
+            a, e = stats_err(got, rs.round_stats_plain(xi, g, m), x, g, m)
+            abs_err, norm_err = max(abs_err, a), max(norm_err, e)
+            if not all(torch.equal(u, v) for u, v in zip(
+                    got, rs.round_stats(xi, g, m))):
+                raise AssertionError("round_stats at K = 1: a second "
+                                     "launch gave other bits")
     if not norm_err <= TOL:
         raise AssertionError(f"round_stats at K = 1 disagrees with its plain "
                              f"version: {norm_err}")
@@ -1603,28 +1611,63 @@ def profile_round(server) -> dict:
     return profile_device(lambda: server.step(eval_every=0))
 
 
-def device_kernels(fn, top: int = 50) -> list:
-    """[(kernel name, calls)] of one call of `fn`, from the fullest of a
-    few traces (`profile_whole`). Each trace begins with HEAD_START short
-    sleep kernels of its own, left out of the list: a trace on the H100
-    now and then loses its first device event, and in a process that has
-    launched many kernels it loses its first three, every time."""
-    def run():
-        for _ in range(HEAD_START):
-            torch.cuda._sleep(1000)
-        fn()
+def device_kernels(fn, whole: bool = True, tries: int = 6) -> list:
+    """[(kernel name, calls)] of one call of `fn`, which launches no sleep
+    kernel of its own. Each trace wraps the call in short sleep kernels,
+    `head` before it and TAIL_END after it, left out of the list. A trace
+    on the H100 loses device events at its ends and never gains one: now
+    and then its first, in a process that has launched many kernels its
+    first three every time, in one run its first eleven in three traces
+    running, and once its last six. So a trace whose first and last
+    device events are sleep kernels holds every kernel of the call. Up to
+    `tries` traces are taken, the head doubled after each that lost it,
+    until one is whole; if none is, this raises, or with `whole` False
+    (a report, not a check) gives the trace with the most events."""
+    from collections import Counter
 
-    return [(t["kernel"], t["calls"])
-            for t in profile_whole(run, top=top)["top"]
-            if "spin_kernel" not in t["kernel"]]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    head, lost, fullest = HEAD_START, [], []
+    for _ in range(tries):
+        torch.cuda.synchronize()  # no earlier work in the trace
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(head):
+                torch.cuda._sleep(1000)
+            fn()
+            for _ in range(TAIL_END):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [name for _, _, name in sorted(
+            {(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)})]
+        kernels = Counter(n for n in names if SPIN_KERNEL not in n)
+        first = bool(names) and SPIN_KERNEL in names[0]
+        last = bool(names) and SPIN_KERNEL in names[-1]
+        if first and last:
+            return kernels.most_common()
+        lost.append({"head": head, "events": len(names),
+                     "first_kept": first, "last_kept": last})
+        if sum(kernels.values()) > sum(c for _, c in fullest):
+            fullest = kernels.most_common()
+        if not first:
+            head *= 2
+    emit({"phase": "trace", "lost_an_end": lost})
+    if whole:
+        raise AssertionError(f"{tries} traces of one call each lost an end: "
+                             f"{lost}")
+    return fullest
 
 
 def profile_whole(fn, traces: int = 3, top: int = 12) -> dict:
     """`profile_device` of a call without side effects, `traces` times,
-    keeping the trace with the most device events. A trace on the H100
-    now and then loses device events, the first kernel or all of them,
-    and never gains one: a check that counts kernels reads the fullest
-    of a few traces, which is whole unless every one of them lost."""
+    keeping the trace with the most device events: where the time goes
+    and which kernels ran, for a check that needs no whole count. A
+    trace on the H100 now and then loses device events at its ends and
+    never gains one; a check that counts kernels uses `device_kernels`,
+    which knows when a trace is whole."""
     return max((profile_device(fn, top) for _ in range(traces)),
                key=lambda p: p["device_events_distinct"])
 
@@ -2068,19 +2111,20 @@ def kernel_registers(source: str, logs: dict) -> dict:
     return regs
 
 
-def bf16_stats_wave(rs, sass: dict) -> dict:
-    """Whether the unmasked bf16 statistics kernel's grid at the main
-    shape fits one wave: the blocks of 64 threads an SM holds at its
-    registers (allocated 256 a warp), against the grid's blocks."""
+def stats_wave(rs, sass: dict, kernel: str, dtype: torch.dtype) -> dict:
+    """Whether the unmasked statistics kernel `kernel`'s grid (x of
+    `dtype`) at the main shape fits one wave: the blocks of 64 threads an
+    SM holds at its registers (allocated 256 a warp), against the grid's
+    blocks."""
     regs = [c["registers"] for fn, c in sass.items()
-            if BF16_STATS_KERNEL in fn and "ILb0" in fn]
+            if kernel in fn and "ILb0" in fn]
     if len(regs) != 1 or regs[0] is None:
-        raise AssertionError(f"no registers of the unmasked "
-                             f"{BF16_STATS_KERNEL}: {sass}")
+        raise AssertionError(f"no registers of the unmasked {kernel}: "
+                             f"{sass}")
     per_warp = -(-regs[0] * 32 // 256) * 256
     per_sm = min(32, 65536 // (2 * per_warp))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = rs.bf16_stats_blocks(MAIN_K, MAIN_N)
+    blocks = rs.stats_blocks(MAIN_K, MAIN_N, dtype)
     return {"registers": regs[0], "blocks_per_sm": per_sm, "sms": sms,
             "blocks": blocks, "one_wave": per_sm * sms >= blocks}
 
@@ -2358,8 +2402,8 @@ def main() -> int:
         _build.library_path("flash_attn"), fa.KERNELS[dt],
         ("HMMA", "HGMMA")).items()}
         for dt in (torch.bfloat16, torch.float32)}
-    # the wire kernels, the bf16 statistics and grad_dot: 16-byte loads
-    # (and in the wire kernels no integer-to-float conversion)
+    # the wire kernels, the f32 / bf16 statistics and grad_dot: 16-byte
+    # loads (and in the wire kernels no integer-to-float conversion)
     wire_sass = {}
     for source, (kernels, _) in SASS_INSTANCES.items():
         regs = kernel_registers(source, logs)
@@ -2368,13 +2412,17 @@ def main() -> int:
             for fn, c in sass_counts(_build.library_path(source), kernel,
                                      ("I2F", "LDG.E.128")).items():
                 wire_sass[source][fn] = {"registers": regs.get(fn), **c}
-    # the bf16 statistics' grid at the main shape: one wave, unmasked
-    wave = bf16_stats_wave(rs, wire_sass["round_stats"])
+    # the statistics' grids at the main shape, unmasked: bf16's must be
+    # one wave; f32's, twice the blocks, cannot be at two rows in flight
+    # a lane (round_stats.cu) and is printed
+    waves = {k: stats_wave(rs, wire_sass["round_stats"], k, dt)
+             for k, dt in ((F32_STATS_KERNEL, torch.float32),
+                           (BF16_STATS_KERNEL, torch.bfloat16))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas,
           "flash_sass_mma_count": {fa.KERNELS[dt]: c
                                    for dt, c in mma.items()},
-          "wire_sass": wire_sass, "bf16_stats_wave": wave})
+          "wire_sass": wire_sass, "stats_waves": waves})
     for dt, counts in mma.items():
         if len(counts) != len(fa.HEAD_DIMS) or not all(counts.values()):
             raise AssertionError(f"{fa.KERNELS[dt]}: want HMMA or HGMMA in "
@@ -2388,9 +2436,9 @@ def main() -> int:
             raise AssertionError(f"{source}: want {want} kernel instances "
                                  f"with 16-byte loads in their SASS (and "
                                  f"no I2F in {NO_I2F}): {counts}")
-    if not wave["one_wave"]:
+    if not waves[BF16_STATS_KERNEL]["one_wave"]:
         raise AssertionError(f"the bf16 statistics' main grid needs more "
-                             f"than one wave: {wave}")
+                             f"than one wave: {waves}")
 
     table = phase_kernels(wa, rs, tq, dev)
     k1_row = phase_k1_stats(rs, dev)

@@ -151,7 +151,7 @@ def make_eval_fn(apply_fn: Callable, test_x, test_y, device: torch.device,
 def make_step_fn(loss_fn: Callable, fl: fl_mod.FLConfig, data: ClientData,
                  *, eval_fn: Optional[Callable] = None,
                  angle_pred: Optional[Callable] = None,
-                 arrival_fn: Optional[Callable] = None) -> Callable:
+                 mesh=None, arrival_fn: Optional[Callable] = None) -> Callable:
     """One federated round on the device.
 
     step(state, eval_every) -> (state, metrics): select this round's
@@ -163,9 +163,10 @@ def make_step_fn(loss_fn: Callable, fl: fl_mod.FLConfig, data: ClientData,
     With `fl.aggregation == "buffered"` a step is one server tick: under
     partial participation the cohort avoids busy clients
     (`select_clients_avoiding` over `state.buf`), and `arrival_fn` goes
-    to the round (`core.server.fixed_arrival_schedule`)."""
+    to the round (`core.server.fixed_arrival_schedule`). `mesh` must be
+    None, as in `fl.make_round_fn`."""
     round_fn = fl_mod.make_round_fn(loss_fn, fl, angle_pred=angle_pred,
-                                    arrival_fn=arrival_fn)
+                                    mesh=mesh, arrival_fn=arrival_fn)
     avoid = (fl.aggregation == "buffered"
              and fl.clients_per_round < fl.num_clients)
 

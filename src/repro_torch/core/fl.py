@@ -6,7 +6,7 @@ The counterpart of `repro/core/fl.py` (without its flat_sharded engine).
 
     round_fn(state, batches, sel_idx, data_sizes) -> (state, metrics)
 
-with the reference's signature, state contract and metrics keys. The
+with the reference's parameters, state contract and metrics keys. The
 parallel round (mode="parallel", aggregation="sync"):
 
 * the downlink: with `downlink` "bf16" or "int8" the params are raveled
@@ -479,11 +479,14 @@ def state_from_tree(cfg: FLConfig, tree: dict, device=None) -> RoundState:
 
 
 def local_update(loss_fn: Callable, params: Tree, batches: Tree, lr,
-                 prox_mu: float = 0.0):
+                 prox_mu: float = 0.0,
+                 grad_constraint: Optional[Callable] = None):
     """tau steps of SGD on one client; batches' leaves are (tau, B, ...).
 
     prox_mu > 0 adds FedProx's proximal term mu/2 ||w - w(t-1)||^2
-    against the round's starting params. Returns (delta, mean_loss)."""
+    against the round's starting params. `grad_constraint`, when given,
+    maps each step's gradient tree before the step (the reference uses it
+    to re-shard gradients). Returns (delta, mean_loss)."""
     if prox_mu > 0.0:
         base = loss_fn
 
@@ -496,6 +499,8 @@ def local_update(loss_fn: Callable, params: Tree, batches: Tree, lr,
     p, losses = params, []
     for t in range(tau):
         g, loss = grad_fn(p, treemath.tree_map(lambda a: a[t], batches))
+        if grad_constraint is not None:
+            g = grad_constraint(g)
         p = treemath.tree_axpy(-lr, g, p)
         losses.append(loss)
     return treemath.tree_sub(p, params), torch.mean(torch.stack(losses))
@@ -739,49 +744,72 @@ def _down_byte_split(fl: FLConfig, n: int, ver_rows: torch.Tensor,
 
 
 def make_round_fn(loss_fn: Callable, fl: FLConfig,
+                  delta_constraint: Optional[Callable] = None,
                   angle_pred: Optional[Callable] = None,
-                  arrival_fn: Optional[Callable] = None) -> Callable:
+                  grad_constraint: Optional[Callable] = None,
+                  mesh=None, arrival_fn: Optional[Callable] = None) -> Callable:
     """Build the round: round_fn(state, batches, sel_idx, data_sizes) ->
-    (state, metrics), with the reference's signature, state contract and
-    metrics keys.
+    (state, metrics), with the reference's parameters (by name and
+    position), state contract and metrics keys.
 
     batches' leaves are (K, tau, B, ...), sel_idx (K,) integer population
-    slots, data_sizes (K,) f32, all on the state's device. When
-    `angle_pred` is None, `fl.angle_filter` picks the built-in predicate
-    ("dense_only" -> `moe_dense_only_pred`). `fl.mode` picks the parallel
-    round (engine "flat" or "tree") or the sequential one;
-    `fl.aggregation="buffered"` makes each call one buffered-async server
-    tick, whose arrivals `arrival_fn(tick) -> (delay (K,), drop (K,))`
+    slots, data_sizes (K,) f32, all on the state's device.
+    `delta_constraint` maps the stacked deltas right after the clients'
+    local updates (parallel and buffered rounds), `grad_constraint` each
+    local step's gradients (every mode), as in the reference, which uses
+    both for sharding constraints. `mesh` must be None: the port has no
+    mesh engine yet (ROADMAP Queue 1 item 13). When `angle_pred` is None,
+    `fl.angle_filter` picks the built-in predicate ("dense_only" ->
+    `moe_dense_only_pred`). `fl.mode` picks the parallel round (engine
+    "flat" or "tree") or the sequential one; `fl.aggregation="buffered"`
+    makes each call one buffered-async server tick, whose arrivals
+    `arrival_fn(tick) -> (delay (K,), drop (K,))`
     (`core.server.fixed_arrival_schedule`) overrides; the sync round
     ignores it. The round returns new tensors for every field it changes:
     the input state is left as it was.
     """
     fl.validate()
     check_in_slice(fl)
+    if mesh is not None:
+        raise NotImplementedError(
+            "the torch port takes no mesh= yet (ROADMAP Queue 1 item 13); "
+            "pass mesh=None")
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
     if fl.mode == "sequential":
-        return _make_sequential_round(loss_fn, fl, angle_pred)
+        return _make_sequential_round(loss_fn, fl, angle_pred,
+                                      grad_constraint)
     if fl.aggregation == "buffered":
-        return _make_buffered_round(loss_fn, fl, angle_pred, arrival_fn)
-    return _make_parallel_round(loss_fn, fl, angle_pred)
+        return _make_buffered_round(loss_fn, fl, delta_constraint,
+                                    angle_pred, grad_constraint, arrival_fn)
+    return _make_parallel_round(loss_fn, fl, delta_constraint, angle_pred,
+                                grad_constraint)
 
 
-def _clients(loss_fn: Callable, fl: FLConfig) -> Callable:
+def _clients(loss_fn: Callable, fl: FLConfig,
+             delta_constraint: Optional[Callable],
+             grad_constraint: Optional[Callable]) -> Callable:
     """(params, batches, lr) -> (deltas, losses): the K clients' local
-    updates batched with torch.func.vmap."""
+    updates batched with torch.func.vmap, then `delta_constraint` on the
+    stacked deltas."""
 
     def clients(params, batches, lr):
-        return torch.func.vmap(
-            lambda b: local_update(loss_fn, params, b, lr, fl.prox_mu),
+        deltas, losses = torch.func.vmap(
+            lambda b: local_update(loss_fn, params, b, lr, fl.prox_mu,
+                                   grad_constraint),
             randomness="error")(batches)
+        if delta_constraint is not None:
+            deltas = delta_constraint(deltas)
+        return deltas, losses
 
     return clients
 
 
 def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
-                         angle_pred: Optional[Callable]) -> Callable:
-    clients = _clients(loss_fn, fl)
+                         delta_constraint: Optional[Callable],
+                         angle_pred: Optional[Callable],
+                         grad_constraint: Optional[Callable]) -> Callable:
+    clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
 
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
@@ -870,7 +898,9 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
 
 
 def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
+                         delta_constraint: Optional[Callable],
                          angle_pred: Optional[Callable],
+                         grad_constraint: Optional[Callable],
                          arrival_fn: Optional[Callable]) -> Callable:
     """The buffered-async server tick (aggregation="buffered"), the
     reference's `_make_buffered_round` without its flat_sharded branch.
@@ -886,7 +916,7 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
     wire) and waits on nothing. With buffer_m == K and no stragglers or
     drops each masked op reduces to its sync counterpart bit for bit.
     """
-    clients = _clients(loss_fn, fl)
+    clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
     stochastic = (arrival_fn is None
                   and (fl.straggle_prob > 0 or fl.dropout_prob > 0))
@@ -1038,7 +1068,8 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
 
 
 def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
-                           angle_pred: Optional[Callable]) -> Callable:
+                           angle_pred: Optional[Callable],
+                           grad_constraint: Optional[Callable]) -> Callable:
     """Sequential mode: one model copy, the K clients in a Python loop.
 
     FedAdp needs the round's global delta before it can weight, so the
@@ -1055,7 +1086,7 @@ def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
     def client(params, batches, i, lr):
         return local_update(loss_fn, params,
                             treemath.tree_map(lambda a: a[i], batches), lr,
-                            fl.prox_mu)
+                            fl.prox_mu, grad_constraint)
 
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
         params, angle_state = state.params, state.angle

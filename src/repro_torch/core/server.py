@@ -89,8 +89,12 @@ class FedServer:
     """Cross-device FL simulation on one device (paper Section V)."""
 
     def __init__(self, model: str, fl: fl_mod.FLConfig, nodes: list, test,
-                 batch_size: int, seed: int = 0, angle_pred=None,
-                 device=None, arrival_fn=None):
+                 batch_size: int, seed: int = 0, angle_pred=None, mesh=None,
+                 arrival_fn=None, *, device=None):
+        """The reference's parameters, by name and position (`mesh` must
+        be None: no mesh engine yet, ROADMAP Queue 1 item 13), and a
+        keyword-only `device`: None means CUDA (raising without a GPU),
+        "cpu" the kernels' plain versions."""
         self.device = (repro_torch.default_device() if device is None
                        else torch.device(device))
         self.fl = fl
@@ -108,7 +112,7 @@ class FedServer:
                                           self.device)
         self._step_fn = driver_mod.make_step_fn(
             loss_fn, fl, self.data, eval_fn=eval_fn, angle_pred=angle_pred,
-            arrival_fn=arrival_fn)
+            mesh=mesh, arrival_fn=arrival_fn)
         self._run_block = driver_mod.make_scan_runner(self._step_fn)
         self._seed = seed
         self.state = self._fresh_state(seed)

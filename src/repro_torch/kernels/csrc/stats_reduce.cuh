@@ -6,12 +6,11 @@
 //   grad_dot.cu.
 // * butterfly: two rows' (d, q) sums of a warp in 6 xor shuffles. Used by
 //   the statistics kernels that keep two rows of a warp in flight:
-//   round_stats.cu's bf16 kernel and round_stats_q.cu.
+//   round_stats.cu's f32 and bf16 kernels and round_stats_q.cu.
 // * stats_stage2: the second launch of a two-stage reduction. Stage 1
 //   leaves one partial per (column block, sum) in a (blocks, S) scratch
 //   buffer; stats_stage2 sums those over blocks in a fixed order. Used by
-//   batched_dot.cu (round_stats.cu's f32 kernel has its own second stage,
-//   its header says why).
+//   batched_dot.cu.
 // * stats_sum_kernel, launched by launch_stats_sum (or with the first
 //   kernel by launch_stats): the second launch over
 //   statistic-major partials, (S, blocks), each statistic's one
@@ -19,7 +18,7 @@
 //   start while the first grid still runs (that grid executes
 //   griddepcontrol.launch_dependents) and wait in griddepcontrol.wait
 //   until it has finished and its writes are visible, which hides most of
-//   a second launch's start. Used by round_stats.cu's bf16 kernel,
+//   a second launch's start. Used by round_stats.cu (f32 and bf16 x),
 //   round_stats_q.cu and grad_dot.cu.
 #pragma once
 
@@ -127,7 +126,7 @@ inline cudaError_t launch_stats_sum(const float* part, float* out, int S,
 // A statistics kernel, kernel(a), over a.blocks blocks of 32 * warps
 // threads, each with (warps, 2 a.K + 1) floats of dynamic shared memory,
 // then stats_sum_kernel over its statistic-major partials a.part into
-// out. Used by round_stats.cu's bf16 kernel and round_stats_q.cu.
+// out. Used by round_stats.cu and round_stats_q.cu.
 template <typename Args>
 cudaError_t launch_stats(void (*kernel)(Args), const Args& a, int warps,
                          float* out, cudaStream_t stream) {

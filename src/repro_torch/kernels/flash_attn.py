@@ -6,7 +6,8 @@ that never writes the (T, T) scores to device memory.
   (B, T, G, hd) -> (B, T, H, hd).
 
 Both replace `repro/kernels/flash_attn.py` (the Pallas `_kernel` through
-`_flash_fwd_impl`, and `gqa_flash`) with the reference's signatures;
+`_flash_fwd_impl`, and `gqa_flash`) with the reference's parameters
+less `interpret`;
 CUDA source `csrc/flash_attn.cu`, one entry point for two kernels
 (`KERNELS`): bf16 inputs run `flash_mma_kernel` (`csrc/flash_mma.cuh`),
 whose two products are bf16 `wgmma` on the tensor cores with f32

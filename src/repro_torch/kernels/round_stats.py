@@ -5,9 +5,9 @@ the subspace of an (N,) 0/1 segment mask (angle_filter="dense_only"), on
 every wire of the uplink:
 
 * `round_stats(x, g, mask)`: x f32 or bf16 (the bf16 wire), CUDA source
-  `csrc/round_stats.cu`, a kernel for each type; it replaces the Pallas
-  kernels `repro/kernels/round_stats.py::round_stats` (`_stats_kernel`,
-  `_stats_kernel_masked`).
+  `csrc/round_stats.cu`, one design with a kernel for each type; it
+  replaces the Pallas kernels `repro/kernels/round_stats.py::round_stats`
+  (`_stats_kernel`, `_stats_kernel_masked`).
 * `round_stats_q(values, scales, g, mask)`: the int8 wire, and
   `round_stats_q4(values, scales, g, mask, group_size=)`: the packed int4
   wire, both dequantized in registers, CUDA source `csrc/round_stats_q.cu`;
@@ -16,11 +16,10 @@ every wire of the uplink:
 
 All are bound by bytes: one read of x or the wire plus g (and the
 mask). Each reduces per column block into 2K+1 partials a block, and a
-second launch reduces those in a fixed order (for bf16 x and the int8 /
-int4 wires a programmatic dependent launch, whose blocks start before
-the first grid ends), so the result is the same from run to run (the
-source files' headers have the designs). g and the mask are f32 and in
-logical columns; sums are f32.
+second launch, a programmatic dependent one whose blocks start before
+the first grid ends, reduces those in a fixed order, so the result is
+the same from run to run (the source files' headers have the designs).
+g and the mask are f32 and in logical columns; sums are f32.
 
 A wrapper takes its plain version (`*_plain`) only for tensors that lie
 on the CPU. On a CUDA tensor it launches the kernels or raises.
@@ -50,13 +49,11 @@ from repro_torch.transport.quantize import (
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # x, g, mask, part, out, K, N, blocks, stream
-    "repro_round_stats_f32": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
-    "repro_round_stats_blocks": [_L],
     # x, g, mask, part, out, K, N, stream
+    "repro_wire_stats_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
     "repro_wire_stats_bf16": [_P, _P, _P, _P, _P, _I, _L, _P],
-    # K, N -> floats of part
-    "repro_wire_stats_bf16_floats": [_I, _L],
+    # K, N, bytes an element of x (4: f32, 2: bf16) -> floats of part
+    "repro_round_stats_floats": [_I, _L, _I],
     # q, scales, g, mask, part, out, K, N, C, stream
     "repro_wire_stats_q8": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     # q, scales, g, mask, part, out, K, n, G, log2(group_size), stream
@@ -64,8 +61,7 @@ _SIGNATURES = {
     # K, n, lg (0: the int8 wire) -> floats of part
     "repro_wire_stats_floats": [_I, _L, _I],
 }
-_RETURNS = {"repro_round_stats_blocks": _L, "repro_wire_stats_floats": _L,
-            "repro_wire_stats_bf16_floats": _L}
+_RETURNS = {"repro_wire_stats_floats": _L, "repro_round_stats_floats": _L}
 
 
 def _fn(source: str, name: str):
@@ -81,16 +77,15 @@ def _raise_on(err: int, name: str, sizes) -> None:
 
 
 def _launch(source: str, name: str, k: int, floats: int, device, ptrs,
-            sizes, tail=()):
+            sizes):
     """One call of a statistics entry point `name` of `source` with fresh
-    scratch of `floats` floats; `tail` goes between the sizes and the
-    stream. Returns (dots, sqs, sqg)."""
+    scratch of `floats` floats. Returns (dots, sqs, sqg)."""
     part = torch.empty(floats, dtype=torch.float32, device=device)
     out = torch.empty(2 * k + 1, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _fn(source, name)(*ptrs, part.data_ptr(), out.data_ptr(),
-                                *sizes, *tail, stream)
+                                *sizes, stream)
     _raise_on(err, name, sizes)
     return out[:k], out[k:2 * k], out[2 * k]
 
@@ -166,16 +161,12 @@ def round_stats(x: torch.Tensor, g: torch.Tensor,
         return round_stats_plain(x, g, mask)
     _check(x, g, mask)
     k, n = x.shape
-    ptrs = (x.data_ptr(), g.data_ptr(), _ptr(mask))
-    if x.dtype == torch.bfloat16:
-        floats = _fn("round_stats", "repro_wire_stats_bf16_floats")(k, n)
-        out = _launch("round_stats", "repro_wire_stats_bf16", k, floats,
-                      x.device, ptrs, (k, n))
-    else:
-        nblocks = _fn("round_stats", "repro_round_stats_blocks")(n)
-        out = _launch("round_stats", "repro_round_stats_f32", k,
-                      nblocks * (2 * k + 1), x.device, ptrs, (k, n),
-                      (nblocks,))
+    name = ("repro_wire_stats_bf16" if x.dtype == torch.bfloat16
+            else "repro_wire_stats_f32")
+    floats = _fn("round_stats", "repro_round_stats_floats")(
+        k, n, x.element_size())
+    out = _launch("round_stats", name, k, floats, x.device,
+                  (x.data_ptr(), g.data_ptr(), _ptr(mask)), (k, n))
     round_stats.launches += 1
     return out
 
@@ -183,9 +174,11 @@ def round_stats(x: torch.Tensor, g: torch.Tensor,
 round_stats.launches = 0
 
 
-def bf16_stats_blocks(k: int, n: int) -> int:
-    """The blocks of the bf16 statistics kernel's grid for x (k, n)."""
-    floats = _fn("round_stats", "repro_wire_stats_bf16_floats")(k, n)
+def stats_blocks(k: int, n: int, dtype: torch.dtype) -> int:
+    """The blocks of the statistics kernel's grid for x (k, n) of `dtype`
+    (f32 or bf16)."""
+    floats = _fn("round_stats", "repro_round_stats_floats")(k, n,
+                                                            dtype.itemsize)
     return floats // (2 * k + 1)
 
 
