@@ -10,9 +10,12 @@ through `repro_torch.FedServer`, at the full width of the paper's CNN,
 on every uplink wire (f32, bf16, int8, int4), with the quantized and
 delta downlink, in sequential mode and as the buffered-async server,
 scanned with a bit-exact kill/resume and with round telemetry; the
-algorithm on the MLR golden task; dense-LM serving (`launch.serve.generate`: gemma-2b at full
-width and depth in bf16, prefill on the flash-attention kernel, then
-greedy decode); and `kernels/ops.py` on a real CNN round's deltas. Each
+algorithm on the MLR golden task; federated training of a dense LM (the
+100m preset of examples/torch_fl_lm_train.py, the flash kernel under
+torch.func.vmap(grad) in every local step); dense-LM serving
+(`launch.serve.generate`: gemma-2b at full width and depth in bf16,
+prefill on the flash-attention kernel, then greedy decode); and
+`kernels/ops.py` on a real CNN round's deltas. Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It imports nothing of jax or of the JAX package `repro`.
 
@@ -67,7 +70,19 @@ scanned block), algorithm (fedadp reaches 85% on MLR in no more rounds than feda
 uplink f32, bf16, int8 and int4, on the golden delta section's wires at
 5 of 10 clients, and in sequential mode; buffered fedadp under the
 golden schedule in no more ticks than sync fedavg, on f32/f32 and
-int4/int8; each wire's fedadp rounds over f32's printed), serve
+int4/int8; each wire's fedadp rounds over f32's printed), lm_train
+(grads through gqa_flash under vmap(grad) on the card, f32 and bf16,
+equal the plain version's at the forward's tolerance, and the forward
+runs the dtype's kernel; the 100m preset, f32, K = 4, tau = 2, B = 4,
+T = 256, on the flat engine: 3 rounds on the xla attention path, then 3
+on the flash path, from the same params on the same tokens, each round
+2 weighted_agg + 1 round_stats launches and on the flash path one flash
+launch per layer per local step; round 1 flash == xla at 2e-4, flat ==
+tree at 1e-5; the metrics finite, and the loss of round 0's batches
+lower after the 3 rounds than at the initial params; round ms, peak
+memory, a profiled flash round; then the f32 kernel at the training
+shape beside its bound, its plain version, SDPA and one layer's
+backward recompute), serve
 (gemma-2b, B = 4, prompt 1024, 32 greedy steps: 18
 flash launches per prefill and none in decode, prefill and decode times,
 peak memory, the tensor-core kernel's share of a profiled prefill, where
@@ -189,6 +204,13 @@ FLASH_GQA_SHAPE = (2, 320, 256)
 FLASH_MAIN = (4, 1024, 8, 1, 256)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference test's
 SERVE_B, SERVE_T, SERVE_STEPS = 4, 1024, 32
+# federated LM training: the 100m preset of examples/torch_fl_lm_train.py
+# at its defaults (K clients, tau local steps, B sequences of T tokens)
+LM_PRESET, LM_ROUNDS = "100m", 3
+LM_K, LM_TAU, LM_B, LM_T = 4, 2, 4, 256
+LM_HEADS = (12, 4, 64)  # H query heads over G KV heads, head dim
+# grads through gqa_flash under vmap(grad): clients, (B, T, H, G, hd)
+LM_GRAD_N, LM_GRAD_SHAPE = 3, (2, 256, 12, 4, 64)
 PARITY_B, PARITY_T, PARITY_TOL = 2, 512, 2e-4
 
 
@@ -2129,6 +2151,272 @@ def stats_wave(rs, sass: dict, kernel: str, dtype: torch.dtype) -> dict:
             "blocks": blocks, "one_wave": per_sm * sms >= blocks}
 
 
+def load_lm_example():
+    """examples/torch_fl_lm_train.py as a module: its presets, its round
+    (`make_round`) and its tokens (`round_tokens`)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "torch_fl_lm_train.py")
+    spec = importlib.util.spec_from_file_location("torch_fl_lm_train", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tree_pairs(name: str, a, b) -> dict:
+    """{name/path: (a's leaf, b's leaf)} over two trees of one layout."""
+    from repro_torch.core import treemath
+
+    return {f"{name}/" + "/".join(map(str, path)): (x, y)
+            for path, x, y in zip(treemath.tree_paths(a),
+                                  treemath.tree_leaves(a),
+                                  treemath.tree_leaves(b))}
+
+
+def flash_train_grads(fa, dev) -> dict:
+    """Grads of a scalar through gqa_flash under vmap(grad) over LM_GRAD_N
+    clients, on the card, f32 and bf16, causal: the kernel's forward with
+    the recompute backward against autograd through the plain version,
+    at the forward's tolerance; the forward's device kernel by name."""
+    n, (b, t, h, g, hd) = LM_GRAD_N, LM_GRAD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn(n, b, t, h, hd, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(n, b, t, g, hd, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        w = torch.randn(b, t, h, hd, device=dev, generator=gen)
+
+        def grads(attend):
+            def f(q, k, v):
+                return torch.sum(attend(q, k, v).float() * w)
+
+            return torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(
+                q, k, v)
+
+        def kernel(q, k, v):
+            return fa.gqa_flash(q, k, v, blk_q=64, blk_k=64)
+
+        got = grads(kernel)
+        want = grads(lambda q, k, v: gqa_plain(fa, q, k, v))
+        torch.cuda.synchronize()
+        errs = {f"d{name}": allclose_err(a, e, FLASH_TOL[dtype])
+                for name, a, e in zip("qkv", got, want)}
+        ran = dict(device_kernels(lambda: grads(kernel)))
+        flash = {name: sum(c for key, c in ran.items() if name in key)
+                 for name in fa.KERNELS.values()}
+        out[dtype] = {"errors": errs, "flash_device_kernels": flash}
+        if not all(e[1] <= 1.0 for e in errs.values()):
+            raise AssertionError(f"{dtype} grads through the flash kernel "
+                                 f"differ from the plain version's: {errs}")
+        want_kernels = {name: int(name == fa.KERNELS[dt])
+                        for name in fa.KERNELS.values()}
+        if flash != want_kernels:
+            raise AssertionError(f"{dtype} vmap(grad) ran flash kernels "
+                                 f"{flash}, want {want_kernels}")
+    return out
+
+
+def phase_lm_train(wa, rs, fa, dev) -> dict:
+    """Federated training of the dense LM, the 100m preset of
+    examples/torch_fl_lm_train.py at its defaults (K = 4, tau = 2,
+    B = 4, T = 256, f32) through its round (`make_round`) on the flat
+    engine: 3 rounds on the xla attention path, then 3 on the flash path,
+    from the same params on the same tokens. Per round: 2 weighted_agg
+    and 1 round_stats launches, and on the flash path one flash launch
+    per layer per local step (the vmap rule folds the K clients into
+    one). Flash == xla on round 1 (weights, params) at the serve phase's
+    f32 tolerance; flat == tree on round 1 at 1e-5; the metrics finite;
+    the loss of round 0's batches falls over the 3 rounds (each round's
+    own loss is printed, not held: every round's clients draw new
+    vocabulary permutations). Then the flash kernel at the training
+    shape beside its bound, its plain version, SDPA and one layer's
+    backward recompute."""
+    import torch.nn.functional as F
+
+    import repro_torch
+    from repro_torch.models import transformer
+
+    grads = flash_train_grads(fa, dev)
+    ex = load_lm_example()
+    cfgs = {impl: ex.model_config(LM_PRESET, impl)
+            for impl in ("xla", "flash")}
+    n_params = transformer.count_params(cfgs["xla"])
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfgs["xla"])
+    k, tau, b, t = LM_K, LM_TAU, LM_B, LM_T
+    fl = repro_torch.FLConfig(num_clients=k, clients_per_round=k,
+                              local_steps=tau, method="fedadp",
+                              base_lr=0.05, lr_decay=0.999, engine="flat")
+    tokens = [ex.round_tokens(r, k, tau, b, t, cfgs["xla"].vocab_size, dev)
+              for r in range(LM_ROUNDS)]
+    sel = torch.arange(k, dtype=torch.int32, device=dev)
+    sizes = torch.ones((k,), device=dev)
+    wrappers = {"weighted_agg": wa.weighted_agg,
+                "round_stats": rs.round_stats,
+                "flash_attention": fa.flash_attention}
+
+    @torch.no_grad()
+    def batch_loss(p, cfg):
+        # the mean loss of round 0's first local batch of every client
+        return float(torch.mean(torch.stack([transformer.loss_fn(
+            p, cfg, {"tokens": tokens[0]["tokens"][i, 0]})
+            for i in range(k)])))
+
+    runs = {}
+    for impl, cfg in cfgs.items():
+        round_fn = ex.make_round(cfg, fl)
+        state0 = repro_torch.init_round_state(fl, params)
+        round_fn(state0, tokens[0], sel, sizes)  # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, per_round, metrics, first = state0, [], [], [], None
+        for r in range(LM_ROUNDS):
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            state, m = round_fn(state, tokens[r], sel, sizes)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_round.append({name: fn.launches
+                              for name, fn in wrappers.items()})
+            metrics.append({key: m[key].detach().cpu().double().numpy()
+                            for key in ("loss", "weights", "divergence")})
+            if first is None:
+                first = (state, m)
+        runs[impl] = {"ms": ms, "launches": per_round, "metrics": metrics,
+                      "first": first, "round_fn": round_fn,
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "batch_loss": (batch_loss(params, cfg),
+                                     batch_loss(state.params, cfg))}
+        del state
+    want_flash = cfgs["flash"].num_layers * tau
+    for impl, run in runs.items():
+        want = {"weighted_agg": 2, "round_stats": 1,
+                "flash_attention": want_flash if impl == "flash" else 0}
+        if any(c != want for c in run["launches"]):
+            raise AssertionError(f"{impl}: rounds launched "
+                                 f"{run['launches']}, want {want} each")
+        losses = [float(m["loss"]) for m in run["metrics"]]
+        if not all(np.isfinite(v).all() for m in run["metrics"]
+                   for v in m.values()):
+            raise AssertionError(f"{impl}: metrics not finite: "
+                                 f"{run['metrics']}")
+        # each round's clients draw new vocabulary permutations
+        # (lm_token_batches(seed=r)), so the round's own loss need not
+        # fall; the loss of round 0's batches at the params must
+        before, after = run["batch_loss"]
+        if not after < before:
+            raise AssertionError(f"{impl}: the loss of round 0's batches "
+                                 f"did not fall: {before} -> {after} "
+                                 f"(rounds: {losses})")
+
+    # flash == xla on round 1, and flat == tree (xla path) on round 1
+    (sf, mf), (sx, mx) = runs["flash"]["first"], runs["xla"]["first"]
+    pairs = {"weights": (mf["weights"], mx["weights"]),
+             **tree_pairs("params", sf.params, sx.params)}
+    parity = {key: allclose_err(a, e, PARITY_TOL)
+              for key, (a, e) in pairs.items()}
+    if not all(e[1] <= 1.0 for e in parity.values()):
+        raise AssertionError(f"round 1: flash and xla differ beyond "
+                             f"{PARITY_TOL}: {parity}")
+    tree_fn = ex.make_round(cfgs["xla"], dataclasses.replace(fl,
+                                                             engine="tree"))
+    st, mt = tree_fn(repro_torch.init_round_state(fl, params), tokens[0],
+                     sel, sizes)
+    torch.cuda.synchronize()
+    flat_tree, flat_tree_at = excess_err({
+        **tree_pairs("params", sx.params, st.params),
+        **tree_pairs("prev_delta", sx.prev_delta, st.prev_delta),
+        "angle": (sx.angle.smoothed, st.angle.smoothed),
+        **{f"metrics/{key}": (mx[key], mt[key])
+           for key in ("loss", "weights", "theta", "divergence")}},
+        TOL, TOL)
+    del st, mt, sf, mf, sx, mx
+    if flat_tree > 0:
+        raise AssertionError(f"round 1: flat and tree differ at "
+                             f"{flat_tree_at}: {flat_tree}")
+    # one profiled flash round: where its device time goes
+    state0 = repro_torch.init_round_state(fl, params)
+    prof = profile_device(lambda: runs["flash"]["round_fn"](
+        state0, tokens[0], sel, sizes))
+    for run in runs.values():
+        del run["first"], run["round_fn"]
+    del state0, params
+    torch.cuda.empty_cache()
+
+    # the flash kernel at the training shape: K * B sequences of the
+    # vmapped local step, beside its bound, SDPA and the backward
+    bt, (h, g, hd) = k * b, LM_HEADS
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(bt, t, h, hd, device=dev, generator=gen)
+    kk, vv = (torch.randn(bt, t, g, hd, device=dev, generator=gen)
+              for _ in range(2))
+    do = torch.randn(bt, t, h, hd, device=dev, generator=gen)
+    err = allclose_err(fa.gqa_flash(q, kk, vv, blk_q=64, blk_k=64),
+                       gqa_plain(fa, q, kk, vv),
+                       FLASH_TOL["float32"])
+    if not err[1] <= 1.0:
+        raise AssertionError(f"flash at the training shape: {err}")
+    qh = q.movedim(2, 1).contiguous()
+    kh, vh = (z.repeat_interleave(h // g, 2).movedim(2, 1).contiguous()
+              for z in (kk, vv))
+    flops = bt * h * 2 * t * t * hd  # causal: half of 4 T^2 d per head
+    nbytes = 4 * (2 * bt * t * h * hd + 2 * bt * t * g * hd)
+    flush = torch.zeros(64 << 20, device=dev)
+    row = timing_entry(
+        "flash_attention_f32_train", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:84",
+        lambda: fa.gqa_flash(q, kk, vv, blk_q=64, blk_k=64),
+        lambda: gqa_plain(fa, q, kk, vv),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        nbytes, flops, flush, err[0], FLASH_TOL["float32"],
+        (bt, t, h, g, hd), flops_per_s=TF32X3_FLOPS_PER_S)
+    row["dtype"], row["device_kernel"] = "float32", fa.KERNELS[torch.float32]
+    row["bound_f32_cores_us"] = bound_us(nbytes, flops)[0]
+    row["backward_recompute_us"] = time_us(
+        lambda: fa._backward(q, kk, vv, do, True), flush)
+    row["max_err"] = err[1]
+    row["launches"] = sum(c["flash_attention"]
+                          for c in runs["flash"]["launches"])
+    emit({"phase": "kernels", "timing": row})
+    del q, kk, vv, do, qh, kh, vh, flush
+    torch.cuda.empty_cache()
+
+    out = {"phase": "lm_train", "preset": LM_PRESET, "params": n_params,
+           "clients": k, "local_steps": tau, "batch": b, "seq": t,
+           "dtype": "float32", "engine": "flat",
+           "delta_buffer_bytes": 4 * k * n_params,
+           "grads_on_card": grads, "parity_tol": PARITY_TOL,
+           "flash_vs_xla_round1": parity,
+           "flat_vs_tree_excess_err": flat_tree,
+           "flat_vs_tree_worst": flat_tree_at,
+           "round_ms": {impl: run["ms"] for impl, run in runs.items()},
+           "round_ms_median": {impl: float(np.median(run["ms"]))
+                               for impl, run in runs.items()},
+           "launches": {impl: run["launches"] for impl, run in runs.items()},
+           "loss": {impl: [float(m["loss"]) for m in run["metrics"]]
+                    for impl, run in runs.items()},
+           "round0_batch_loss_before_after": {
+               impl: run["batch_loss"] for impl, run in runs.items()},
+           "weights": {impl: [m["weights"].tolist() for m in run["metrics"]]
+                       for impl, run in runs.items()},
+           "max_memory_allocated": {impl: run["peak"]
+                                    for impl, run in runs.items()},
+           "profile_flash_round": prof,
+           # the profiler slows the host: busy time against an
+           # unprofiled round's wall too
+           "flash_idle_share_vs_unprofiled": 1.0 - prof[
+               "device_busy_union_us"] / (1e3 * float(np.median(
+                   runs["flash"]["ms"])))}
+    emit(out)
+    # each kernel's launches over the flash run's rounds
+    return {"row": row, "launches": {
+        name: sum(c[name] for c in runs["flash"]["launches"])
+        for name in wrappers}}
+
+
 def phase_serve(fa, dev) -> dict:
     """The dense-LM serving path at full width and depth: gemma-2b in
     bf16 with flash attention, random weights from a seed, through
@@ -2455,6 +2743,7 @@ def main() -> int:
     phase_resume(wa, rs, dev, nodes, test)
     phase_telemetry(wa, rs, tq, dev, nodes, test)
     phase_algorithm(dev, nodes, test)
+    lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
 
@@ -2472,6 +2761,15 @@ def main() -> int:
     lm_table["grad_dot_stats_off8"]["launches"] = \
         ops_launches["grad_dot_stats"]
     table["round_stats_k1"] = k1_row  # launches: 3 sequential rounds
+    # the federated LM's rounds run the f32 aggregation and statistics and
+    # the f32 flash kernel under vmap(grad)
+    table["weighted_agg"]["launches_lm_train"] = \
+        lm_out["launches"]["weighted_agg"]
+    table["round_stats"]["launches_lm_train"] = \
+        lm_out["launches"]["round_stats"]
+    lm_table["flash_attention_f32"]["launches_lm_train"] = \
+        lm_out["launches"]["flash_attention"]
+    lm_table["flash_attention_f32_train"] = lm_out["row"]
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

@@ -18,7 +18,8 @@ device from the state's generator. Two run modes share that step:
 Every round the port runs goes through it: the parallel round on either
 engine and every uplink and downlink wire, sequential mode, and the
 buffered-async server (`fixed_arrival_schedule` gives it an explicit
-arrival schedule).
+arrival schedule). `_epoch_batcher` is the reference's host-side numpy
+batcher, kept for tests and scripts that batch a node's data by hand.
 
 `FedServer(..., device=None)` runs on CUDA and raises when there is no
 GPU: pass device="cpu" to run on the CPU (the kernels' plain versions).
@@ -38,6 +39,7 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import driver as driver_mod
 from repro_torch.core import fl as fl_mod
 from repro_torch.core import treemath
+from repro_torch.data.synthetic import Dataset
 from repro_torch.models import small
 from repro_torch.telemetry import schema as tel_schema
 from repro_torch.telemetry import sinks as tel_sinks
@@ -287,3 +289,22 @@ class FedServer:
         hist.divergence.append(float(m["divergence"]))
         hist.thetas.append(np.asarray(m["theta_smoothed"]))
         hist.weights.append(np.asarray(m["weights"]))
+
+
+def _epoch_batcher(ds: Dataset, batch_size: int, seed: int):
+    """Host-side reference batcher (the driver's device pipeline replaced
+    it in FedServer): yields one epoch of shuffled minibatches per call,
+    (tau, B, ...) numpy arrays — the paper's tau = E*D_i/B with E=1."""
+    n = len(ds.y)
+    tau = n // batch_size
+    if tau < 1:
+        raise ValueError(
+            f"node dataset has {n} samples but batch_size={batch_size}: "
+            f"tau = {n}//{batch_size} = 0 local steps — lower batch_size "
+            "or grow the node's dataset")
+    rng = np.random.default_rng(seed)
+    while True:
+        order = rng.permutation(n)[: tau * batch_size]
+        xb = ds.x[order].reshape(tau, batch_size, *ds.x.shape[1:])
+        yb = ds.y[order].reshape(tau, batch_size)
+        yield xb, yb

@@ -1,14 +1,17 @@
 """Synthetic datasets + non-IID federated partitioning (numpy only).
 
-The port's own copy of `repro/data/synthetic.py` (the parts the FedAdp
-round needs). It is numpy code and must produce IDENTICAL arrays to the
-reference for the same seeds, so the two packages train on the same data.
+The port's own copy of `repro/data/synthetic.py`. It is numpy code and
+must produce IDENTICAL arrays to the reference for the same seeds, so
+the two packages train on the same data.
 
 A synthetic 10-class 28x28 image task stands in for MNIST: each class is
 a smooth random template; a sample is the template under a random shift
 plus pixel noise and a contrast jitter. Partitioning follows the paper:
 `x-class non-IID` nodes draw all samples from x classes, IID nodes draw
-uniformly.
+uniformly; `dirichlet_partition` draws each node's class mixture from
+Dir(alpha). `lm_token_batches` makes the federated LM's non-IID token
+streams, and `batch_iterator` is an infinite shuffled mini-batch
+iterator over one node's data.
 """
 from __future__ import annotations
 
@@ -112,3 +115,58 @@ def make_federated(
         else:
             raise ValueError(kind)
     return nodes
+
+
+def dirichlet_partition(
+    rng: np.random.Generator, ds: Dataset, num_nodes: int, alpha: float,
+    samples_per_node: int, num_classes: int = 10,
+) -> list[Dataset]:
+    """General heterogeneity: per-node class mixture ~ Dir(alpha)."""
+    nodes = []
+    by_class = [np.flatnonzero(ds.y == c) for c in range(num_classes)]
+    for _ in range(num_nodes):
+        mix = rng.dirichlet(np.full(num_classes, alpha))
+        counts = rng.multinomial(samples_per_node, mix)
+        idx = np.concatenate(
+            [rng.choice(by_class[c], size=k, replace=k > len(by_class[c]))
+             for c, k in enumerate(counts) if k > 0]
+        )
+        rng.shuffle(idx)
+        nodes.append(Dataset(ds.x[idx], ds.y[idx]))
+    return nodes
+
+
+# -------------------------------------------------------- LM token task
+
+
+def lm_token_batches(
+    seed: int, num_clients: int, batch: int, seq: int, vocab: int,
+    zipf_a: float = 1.2, skew: bool = True,
+) -> np.ndarray:
+    """Synthetic non-IID language-model tokens, (num_clients, batch, seq)
+    int32: every client draws from a Zipf distribution over a
+    client-specific permutation of the vocab, so client unigram
+    distributions differ (non-IID) while the global mixture is smooth."""
+    rng = np.random.default_rng(seed)
+    ranks = (rng.zipf(zipf_a, size=(num_clients, batch, seq)) - 1) % vocab
+    if skew:
+        perms = np.stack([rng.permutation(vocab) for _ in range(num_clients)])
+        toks = np.take_along_axis(
+            perms, ranks.reshape(num_clients, -1), axis=1
+        ).reshape(num_clients, batch, seq)
+    else:
+        toks = ranks
+    return toks.astype(np.int32)
+
+
+def batch_iterator(ds: Dataset, batch_size: int, seed: int):
+    """Infinite shuffled mini-batch iterator (per-client local data):
+    yields (x, y) of `batch_size` samples, a new permutation each epoch,
+    the epoch's ragged tail dropped."""
+    rng = np.random.default_rng(seed)
+    n = len(ds.y)
+    while True:
+        order = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            j = order[i : i + batch_size]
+            yield ds.x[j], ds.y[j]

@@ -1,5 +1,6 @@
-"""Flash-attention forward: causal or non-causal online-softmax attention
-that never writes the (T, T) scores to device memory.
+"""Flash attention: a causal or non-causal online-softmax forward that
+never writes the (T, T) scores to device memory, and the reference's
+recompute backward.
 
 * `flash_attention(q, k, v, causal, blk_q, blk_k)`: q/k/v (BH, T, d);
 * `gqa_flash(q, k, v, causal=, blk_q=, blk_k=)`: q (B, T, H, hd), k/v
@@ -23,13 +24,21 @@ unchecked under `python -O`. `gqa_flash` hands the kernel the KV head of
 each query head (h // (H / G)) instead of repeating k and v: the same
 function without the copy. The output is in q's dtype.
 
-A wrapper takes the plain version (`flash_attention_plain`, the naive
-softmax of `repro/kernels/ref.py::flash_attention`) only for tensors
-that lie on the CPU. On CUDA tensors it launches the kernel or raises;
-it also raises when an input requires grad, because the kernel has no
-backward yet (the reference's backward is a jnp recompute; it comes with
-the training slice). `flash_attention.launches` counts the kernel's
-launches from either wrapper, of either kernel.
+Both wrappers go through one `torch.autograd.Function` (`_Flash`) on
+the (B, T, heads, hd) layout (`flash_attention` views its (BH, T, d) as
+(BH, T, 1, d)). Its forward takes the plain version
+(`flash_attention_plain`, the naive softmax of
+`repro/kernels/ref.py::flash_attention`) only for tensors that lie on
+the CPU; on CUDA tensors it launches the kernel or raises. Its backward
+is the reference's recompute (`_flash_bwd`, jnp there, not Pallas):
+scores, softmax, dv, dp, ds, dq and dk in f32, with dk and dv summed
+over each KV group's query heads. Its `vmap` rule folds a vmapped dim
+into the batch, so that under `torch.func.vmap(grad)` (the round's K
+clients) one launch serves every client and the forward receives plain
+tensors, whose storage the ctypes launch reads; a folded tensor is made
+contiguous only where the kernel's layout checks need it.
+`flash_attention.launches` counts the kernel's forward launches from
+either wrapper, of either kernel.
 """
 from __future__ import annotations
 
@@ -78,21 +87,21 @@ def _check_cuda(q, k, v) -> None:
                 f"flash attention: q on {q.device}, k on {k.device}, v on "
                 f"{v.device}; all must be on one CUDA device (CPU tensors "
                 "take the plain version)")
-        if t.requires_grad:
-            raise RuntimeError(
-                "flash attention: the CUDA kernel has no backward yet; "
-                "call it under torch.no_grad() or on tensors that do not "
-                "require grad")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash attention: the kernel takes q, k, v all f32 "
                         f"or all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     for t in (q, k, v):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                s * t.element_size() % 16 for s in t.stride()[:-1]):
+        if not _kernel_layout(t):
             raise ValueError(
                 "flash attention: the kernel wants the head dim contiguous "
                 "and every row 16-byte aligned")
+
+
+def _kernel_layout(t: torch.Tensor) -> bool:
+    """Is the head dim contiguous and every row 16-byte aligned?"""
+    return t.stride(-1) == 1 and not t.data_ptr() % 16 and not any(
+        s * t.element_size() % 16 for s in t.stride()[:-1])
 
 
 def _launch(q, k, v, o, strides, b, h, g, t, d, causal) -> None:
@@ -115,6 +124,102 @@ def _launch(q, k, v, o, strides, b, h, g, t, d, causal) -> None:
     flash_attention.launches += 1
 
 
+def _gqa_plain(q, k, v, causal):
+    """The plain version on (B, T, H, hd) / (B, T, G, hd): each query
+    head against its group's KV head, repeated."""
+    b, t, h, hd = q.shape
+    rep = h // k.shape[2]
+
+    def flat(x):
+        return x.movedim(2, 1).reshape(b * h, t, hd)
+
+    o = flash_attention_plain(flat(q), flat(k.repeat_interleave(rep, 2)),
+                              flat(v.repeat_interleave(rep, 2)), causal)
+    return o.reshape(b, h, t, hd).movedim(1, 2)
+
+
+def _forward(q, k, v, causal):
+    """(B, T, H, hd), (B, T, G, hd) x2 -> (B, T, H, hd): the kernel on
+    CUDA tensors (it reads each query head's KV head in place), the plain
+    version on CPU tensors."""
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return _gqa_plain(q, k, v, causal)
+    _check_cuda(q, k, v)
+    b, t, h, hd = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = []
+    for x in (q, k, v, o):
+        strides += [x.stride(0), x.stride(2), x.stride(1)]
+    _launch(q, k, v, o, strides, b, h, k.shape[2], t, hd, causal)
+    return o
+
+
+def _backward(q, k, v, do, causal):
+    """The reference's recompute backward (`_flash_bwd`) on the GQA
+    layout: scores, softmax, then dv, dp, ds, dq and dk in f32, each cast
+    to its input's dtype. dk and dv sum over the H / G query heads of
+    each group, as the autodiff of the reference's repeat does."""
+    b, t, h, hd = q.shape
+    g = k.shape[2]
+    scale = 1.0 / (hd ** 0.5)
+    qf = q.to(torch.float32).reshape(b, t, g, h // g, hd)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dof = do.to(torch.float32).reshape(b, t, g, h // g, hd)
+    s = torch.einsum("btgre,bsge->bgrts", qf, kf) * scale
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(t, device=q.device)[:, None])
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bgrts,btgre->bsge", p, dof)
+    dp = torch.einsum("btgre,bsge->bgrts", dof, vf)
+    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True)) * scale
+    dq = torch.einsum("bgrts,bsge->btgre", ds, kf).reshape(b, t, h, hd)
+    dk = torch.einsum("bgrts,btgre->bsge", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Differentiable flash attention on (B, T, H, hd) / (B, T, G, hd):
+    the forward is the kernel (the plain version on the CPU), the
+    backward the reference's recompute. Under `torch.func.vmap` the
+    `vmap` rule folds the vmapped dim into B, so the K clients of a
+    vmapped local update share one launch, and `forward` always receives
+    plain tensors, whose storage the ctypes launch can read."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(q, k, v, causal):
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*_backward(q, k, v, do, ctx.causal), None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        n = info.batch_size
+
+        def fold(x, dim):
+            # (n, B, ...) -> (n * B, ...); an unbatched input is expanded
+            x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            x = x.reshape(n * x.shape[1], *x.shape[2:])
+            return x if x.device.type == "cpu" or _kernel_layout(x) \
+                else x.contiguous()
+
+        qf, kf, vf = (fold(x, d) for x, d in zip((q, k, v), in_dims))
+        o = _Flash.apply(qf, kf, vf, causal)
+        return o.reshape(n, o.shape[0] // n, *o.shape[1:]), 0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, blk_q: int = 128,
                     blk_k: int = 128) -> torch.Tensor:
@@ -126,15 +231,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
     assert t % blk_q == 0 and t % blk_k == 0
-    if all(x.device.type == "cpu" for x in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal)
-    _check_cuda(q, k, v)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    strides = []
-    for x in (q, k, v, o):
-        strides += [x.stride(0), 0, x.stride(1)]
-    _launch(q, k, v, o, strides, bh, 1, 1, t, d, causal)
-    return o
+    o = _Flash.apply(q[:, :, None], k[:, :, None], v[:, :, None], causal)
+    return o[:, :, 0]
 
 
 flash_attention.launches = 0
@@ -151,20 +249,4 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"with H % G == 0, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     assert t % blk_q == 0 and t % blk_k == 0
-    if all(x.device.type == "cpu" for x in (q, k, v)):
-        rep = h // g
-        kx = torch.repeat_interleave(k, rep, dim=2)
-        vx = torch.repeat_interleave(v, rep, dim=2)
-
-        def flat(x):
-            return x.movedim(2, 1).reshape(b * h, t, hd)
-
-        o = flash_attention_plain(flat(q), flat(kx), flat(vx), causal)
-        return o.reshape(b, h, t, hd).movedim(1, 2)
-    _check_cuda(q, k, v)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    strides = []
-    for x in (q, k, v, o):
-        strides += [x.stride(0), x.stride(2), x.stride(1)]
-    _launch(q, k, v, o, strides, b, h, g, t, hd, causal)
-    return o
+    return _Flash.apply(q, k, v, causal)

@@ -28,10 +28,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def grad_dot_stats_plain(a: torch.Tensor, b: torch.Tensor):
     """(<a,b>, ||a||^2, ||b||^2) as f32 scalars, plain torch
-    (`repro/kernels/ref.py::grad_dot_stats`)."""
+    (`repro/kernels/ref.py::grad_dot_stats`), summed by `torch.sum`
+    (pairwise on the CPU; a BLAS dot's f32 accumulation drifts at large
+    N)."""
     af = a.reshape(-1).to(torch.float32)
     bf = b.reshape(-1).to(torch.float32)
-    return torch.dot(af, bf), torch.dot(af, af), torch.dot(bf, bf)
+    return torch.sum(af * bf), torch.sum(af * af), torch.sum(bf * bf)
 
 
 def grad_dot_stats(a: torch.Tensor, b: torch.Tensor):

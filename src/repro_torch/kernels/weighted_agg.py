@@ -264,8 +264,10 @@ weighted_agg_q4.launches = 0
 
 
 def batched_dot_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """u (K,) f32 = x @ g in f32 (`repro/kernels/ref.py::batched_dot`)."""
-    return x.to(torch.float32) @ g.to(torch.float32)
+    """u (K,) f32 = x @ g in f32 (`repro/kernels/ref.py::batched_dot`),
+    summed by `torch.sum` (pairwise on the CPU; a BLAS gemv's f32
+    accumulation drifts at large N)."""
+    return torch.sum(x.to(torch.float32) * g.to(torch.float32)[None], dim=1)
 
 
 def batched_dot(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

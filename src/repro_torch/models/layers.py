@@ -122,3 +122,28 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- loss
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token cross-entropy, f32. logits (..., V), labels (...) int.
+
+    The label pick is the reference's select + reduce (a masked sum over
+    the vocab), not a gather; with `mask` the mean is weighted by it over
+    max(sum(mask), 1)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], dtype=labels.dtype,
+                        device=logits.device)
+    picked = torch.where(iota == labels[..., None], logits,
+                         torch.zeros((), dtype=torch.float32,
+                                     device=logits.device))
+    nll = logz - torch.sum(picked, dim=-1)
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

@@ -13,11 +13,25 @@ Entry points:
   forward(..., mode="train")    -> (logits, aux, text_offset)
   forward(..., mode="prefill")  -> (logits, aux, cache)
   decode_step(...)              -> (logits, cache)   # one token
+  loss_fn(params, cfg, batch)   -> scalar f32 next-token cross-entropy
+  hidden_forward(...)           -> (x, aux, text_offset) before unembed
+
+`loss_fn` is what federated LM training differentiates (under
+`torch.func.vmap(grad)` in the round); with `cfg.attention_impl ==
+"flash"` its attention runs the flash kernel, whose backward is the
+reference's recompute. With `cfg.loss_chunk` the unembed and the
+cross-entropy run chunk by chunk over tokens (`_chunked_ce`), with the
+reference's padding and masking. The reference wraps each chunk in
+`jax.checkpoint`, so that a chunk's (B, L, V) logits are recomputed in
+the backward rather than kept; `torch.utils.checkpoint` refuses to run
+under `torch.func.grad` (saved-tensor hooks), so here every chunk's
+logits are kept for the backward and the chunking saves no memory in
+training (a recompute autograd.Function for the loss is a later ROADMAP
+item).
 
 Configs of the other families (MoE, MLA, SSM, RWKV, hybrid, enc-dec,
 VLM prefixes, M-RoPE or no RoPE) raise NotImplementedError naming the
-ROADMAP item that brings them. The loss, `hidden_forward` and the
-chunked cross-entropy come with the training slice.
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -31,7 +45,7 @@ from repro_torch.models.config import ModelConfig
 
 Tree = Any
 
-_NOT_YET = ("ROADMAP Queue 1 item 15 (MoE / MLA / SSM / RWKV / hybrid / "
+_NOT_YET = ("ROADMAP Queue 1 item 15c (MoE / MLA / SSM / RWKV / hybrid / "
             "audio / VLM families)")
 
 
@@ -186,6 +200,67 @@ def unembed(params, cfg, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+def hidden_forward(params, cfg: ModelConfig, batch):
+    """Forward up to the final norm, WITHOUT the unembed projection.
+    Returns (x, aux, text_offset)."""
+    check_supported(cfg)
+    x, text_offset = embed_inputs(params, cfg, batch)
+    b, t = x.shape[0], x.shape[1]
+    cos, sin = _rope_for(cfg, b, t, device=x.device)
+    ctx = {"cos": cos, "sin": sin, "pos": None,
+           "window": cfg.sliding_window, "max_len": t}
+    x, aux, _ = _run_stack(params["blocks"], cfg, x, ctx, "train")
+    return layers.norm_apply(params["final_norm"], x), aux, text_offset
+
+
+def _chunked_ce(params, cfg, x_pred, labels):
+    """Cross-entropy with the unembed applied chunk by chunk over tokens
+    (cfg.loss_chunk): x_pred (B, T, d), labels (B, T). T is padded to a
+    multiple of the chunk with zero rows and labels, masked out of the
+    mean, as the reference does. A plain loop over the chunks: each
+    chunk's logits are kept for the backward (module docstring)."""
+    b, t, d = x_pred.shape
+    size = cfg.loss_chunk
+    pad = (-t) % size
+    mask = torch.cat([torch.ones((b, t), dtype=torch.float32,
+                                 device=x_pred.device),
+                      torch.zeros((b, pad), dtype=torch.float32,
+                                  device=x_pred.device)], 1)
+    if pad:
+        x_pred = torch.cat([x_pred, x_pred.new_zeros((b, pad, d))], 1)
+        labels = torch.cat([labels, labels.new_zeros((b, pad))], 1)
+    total = torch.zeros((), dtype=torch.float32, device=x_pred.device)
+    for i in range(0, t + pad, size):
+        xc, yc, mc = (z[:, i:i + size] for z in (x_pred, labels, mask))
+        logits = unembed(params, cfg, xc).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        iota = torch.arange(logits.shape[-1], dtype=yc.dtype,
+                            device=logits.device)
+        ll = torch.sum(torch.where(iota == yc[..., None], logits,
+                                   torch.zeros((), dtype=torch.float32,
+                                               device=logits.device)),
+                       dim=-1)
+        total = total + torch.sum((logz - ll) * mc)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy (+ the aux loss, 0 for the dense family):
+    predict tokens[1:] from positions [0 .. T-2]. `batch["loss_mask"]`,
+    when given, weights the tokens (not with `cfg.loss_chunk`, as in the
+    reference). Returns a scalar f32."""
+    tokens = batch["tokens"]
+    if cfg.loss_chunk:
+        x, aux, off = hidden_forward(params, cfg, batch)
+        x_pred = x[:, off:-1] if off else x[:, :-1]
+        return _chunked_ce(params, cfg, x_pred, tokens[:, 1:]) + aux
+    logits, aux, off = forward(params, cfg, batch, mode="train")
+    pred = logits[:, off:-1] if off else logits[:, :-1]
+    ce = layers.softmax_cross_entropy(pred, tokens[:, 1:],
+                                      batch.get("loss_mask"))
+    return ce + aux
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int):

@@ -452,9 +452,6 @@ class TestFlashOnCard:
         assert not any(o in n for o in other for n in names), names
 
     def test_refuses_grad_and_unsupported_inputs(self, cuda_device):
-        q = torch.zeros((1, 64, 64), device=cuda_device, requires_grad=True)
-        with pytest.raises(RuntimeError, match="no backward"):
-            tfa.flash_attention(q, q, q, True, 64, 64)
         x = torch.zeros((1, 64, 64), device=cuda_device)
         with pytest.raises(TypeError):
             tfa.flash_attention(x.double(), x.double(), x.double(), True,
@@ -462,3 +459,42 @@ class TestFlashOnCard:
         y = torch.zeros((1, 64, 96), device=cuda_device)
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_attention(y, y, y, True, 64, 64)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_grads_through_the_kernel_equal_the_plain_version(
+            self, cuda_device, dtype):
+        # under vmap(grad) over 3 clients (k, v batched and shared) and
+        # under grad alone, G < H: the kernel's forward, the recompute
+        # backward, against autograd through the plain version on the card
+        n, b, t, h, g, hd = 3, 2, 128, 4, 2, 64
+        q, k, v = (_torch(a, dtype, cuda_device) for a in _qkv(
+            [(n, b, t, h, hd), (n, b, t, g, hd), (n, b, t, g, hd)], seed=3))
+        w = _torch(_qkv([(b, t, h, hd)], seed=5)[0], dtype, cuda_device)
+
+        def f(q, k, v):
+            o = tfa.gqa_flash(q, k, v, blk_q=64, blk_k=64)
+            return torch.sum(o.float() * w.float())
+
+        def f_plain(q, k, v):
+            return torch.sum(tfa._gqa_plain(q, k, v, True).float()
+                             * w.float())
+
+        tol = _tol(dtype)
+        for in_dims, args in (((0, 0, 0), (q, k, v)),
+                              ((0, None, None), (q, k[0], v[0]))):
+            before = tfa.flash_attention.launches
+            got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)),
+                                  in_dims=in_dims)(*args)
+            torch.cuda.synchronize()
+            assert tfa.flash_attention.launches == before + 1
+            want = torch.func.vmap(torch.func.grad(f_plain,
+                                                   argnums=(0, 1, 2)),
+                                   in_dims=in_dims)(*args)
+            for a, e in zip(got, want):
+                torch.testing.assert_close(a.float(), e.float(), atol=tol,
+                                           rtol=tol)
+        got = torch.func.grad(f, argnums=(0, 1, 2))(q[0], k[0], v[0])
+        want = torch.func.grad(f_plain, argnums=(0, 1, 2))(q[0], k[0], v[0])
+        for a, e in zip(got, want):
+            torch.testing.assert_close(a.float(), e.float(), atol=tol,
+                                       rtol=tol)
