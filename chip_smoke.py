@@ -25,7 +25,9 @@ both flash kernels, bf16 and f32, which must not be 0; the I2F and
 LDG.E.128 counts and registers of the wire aggregations and statistics,
 which must have no I2F and 16-byte loads), kernels (correctness of the
 f32 kernels on f32 and bf16 input and of the int8 / int4 wire kernels at
-the main path's shape and at edge shapes, a second launch of each wire
+the main path's shape, at the rows a rank holds in phase `sharded` (5 and
+3 of the CNN's N) and at edge shapes, the f32 kernels also on storage
+4, 8 and 12 bytes past a 16-byte boundary, a second launch of each wire
 kernel giving the same bits, then timing of every kernel variant, and
 the device kernels of one call of each wire kernel, by a profile: one per
 aggregation, two per statistics call; round_stats at (1, N), sequential
@@ -70,7 +72,17 @@ scanned block), algorithm (fedadp reaches 85% on MLR in no more rounds than feda
 uplink f32, bf16, int8 and int4, on the golden delta section's wires at
 5 of 10 clients, and in sequential mode; buffered fedadp under the
 golden schedule in no more ticks than sync fedavg, on f32/f32 and
-int4/int8; each wire's fedadp rounds over f32's printed), lm_train
+int4/int8; each wire's fedadp rounds over f32's printed), sharded
+(engine="flat_sharded" at the CNN's full width: world 1 over NCCL in
+this process per uplink f32 / int8 / int4, 3 rounds against the flat
+engine from the same seed under deterministic cuDNN, 2 + 1 launches a
+round, equal to 1e-5 (the max difference printed), ms a round of both;
+then a gloo world of two processes sharing this card (`--sharded-child`)
+on f32 and int8: the ranks bit for bit, one round at 2 local steps from
+the initial model against the flat round at 2e-4 / 2e-5, 2 + 1 launches
+per rank per round over K_loc = 5 rows, fedadp in no more MLR rounds to
+85% than fedavg; NCCL over min(cards, 4) cards when there are two or
+more; the kernel table's `launches_sharded`), lm_train
 (grads through gqa_flash under vmap(grad) on the card, f32 and bf16,
 equal the plain version's at the forward's tolerance, and the forward
 runs the dtype's kernel; the 100m preset, f32, K = 4, tau = 2, B = 4,
@@ -126,6 +138,9 @@ TF32X3_FLOPS_PER_S = 495e12 / 3
 TOL = 1e-5
 MAIN_K, MAIN_N = 10, 1_663_370  # K clients x the CNN's parameter count
 EDGE_KS = (1, 3, 37, 128)
+# the rows a rank holds in phase `sharded` at the main N: K = 10 over two
+# ranks, and padded to 12 over four
+SHARD_KS = (5, 3)
 # the odd N give int4 a pad nibble; 13 is shorter than one 16-byte tile of
 # the wire aggregations, and 16,385 walks the rows' start through every
 # residue mod 16 (int8 and int4)
@@ -339,22 +354,27 @@ def phase_kernels(wa, rs, tq, dev) -> dict:
         mask = (torch.rand(n, device=dev, generator=gen) > 0.25).float()
         return x, g, w, mask
 
-    shapes = [(MAIN_K, MAIN_N)] + [(k, n) for k in EDGE_KS for n in EDGE_NS]
+    shapes = ([(MAIN_K, MAIN_N)] + [(k, MAIN_N) for k in SHARD_KS]
+              + [(k, n) for k in EDGE_KS for n in EDGE_NS])
     worst, main_abs = {}, {}
     for k, n in shapes:
         x, g, w, mask = inputs(k, n)
         errs = {}
-        # the f32 kernels on f32 and on bf16 input (the bf16 wire); the
-        # statistics also with x's storage 4, 8 and 12 bytes past a
-        # 16-byte boundary, and a second call giving the same bits
+        # the f32 kernels on f32 and on bf16 input (the bf16 wire), also
+        # with x's storage 4, 8 and 12 bytes past a 16-byte boundary (a
+        # rank's block of the buffered flush is such a view), and the
+        # statistics with a second call giving the same bits
         xb = x.to(torch.bfloat16)
         for tag, xt in (("", x), ("_bf16", xb)):
             xins = [xt] + [shifted(xt, off) for off in (4, 8, 12)]
-            xin, xf = xins[0], xins[0].float()
-            errs["weighted_agg" + tag] = agg_err(
-                wa.weighted_agg(w, xin, out_dtype=torch.float32),
-                wa.weighted_agg_plain(w, xin, torch.float32), w, xf)
-            s_abs = ns = 0.0
+            xf = xins[0].float()
+            a_abs = na = s_abs = ns = 0.0
+            for xi in xins:
+                aa, an = agg_err(
+                    wa.weighted_agg(w, xi, out_dtype=torch.float32),
+                    wa.weighted_agg_plain(w, xi, torch.float32), w, xf)
+                a_abs, na = max(a_abs, aa), max(na, an)
+            errs["weighted_agg" + tag] = (a_abs, na)
             for xi in xins:
                 for m in (None, mask):
                     got = rs.round_stats(xi, g, m)
@@ -1848,6 +1868,271 @@ def phase_algorithm(dev, nodes, test) -> dict:
     return out
 
 
+# ---- the client-sharded engine (engine="flat_sharded") ----
+
+SHARD_WIRES = ("f32", "int8", "int4")  # world 1 over NCCL, in this process
+SHARD_CHILD_WIRES = ("f32", "int8")  # the worlds of child processes
+SHARD_ROUNDS = 3
+SHARD_TIMEOUT = 240  # seconds a world of child processes may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_pairs(a, ma, b, mb) -> dict:
+    """{name: (a's tensor, b's)} over two servers' states and their last
+    rounds' host metrics."""
+    pairs = {f"params/{k}": (a.params[k], b.params[k]) for k in a.params}
+    pairs.update({f"prev_delta/{k}": (a.prev_delta[k], b.prev_delta[k])
+                  for k in a.prev_delta})
+    pairs["angle"] = (a.angle.smoothed, b.angle.smoothed)
+    pairs.update({f"metrics/{k}": (torch.as_tensor(ma[k]),
+                                   torch.as_tensor(mb[k])) for k in ma})
+    return pairs
+
+
+def max_abs_diff(pairs: dict) -> float:
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in pairs.values())
+
+
+def sharded_world1(wa, rs, dev, nodes, test) -> tuple[dict, dict]:
+    """World 1 over NCCL in this process: per uplink wire, 3 CNN rounds of
+    FedServer(engine="flat_sharded", mesh=make_client_mesh()) against the
+    flat engine from the same seed (deterministic cuDNN, so both train the
+    same deltas): 2 + 1 launches of the wire's kernels a round, states
+    equal to 1e-5 (a one-rank all_reduce is a copy: 0 expected), ms a
+    round of both. Returns (the line's part, launches per wire)."""
+    import torch.distributed as dist
+
+    import repro_torch
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    out, launches = {}, {}
+    try:
+        mesh = repro_torch.make_client_mesh(device=dev)
+        torch.backends.cudnn.deterministic = True
+        for wire in SHARD_WIRES:
+            runs = {}
+            for engine in ("flat", "flat_sharded"):
+                cfg = dataclasses.replace(slice_config(wire), engine=engine)
+                server = repro_torch.FedServer(
+                    "cnn", cfg, nodes, test, batch_size=50, device=dev,
+                    mesh=mesh if engine == "flat_sharded" else None)
+                server.step(eval_every=0)  # warm-up
+                server.reset()
+                torch.cuda.synchronize()
+                ms, metrics, counts = counted_rounds(
+                    server, counters(wa, rs), SHARD_ROUNDS)
+                if counts != expected_launches(wire, SHARD_ROUNDS):
+                    raise AssertionError(
+                        f"{engine} {wire}: {SHARD_ROUNDS} rounds launched "
+                        f"{counts}, want 2 + 1 of the wire's kernels")
+                runs[engine] = (server, metrics[-1], ms, counts)
+            flat, sharded = runs["flat"], runs["flat_sharded"]
+            pairs = shard_pairs(flat[0].state, flat[1], sharded[0].state,
+                                sharded[1])
+            worst, where = excess_err(pairs, TOL, TOL)
+            out[wire] = {"sharded_round_ms": sharded[2],
+                         "flat_round_ms": flat[2],
+                         "launches": sharded[3],
+                         "max_abs_diff_vs_flat": max_abs_diff(pairs)}
+            if worst > 0:
+                raise AssertionError(f"world 1 {wire}: flat_sharded and flat "
+                                     f"differ at {where}: {worst}")
+            launches[wire] = sharded[3]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    return out, launches
+
+
+def run_world(backend: str, world: int) -> list:
+    """`world` child processes of this script (`--sharded-child`), one
+    rank each, joined with SHARD_TIMEOUT; returns each rank's result.
+    A child that fails or outlives the timeout raises."""
+    import tempfile
+
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-child",
+             backend, str(r), str(world), str(port), outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode) for r, p in enumerate(procs)
+               if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"{backend} world of {world}: ranks {bad} "
+                                 f"failed:\n" + "\n".join(
+                                     log[-3000:] for log in logs))
+        return [torch.load(o, weights_only=True) for o in outs]
+
+
+def check_world(results: list, what: str) -> dict:
+    """The ranks of one world agree bit for bit; rank 0's sharded round
+    equals its flat round at SEQ_TOL; every rank launched 2 + 1 of the
+    wire's kernels a round; fedadp needs no more MLR rounds than
+    fedavg. Returns the line's part."""
+    r0 = results[0]
+    for r, res in enumerate(results[1:], 1):
+        for key, t in r0["tensors"].items():
+            o = res["tensors"][key]
+            if t.dtype != o.dtype or not torch.equal(t, o):
+                raise AssertionError(f"{what}: rank {r} differs from rank 0 "
+                                     f"at {key}")
+    out = {"ranks": len(results), "ranks_bit_equal": True}
+    for wire in SHARD_CHILD_WIRES:
+        pairs = {k: (r0["tensors"][f"{wire}/sharded/{k}"],
+                     r0["flat"][f"{wire}/{k}"])
+                 for k in r0["flat_keys"][wire]}
+        worst, where = excess_err(pairs, *SEQ_TOL)
+        if worst > 0:
+            raise AssertionError(f"{what} {wire}: the sharded round and the "
+                                 f"flat round differ at {where}: {worst}")
+        for r, res in enumerate(results):
+            if res["launches"][wire] != expected_launches(wire,
+                                                          SHARD_ROUNDS):
+                raise AssertionError(f"{what} {wire}: rank {r} launched "
+                                     f"{res['launches'][wire]}")
+        out[wire] = {"vs_flat_excess_err": worst, "vs_flat_worst": where,
+                     "vs_flat_max_abs_diff": max_abs_diff(pairs),
+                     "round_ms_per_rank": [res["round_ms"][wire]
+                                           for res in results],
+                     "launches_per_rank": r0["launches"][wire],
+                     "accuracy": r0["accuracy"][wire]}
+    adp, avg = r0["mlr"]["fedadp"], r0["mlr"]["fedavg"]
+    if adp is None or adp > (math.inf if avg is None else avg):
+        raise AssertionError(f"{what}: MLR fedadp {adp} vs fedavg {avg}")
+    out["mlr_rounds_to_85"] = r0["mlr"]
+    return out
+
+
+def sharded_child(backend: str, rank: int, world: int, port: int,
+                  out_path: str) -> int:
+    """One rank of a child world: the CNN round at SHARD_TAU local steps
+    from the initial model on continuous images (rank 0 also runs the
+    flat round), SHARD_ROUNDS counted FedServer rounds per wire, and
+    fedadp / fedavg to 85% on MLR, all on engine="flat_sharded"."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = repro_torch.make_client_mesh(device=dev)
+        nodes, test = image_task()
+        res = {"tensors": {}, "flat": {}, "flat_keys": {}, "launches": {},
+               "round_ms": {}, "accuracy": {}, "mlr": {}}
+        for wire in SHARD_CHILD_WIRES:
+            cfg = dataclasses.replace(slice_config(wire),
+                                      engine="flat_sharded")
+            server = repro_torch.FedServer("cnn", cfg, nodes, test,
+                                           batch_size=50, mesh=mesh)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            x = torch.rand((10, SEQ_TAU, 50, 28, 28, 1), generator=gen,
+                           device=dev)
+            y = torch.randint(0, 10, (10, SEQ_TAU, 50), generator=gen,
+                              device=dev)
+            args = ((x, y), torch.arange(10, device=dev),
+                    torch.full((10,), 600.0, device=dev))
+            torch.backends.cudnn.deterministic = True
+            st, m = fl_mod.make_round_fn(cnn_loss, cfg, mesh=mesh)(
+                server.state, *args)
+            pairs = shard_pairs(st, m, st, m)
+            res["tensors"].update({f"{wire}/sharded/{k}": a.cpu()
+                                   for k, (a, _) in pairs.items()})
+            if rank == 0:
+                fst, fm = fl_mod.make_round_fn(cnn_loss, dataclasses.replace(
+                    cfg, engine="flat"))(server.state, *args)
+                res["flat"].update({f"{wire}/{k}": a.cpu() for k, (a, _) in
+                                    shard_pairs(fst, fm, fst, fm).items()})
+                res["flat_keys"][wire] = list(pairs)
+            torch.backends.cudnn.deterministic = False
+            server.step(eval_every=0)  # warm-up
+            server.reset()
+            torch.cuda.synchronize()
+            ms, metrics, counts = counted_rounds(server, counters(wa, rs),
+                                                 SHARD_ROUNDS)
+            res["tensors"].update({f"{wire}/server/{k}": a.cpu() for k, (a, _)
+                                   in shard_pairs(server.state, metrics[-1],
+                                                  server.state,
+                                                  metrics[-1]).items()})
+            res["launches"][wire] = counts
+            res["round_ms"][wire] = ms
+            res["accuracy"][wire] = [float(mm["accuracy"]) for mm in metrics]
+        for method in ("fedadp", "fedavg"):
+            cfg = repro_torch.FLConfig(num_clients=10, clients_per_round=10,
+                                       local_steps=12, method=method,
+                                       engine="flat_sharded", base_lr=0.05)
+            hist = repro_torch.FedServer("mlr", cfg, nodes, test,
+                                         batch_size=50, mesh=mesh).run(
+                60, target_acc=0.85, eval_every=1)
+            res["mlr"][method] = hist.rounds_to_target
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(wa, rs, dev, nodes, test) -> dict:
+    """engine="flat_sharded" at the CNN's full width (K = 10, B = 50): world
+    1 over NCCL in this process (`sharded_world1`), then two gloo
+    processes sharing this card, and NCCL over min(count, 4) cards when
+    there are two or more. Returns the world-1 launches per wire."""
+    t0 = time.perf_counter()
+    world1, launches = sharded_world1(wa, rs, dev, nodes, test)
+    out = {"phase": "sharded", "model": "cnn", "clients": 10,
+           "local_steps": 12, "batch": 50, "equal_tau": SEQ_TAU,
+           "world1_nccl": world1}
+    t1 = time.perf_counter()
+    out["world2_gloo_one_card"] = check_world(run_world("gloo", 2),
+                                              "gloo world 2")
+    out["world2_gloo_one_card"]["seconds"] = time.perf_counter() - t1
+    out["world2_gloo_one_card"]["note"] = (
+        "two processes share one device: round_ms is no speed-up")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out[f"nccl_world{min(cards, 4)}"] = check_world(
+            run_world("nccl", min(cards, 4)), "nccl world")
+    else:
+        print(f"sharded: NCCL across cards not run: {cards} card visible",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return launches
+
+
 # ---- the dense-LM serving path and kernels/ops.py ----
 
 def timing_entry(name, source, replaces, kernel, plain, library, nbytes,
@@ -2743,6 +3028,7 @@ def main() -> int:
     phase_resume(wa, rs, dev, nodes, test)
     phase_telemetry(wa, rs, tq, dev, nodes, test)
     phase_algorithm(dev, nodes, test)
+    sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
@@ -2751,6 +3037,8 @@ def main() -> int:
         # each row's launches: its wrapper's count on its own wire's path
         wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
         row["launches"] = launches[row["wire"]][wrapper]
+        if row["wire"] in sharded_launches:  # the same kernels at K_loc
+            row["launches_sharded"] = sharded_launches[row["wire"]][wrapper]
     # the LM kernels' launches: serving's generate call, and the ops path
     # (bf16 in the generate call, f32 in the f32 model's prefill)
     lm_table["flash_attention"]["launches"] = serve_out["flash_launches"]
@@ -2783,4 +3071,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-child"]:  # one rank of phase_sharded
+        backend, rank, world, port, out_path = sys.argv[2:7]
+        sys.exit(sharded_child(backend, int(rank), int(world), int(port),
+                               out_path))
     sys.exit(main())

@@ -4,8 +4,11 @@ The FedAdp round (paper Eqs. 8-11) with its passes over the (K, N)
 client-delta buffer written by hand in CUDA C++ (`repro_torch.kernels`):
 the parallel round on every uplink and downlink wire, sequential mode and
 the buffered-async server; stepwise or scanned runs, checkpoints with a
-bit-exact kill/resume, and round telemetry. Modules mirror the JAX
-package's names, and `__all__` mirrors `repro.__all__`:
+bit-exact kill/resume, and round telemetry; and the client-sharded
+engine (`engine="flat_sharded"`) over the ranks of a `torch.distributed`
+client mesh (`make_client_mesh`). Modules mirror the JAX package's
+names, and `__all__` mirrors `repro.__all__` plus the mesh and
+`default_device`:
 
     import repro_torch
 
@@ -41,6 +44,11 @@ from repro_torch.core.fl import (  # noqa: E402
     state_from_tree,
     state_to_tree,
 )
+from repro_torch.launch.mesh import (  # noqa: E402
+    ClientMesh,
+    make_client_mesh,
+    make_host_mesh,
+)
 from repro_torch.core.server import (  # noqa: E402
     FedServer,
     History,
@@ -56,6 +64,7 @@ from repro_torch.telemetry.spans import SpanTimer  # noqa: E402
 
 __all__ = [
     "CSVSink",
+    "ClientMesh",
     "FLConfig",
     "FedServer",
     "History",
@@ -66,6 +75,8 @@ __all__ = [
     "default_device",
     "fixed_arrival_schedule",
     "init_round_state",
+    "make_client_mesh",
+    "make_host_mesh",
     "make_round_fn",
     "run_manifest",
     "state_from_tree",

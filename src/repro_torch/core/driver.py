@@ -16,6 +16,11 @@ device, stacks them, copies them to the host once a block, and checks
 for early exit between blocks. It snapshots the whole RoundState at
 block boundaries (`ckpt_dir=`), so a killed run restores bit for bit
 (`fl.state_from_tree` + `checkpoint.io.load_latest`).
+
+On a client mesh (`engine="flat_sharded"`) every rank runs the same
+step: the same generator seed draws the same cohort and batches on every
+rank, and the round leaves every rank the same state. Rank 0 writes the
+checkpoints (`save_state`).
 """
 from __future__ import annotations
 
@@ -163,8 +168,9 @@ def make_step_fn(loss_fn: Callable, fl: fl_mod.FLConfig, data: ClientData,
     With `fl.aggregation == "buffered"` a step is one server tick: under
     partial participation the cohort avoids busy clients
     (`select_clients_avoiding` over `state.buf`), and `arrival_fn` goes
-    to the round (`core.server.fixed_arrival_schedule`). `mesh` must be
-    None, as in `fl.make_round_fn`."""
+    to the round (`core.server.fixed_arrival_schedule`). `mesh` (a
+    `launch.mesh.ClientMesh`) goes to the round, as in
+    `fl.make_round_fn`: engine="flat_sharded" needs it."""
     round_fn = fl_mod.make_round_fn(loss_fn, fl, angle_pred=angle_pred,
                                     mesh=mesh, arrival_fn=arrival_fn)
     avoid = (fl.aggregation == "buffered"
@@ -212,6 +218,22 @@ def make_scan_runner(step_fn: Callable) -> Callable:
     return run_block
 
 
+def save_state(ckpt_dir: str, round_now: int, state: fl_mod.RoundState,
+               keep: int = 3, mesh=None) -> str:
+    """Snapshot `state` at `round_now` (`checkpoint.io.save_checkpoint`)
+    and return the archive's path. On a mesh rank 0 writes (every rank
+    holds the same state) and every rank waits at a barrier until it
+    has, so a restore on any rank reads the finished archive."""
+    path = ckpt_io.checkpoint_path(ckpt_dir, round_now)
+    if mesh is None or mesh.rank == 0:
+        path = ckpt_io.save_checkpoint(ckpt_dir, round_now,
+                                       fl_mod.state_to_tree(state),
+                                       keep=keep)
+    if mesh is not None:
+        mesh.barrier()
+    return path
+
+
 def _to_host(metrics: dict) -> dict:
     """One block's stacked device metrics as numpy: every copy is queued,
     then one wait for the device."""
@@ -225,7 +247,7 @@ def run_rounds(run_block: Callable, state: fl_mod.RoundState, rounds: int,
                block: int = 8, ckpt_dir: Optional[str] = None,
                ckpt_every_blocks: int = 1, ckpt_keep: int = 3,
                sink=None, telemetry_every: int = 1,
-               spans: Optional[tel_spans.SpanTimer] = None):
+               spans: Optional[tel_spans.SpanTimer] = None, mesh=None):
     """Blocks of rounds with host-side early exit and optional
     block-boundary checkpointing, the reference's `run_rounds`.
 
@@ -250,6 +272,8 @@ def run_rounds(run_block: Callable, state: fl_mod.RoundState, rounds: int,
     `telemetry.spans.SpanTimer`; one over `sink` when omitted) bounds
     each block and its host copy as a ``scan_block`` span, checkpoint
     writes as ``checkpoint``, and event emission as ``sink_emit``.
+    `mesh` (a client mesh) makes rank 0 the checkpoint writer
+    (`save_state`).
 
     Returns (state, metrics, rounds_to_target, rounds_run): metrics holds
     per-round host arrays stacked over every round run by this call
@@ -263,9 +287,7 @@ def run_rounds(run_block: Callable, state: fl_mod.RoundState, rounds: int,
     def checkpoint(round_now):
         nonlocal saved_at
         with spans.span("checkpoint", round=round_now):
-            ckpt_io.save_checkpoint(ckpt_dir, round_now,
-                                    fl_mod.state_to_tree(state),
-                                    keep=ckpt_keep)
+            save_state(ckpt_dir, round_now, state, ckpt_keep, mesh)
         saved_at = round_now
 
     blocks = []

@@ -1,8 +1,8 @@
 """The FedAdp / FedAvg / FedProx round in torch: parallel, sequential
 and buffered-async.
 
-The counterpart of `repro/core/fl.py` (without its flat_sharded engine).
-`make_round_fn(loss_fn, fl)` returns
+The counterpart of `repro/core/fl.py`. `make_round_fn(loss_fn, fl)`
+returns
 
     round_fn(state, batches, sel_idx, data_sizes) -> (state, metrics)
 
@@ -32,13 +32,23 @@ parallel round (mode="parallel", aggregation="sync"):
   dequantized wire (it never reads the wire buffer), the port's own
   cross-check of the flat engine;
 * between the passes, O(K) scalar math: the Eq. 8 angles, the Eq. 9
-  scatter and the Eq. 10-11 weights (`weighting`).
+  scatter and the Eq. 10-11 weights (`weighting`);
+* engine="flat_sharded" (with `mesh=`, a `launch.mesh.ClientMesh`): the
+  flat engine split over the ranks of a client mesh. Every rank runs the
+  same round on the same arguments, trains only its rows of the client
+  axis zero-padded to a multiple of the mesh size, and streams them
+  through the same kernels; `core.fl_shard_map.make_round_ops` sums the
+  partial aggregates and statistics with `all_reduce`, and the rows the
+  state keeps (the EF residual, the losses) are broadcast from their
+  owners, so every rank ends the round with the same state, bit for bit.
 
 mode="sequential" trains one client at a time, twice (or once against
 the previous round's delta with `stale_angles`), with each client's
 statistics through `round_stats` on a (1, N) view. aggregation="buffered"
 makes a call one tick of the buffered-async server (`core.buffer`): its
-flat engine streams the buffer's f32 rows through the f32 kernels.
+flat engine streams the buffer's f32 rows through the f32 kernels (the
+sharded engine each rank's rows of it, after every rank has admitted the
+same f32 reports).
 
 `FLConfig(telemetry="node")` adds the reference's ``tel/*`` metrics to
 every round (`_telemetry_metrics`), computed on the device; with
@@ -49,9 +59,6 @@ elastic K.
 Angle convention: the paper's theta_i is between grad F and grad F_i with
 grad F_i = -Delta_i/eta; the -1/eta factors cancel in the cosine, so the
 deltas are correlated directly.
-
-What the port does not carry yet raises NotImplementedError naming the
-ROADMAP item (Queue 1) that will bring it.
 """
 from __future__ import annotations
 
@@ -65,7 +72,7 @@ import repro_torch
 from repro_torch import transport
 from repro_torch.checkpoint.io import GeneratorState
 from repro_torch.core import buffer as buffer_mod
-from repro_torch.core import treemath, weighting
+from repro_torch.core import fl_shard_map, treemath, weighting
 from repro_torch.core.weighting import AngleState
 from repro_torch.kernels.round_stats import (
     round_stats,
@@ -77,6 +84,7 @@ from repro_torch.kernels.weighted_agg import (
     weighted_agg_q,
     weighted_agg_q4,
 )
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.transport import DOWNLINKS, GROUP_SIZE, TRANSPORTS, downlink
 
 Tree = Any
@@ -228,15 +236,6 @@ class FLConfig:
         return self
 
 
-def check_in_slice(fl: FLConfig) -> None:
-    """Raise NotImplementedError for a valid config that the port does
-    not run yet, naming the ROADMAP (Queue 1) item that will bring it."""
-    if fl.engine == "flat_sharded":
-        raise NotImplementedError(
-            "the torch port does not run engine='flat_sharded' (ROADMAP "
-            "Queue 1 item 13) yet")
-
-
 class RoundState(NamedTuple):
     """The server-side carry of a round, the reference's RoundState field
     for field. Optional fields are None when their FLConfig flag is off.
@@ -275,7 +274,6 @@ def init_round_state(fl: FLConfig, params: Tree,
     buffers the config asks for: the uplink EF rows, the downlink EF
     vector, the broadcast state and the report buffer."""
     fl.validate()
-    check_in_slice(fl)
     device = treemath.tree_leaves(params)[0].device
     if isinstance(seed, torch.Generator):
         rng = seed
@@ -757,8 +755,12 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     `delta_constraint` maps the stacked deltas right after the clients'
     local updates (parallel and buffered rounds), `grad_constraint` each
     local step's gradients (every mode), as in the reference, which uses
-    both for sharding constraints. `mesh` must be None: the port has no
-    mesh engine yet (ROADMAP Queue 1 item 13). When `angle_pred` is None,
+    both for sharding constraints. `mesh` (a `launch.mesh.ClientMesh`) is
+    required by engine="flat_sharded", which splits the client axis over
+    its ranks (K not divisible by the mesh size is zero-padded) and runs
+    on the mesh's device; the other engines ignore it. The 2D (client x
+    model) layout is not ported (ROADMAP Queue 1 item 13b).
+    When `angle_pred` is None,
     `fl.angle_filter` picks the built-in predicate ("dense_only" ->
     `moe_dense_only_pred`). `fl.mode` picks the parallel round (engine
     "flat" or "tree") or the sequential one; `fl.aggregation="buffered"`
@@ -769,11 +771,13 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     the input state is left as it was.
     """
     fl.validate()
-    check_in_slice(fl)
-    if mesh is not None:
-        raise NotImplementedError(
-            "the torch port takes no mesh= yet (ROADMAP Queue 1 item 13); "
-            "pass mesh=None")
+    check_mesh(mesh)
+    if fl.engine == "flat_sharded" and mesh is None:
+        raise ValueError(
+            "engine='flat_sharded' shards the (K, N) delta buffer over "
+            "the mesh client axis; pass mesh= to make_round_fn")
+    if fl.engine != "flat_sharded":
+        mesh = None
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
     if fl.mode == "sequential":
@@ -781,9 +785,10 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                                       grad_constraint)
     if fl.aggregation == "buffered":
         return _make_buffered_round(loss_fn, fl, delta_constraint,
-                                    angle_pred, grad_constraint, arrival_fn)
+                                    angle_pred, grad_constraint, mesh,
+                                    arrival_fn)
     return _make_parallel_round(loss_fn, fl, delta_constraint, angle_pred,
-                                grad_constraint)
+                                grad_constraint, mesh)
 
 
 def _clients(loss_fn: Callable, fl: FLConfig,
@@ -805,33 +810,80 @@ def _clients(loss_fn: Callable, fl: FLConfig,
     return clients
 
 
+def _sharded_clients(clients: Callable, mesh) -> Callable:
+    """(params, batches, lr, k) -> (flat, losses, real): this rank's
+    clients of a K-client round, trained alone. `flat` is the rank's
+    (Kp/P, N) f32 block of the client axis zero-padded to
+    `fl_shard_map.padded_k(k, mesh.size)`: rows past K are zero (padding
+    carries no data, so it gets zero weight and zero statistics). `real`
+    slices the rank's rows below K (none on a rank past K), and `losses`
+    holds their mean losses."""
+
+    def run(params, batches, lr, k: int):
+        kp = fl_shard_map.padded_k(k, mesh.size)
+        mine = fl_shard_map.flat_client_sharding(mesh).rows(kp)
+        real = slice(min(mine.start, k), min(mine.stop, k))
+        if real.stop > real.start:
+            deltas, losses = clients(
+                params, treemath.tree_map(lambda a: a[real], batches), lr)
+            flat, _ = treemath.tree_ravel_stacked(deltas)
+        else:
+            flat = torch.zeros((0, param_count(params)), device=mesh.device)
+            losses = torch.zeros(0, device=mesh.device)
+        return (fl_shard_map.pad_rows(flat, mine.stop - mine.start), losses,
+                real)
+
+    return run
+
+
 def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
                          delta_constraint: Optional[Callable],
                          angle_pred: Optional[Callable],
-                         grad_constraint: Optional[Callable]) -> Callable:
+                         grad_constraint: Optional[Callable],
+                         mesh=None) -> Callable:
     clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
+    if mesh is not None:
+        sharded_clients = _sharded_clients(clients, mesh)
+        round_ops = fl_shard_map.make_round_ops(
+            mesh, alpha=fl.alpha, method=fl.method, transport=fl.transport,
+            group_size=fl.group_size)
 
-    def round_fn(state: RoundState, batches, sel_idx, data_sizes):
-        _check_state(fl, state)
+    def sharded_uplink(state, params, batches, sel, data_sizes, psi_avg,
+                       lr):
+        """The flat_sharded engine's uplink and aggregation: (losses, new
+        EF, g_avg, dots, sqs, sqg, theta, w, delta), the same on every
+        rank."""
+        k = sel.shape[0]
+        kp = fl_shard_map.padded_k(k, mesh.size)
+        flat, losses, real = sharded_clients(params, batches, lr, k)
+        nreal = real.stop - real.start
+        new_ef = state.ef
+        if fl.error_feedback:
+            flat = flat + fl_shard_map.pad_rows(state.ef[sel[real]],
+                                                flat.shape[0])
+        wire = transport.quantize(flat, fl.transport,
+                                  group_size=fl.group_size)
+        if fl.error_feedback:
+            resid = (flat - transport.dequantize(wire))[:nreal]
+            new_ef = state.ef.index_copy(0, sel, fl_shard_map.replicate_rows(
+                mesh, resid, k))
+        values = ((wire.values,) if wire.scales is None
+                  else (wire.values, wire.scales))
+        pad = fl_shard_map.pad_rows
+        g_flat, dots, sqs, sqg, delta_flat, theta, _, w = round_ops(
+            *values, pad(psi_avg, kp), segment_mask(params),
+            pad(state.angle.smoothed[sel], kp),
+            pad(state.angle.count[sel], kp), pad(data_sizes, kp), n=wire.n)
+        unravel = treemath.unraveler(params)
+        return (fl_shard_map.replicate_rows(mesh, losses, k), new_ef,
+                unravel(g_flat, torch.float32), dots[:k], sqs[:k], sqg,
+                theta[:k], w[:k], unravel(delta_flat))
+
+    def uplink(state, params, batches, sel, data_sizes, psi_avg, lr):
+        """The flat and tree engines' uplink and aggregation."""
         angle_state = state.angle
-        sel = sel_idx.to(torch.int64)
-        lr = _lr_at(fl, state.round)
-        # ---- the downlink: the clients train from its reconstruction,
-        # the aggregate lands on the uncompressed master copy ----
-        params_srv = state.params
-        params, new_dl, new_bcast = _broadcast(fl, state)
-        down_split = None
-        if fl.downlink_delta:
-            # every selected client pulls version v
-            v = new_bcast.head_ver
-            if fl.telemetry:
-                down_split = _down_byte_split(fl, param_count(params),
-                                              state.bcast.ver[sel], v)
-            new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
-                0, sel, v.expand(sel.shape[0])))
         deltas, losses = clients(params, batches, lr)
-        psi_avg = weighting.fedavg_weights(data_sizes)
         new_ef = state.ef
 
         # ---- the uplink: ravel once, compress once to the wire ----
@@ -879,6 +931,42 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
             delta = treemath.tree_map(
                 lambda d, p: d.to(p.dtype),
                 treemath.tree_weighted_sum(deltas, w, torch.float32), params)
+        return (losses, new_ef, g_avg, dots, sqs, sqg, theta, new_angle,
+                theta_sm, w, delta)
+
+    def round_fn(state: RoundState, batches, sel_idx, data_sizes):
+        _check_state(fl, state)
+        if mesh is not None:
+            mesh.check_device(data_sizes.device)
+        angle_state = state.angle
+        sel = sel_idx.to(torch.int64)
+        lr = _lr_at(fl, state.round)
+        # ---- the downlink: the clients train from its reconstruction,
+        # the aggregate lands on the uncompressed master copy ----
+        params_srv = state.params
+        params, new_dl, new_bcast = _broadcast(fl, state)
+        down_split = None
+        if fl.downlink_delta:
+            # every selected client pulls version v
+            v = new_bcast.head_ver
+            if fl.telemetry:
+                down_split = _down_byte_split(fl, param_count(params),
+                                              state.bcast.ver[sel], v)
+            new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
+                0, sel, v.expand(sel.shape[0])))
+        psi_avg = weighting.fedavg_weights(data_sizes)
+        if mesh is not None:
+            (losses, new_ef, g_avg, dots, sqs, sqg, theta, w,
+             delta) = sharded_uplink(state, params, batches, sel,
+                                     data_sizes, psi_avg, lr)
+            # Eq. 9 scatter: the region computed the same float ops for
+            # its weights; this is the state's bookkeeping
+            new_angle = _scatter_angles(angle_state, sel, theta)
+            theta_sm = new_angle.smoothed[sel]
+        else:
+            (losses, new_ef, g_avg, dots, sqs, sqg, theta, new_angle,
+             theta_sm, w, delta) = uplink(state, params, batches, sel,
+                                          data_sizes, psi_avg, lr)
         new_params = treemath.tree_add(params_srv, delta)
 
         # Fig. 7 divergence: (1/K) sum_i ||dF - dF_i|| with dF ~ -delta/lr
@@ -901,9 +989,10 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
                          delta_constraint: Optional[Callable],
                          angle_pred: Optional[Callable],
                          grad_constraint: Optional[Callable],
-                         arrival_fn: Optional[Callable]) -> Callable:
+                         mesh=None,
+                         arrival_fn: Optional[Callable] = None) -> Callable:
     """The buffered-async server tick (aggregation="buffered"), the
-    reference's `_make_buffered_round` without its flat_sharded branch.
+    reference's `_make_buffered_round`.
 
     One call is one server tick: the K candidates pull the current
     broadcast and train; free slots of `state.buf` admit the reports of
@@ -915,9 +1004,19 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
     one f32 statistics call over the buffer's dequantized rows, on every
     wire) and waits on nothing. With buffer_m == K and no stragglers or
     drops each masked op reduces to its sync counterpart bit for bit.
+
+    With a mesh (engine="flat_sharded") each rank trains its rows of the
+    cohort, and the admitted reports' dequantized f32 rows are broadcast
+    from their owners, so every rank admits the same buffer; the flush
+    (`fl_shard_map.make_buffered_flush_ops`) streams each rank's rows of
+    it, the padding rows landed False.
     """
     clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
+    if mesh is not None:
+        sharded_clients = _sharded_clients(clients, mesh)
+        flush_ops = fl_shard_map.make_buffered_flush_ops(
+            mesh, alpha=fl.alpha, method=fl.method, beta=fl.staleness_beta)
     stochastic = (arrival_fn is None
                   and (fl.straggle_prob > 0 or fl.dropout_prob > 0))
     m_flush = fl.buffer_m if fl.buffer_m > 0 else fl.clients_per_round
@@ -925,6 +1024,8 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
 
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
         _check_state(fl, state)
+        if mesh is not None:
+            mesh.check_device(data_sizes.device)
         angle_state = state.angle
         dev = data_sizes.device
         sel = sel_idx.to(torch.int64)
@@ -951,7 +1052,11 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
         # for the admitted candidates only (admission is the pull) ----
         params_srv = state.params
         params, new_dl, new_bcast = _broadcast(fl, state)
-        deltas, losses = clients(params, batches, lr)
+        if mesh is not None:
+            flat0, losses, real = sharded_clients(params, batches, lr, k)
+            losses = fl_shard_map.replicate_rows(mesh, losses, k)
+        else:
+            deltas, losses = clients(params, batches, lr)
 
         busy = buffer_mod.population_busy(state.buf, fl.num_clients)
         admit = state.buf.free & ~busy[sel] & ~drop
@@ -967,21 +1072,31 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
                 0, sel, torch.where(admit, new_bcast.head_ver, ver_sel)))
 
         # ---- the uplink: compress to the wire, buffer the f32
-        # reconstruction ----
-        flat0, unravel0 = treemath.tree_ravel_stacked(deltas)
+        # reconstruction (sharded: of this rank's rows) ----
+        if mesh is not None:
+            unravel0 = treemath.unraveler(params)
+            flat0 = flat0[:real.stop - real.start]
+        else:
+            flat0, unravel0 = treemath.tree_ravel_stacked(deltas)
+            real = slice(None)
         new_ef = state.ef
         if fl.transport == "f32":
             rows = flat0
         else:
             if fl.error_feedback:
-                flat0 = flat0 + state.ef[sel]
+                flat0 = flat0 + state.ef[sel[real]]
             rows = transport.dequantize(transport.quantize(
                 flat0, fl.transport, group_size=fl.group_size))
             if fl.error_feedback:
                 # a report that was not admitted never shipped: its
                 # residual stays carried
-                new_ef = state.ef.index_copy(0, sel, torch.where(
-                    admit[:, None], flat0 - rows, state.ef[sel]))
+                resid = torch.where(admit[real, None], flat0 - rows,
+                                    state.ef[sel[real]])
+                if mesh is not None:
+                    resid = fl_shard_map.replicate_rows(mesh, resid, k)
+                new_ef = state.ef.index_copy(0, sel, resid)
+        if mesh is not None:
+            rows = fl_shard_map.replicate_rows(mesh, rows, k)
         buf = buffer_mod.admit(state.buf, admit, rows, sel, data_sizes,
                                delay)
         landed = buffer_mod.landed_mask(buf)
@@ -993,7 +1108,20 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
         # angle reference g (psi_avg when every row landed at age 0)
         psi_b = weighting.buffered_fedavg_weights(
             buf.sizes, buf.age, landed, fl.staleness_beta)
-        if fl.engine == "flat":
+        if mesh is not None:
+            # each rank's rows of the buffer; padding rows land False
+            kp = fl_shard_map.padded_k(k, mesh.size)
+            pad = fl_shard_map.pad_rows
+            shard = fl_shard_map.flat_client_sharding(mesh)
+            g_flat, dots, sqs, sqg, delta_flat, theta, _, w = flush_ops(
+                fl_shard_map.local_block(buf.data, kp, shard), pad(psi_b, kp),
+                segment_mask(params),
+                pad(angle_state.smoothed[slot], kp),
+                pad(angle_state.count[slot], kp), pad(buf.sizes, kp, 1.0),
+                pad(buf.age, kp), pad(landed, kp, False))
+            dots, sqs, theta, w = dots[:k], sqs[:k], theta[:k], w[:k]
+            g_avg = unravel0(g_flat, torch.float32)
+        elif fl.engine == "flat":
             g_flat = weighted_agg(psi_b, buf.data, out_dtype=torch.float32)
             dots, sqs, sqg = round_stats(buf.data, g_flat,
                                          segment_mask(params))
@@ -1005,7 +1133,8 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
                                                torch.float32)
             dots, sqs, sqg = _tree_stats(deltas_b, g_avg, params,
                                          angle_pred)
-        theta = weighting.instantaneous_angle(dots, sqs, sqg)
+        if mesh is None:
+            theta = weighting.instantaneous_angle(dots, sqs, sqg)
 
         # Eq. 9 over the landed rows, kept only on a flush tick
         ang_flushed = _scatter_angles_masked(angle_state, slot, theta,
@@ -1013,21 +1142,25 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
         new_angle = AngleState(*(torch.where(do_flush, a, b) for a, b in
                                  zip(ang_flushed, angle_state)))
         theta_sm = new_angle.smoothed[slot]
-        if fl.method == "fedadp":
-            w = weighting.buffered_fedadp_weights(
-                theta_sm, buf.sizes, buf.age, landed, fl.alpha,
-                fl.staleness_beta)
-        else:
-            w = psi_b
-        if fl.engine == "flat":
-            delta_flat = (weighted_agg(w, buf.data, out_dtype=torch.float32)
-                          if fl.method == "fedadp" else g_flat)
+        if mesh is not None:  # the flush region's weights and aggregate
             delta = unravel0(delta_flat)
         else:
-            delta = treemath.tree_map(
-                lambda d, p: d.to(p.dtype),
-                treemath.tree_weighted_sum(deltas_b, w, torch.float32),
-                params)
+            if fl.method == "fedadp":
+                w = weighting.buffered_fedadp_weights(
+                    theta_sm, buf.sizes, buf.age, landed, fl.alpha,
+                    fl.staleness_beta)
+            else:
+                w = psi_b
+            if fl.engine == "flat":
+                delta_flat = (weighted_agg(w, buf.data,
+                                           out_dtype=torch.float32)
+                              if fl.method == "fedadp" else g_flat)
+                delta = unravel0(delta_flat)
+            else:
+                delta = treemath.tree_map(
+                    lambda d, p: d.to(p.dtype),
+                    treemath.tree_weighted_sum(deltas_b, w, torch.float32),
+                    params)
 
         # a flush applies the delta to the master params; any other tick
         # carries params and prev_delta as they were

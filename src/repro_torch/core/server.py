@@ -15,14 +15,20 @@ device from the state's generator. Two run modes share that step:
 `save_checkpoint` and `restore` are the two halves of a kill/resume; a
 `telemetry` sink streams either mode as schema events.
 
-Every round the port runs goes through it: the parallel round on either
+Every round the port runs goes through it: the parallel round on every
 engine and every uplink and downlink wire, sequential mode, and the
 buffered-async server (`fixed_arrival_schedule` gives it an explicit
-arrival schedule). `_epoch_batcher` is the reference's host-side numpy
-batcher, kept for tests and scripts that batch a node's data by hand.
+arrival schedule). With `mesh=` (a `launch.mesh.ClientMesh`, for
+engine="flat_sharded") every rank of the mesh builds the same server
+from the same arguments and runs the same calls: the server runs on the
+mesh's device, rank 0 writes the checkpoints and feeds the telemetry
+sink, and every rank restores. `_epoch_batcher` is the reference's
+host-side numpy batcher, kept for tests and scripts that batch a node's
+data by hand.
 
-`FedServer(..., device=None)` runs on CUDA and raises when there is no
-GPU: pass device="cpu" to run on the CPU (the kernels' plain versions).
+`FedServer(..., device=None)` runs on CUDA (on a mesh, on the mesh's
+device) and raises when there is no GPU: pass device="cpu" to run on the
+CPU (the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.core import driver as driver_mod
 from repro_torch.core import fl as fl_mod
 from repro_torch.core import treemath
 from repro_torch.data.synthetic import Dataset
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import small
 from repro_torch.telemetry import schema as tel_schema
 from repro_torch.telemetry import sinks as tel_sinks
@@ -93,10 +100,17 @@ class FedServer:
     def __init__(self, model: str, fl: fl_mod.FLConfig, nodes: list, test,
                  batch_size: int, seed: int = 0, angle_pred=None, mesh=None,
                  arrival_fn=None, *, device=None):
-        """The reference's parameters, by name and position (`mesh` must
-        be None: no mesh engine yet, ROADMAP Queue 1 item 13), and a
+        """The reference's parameters, by name and position, and a
         keyword-only `device`: None means CUDA (raising without a GPU),
-        "cpu" the kernels' plain versions."""
+        "cpu" the kernels' plain versions. A `mesh` (a
+        `launch.mesh.ClientMesh`) brings its own device: `device` may
+        name the same one or be None, and another raises ValueError."""
+        check_mesh(mesh)
+        if mesh is not None:
+            if device is not None:
+                mesh.check_device(device)
+            device = mesh.device
+        self.mesh = mesh
         self.device = (repro_torch.default_device() if device is None
                        else torch.device(device))
         self.fl = fl
@@ -180,10 +194,14 @@ class FedServer:
         round (subsampled by `telemetry_every`), per-node FedAdp rows
         when the config has `telemetry="node"`, and a ``summary`` last.
         Both modes feed the sink through `telemetry.sinks.emit_round_block`.
+        On a mesh only rank 0 emits (its metrics are every rank's) and
+        writes the checkpoints.
         """
         if mode not in ("stepwise", "scanned"):
             raise ValueError(
                 f"unknown mode {mode!r} (expected 'stepwise' or 'scanned')")
+        if self.mesh is not None and self.mesh.rank != 0:
+            sink = None
         if sink is not None:
             tel_sinks.emit_manifest(sink, self.fl)
         start = self.state.round
@@ -210,7 +228,7 @@ class FedServer:
                 self._run_block, self.state, rounds, eval_every=eval_every,
                 target_acc=target_acc, block=block, ckpt_dir=ckpt_dir,
                 ckpt_every_blocks=ckpt_every_blocks, ckpt_keep=ckpt_keep,
-                sink=sink, telemetry_every=telemetry_every)
+                sink=sink, telemetry_every=telemetry_every, mesh=self.mesh)
             hist = History([], [], [], rtt, 0.0, [], [])
             stop = rtt - start if rtt is not None else ran
             for r in range(stop):
@@ -248,10 +266,10 @@ class FedServer:
 
     def save_checkpoint(self, ckpt_dir: str, keep: int = 3) -> str:
         """Snapshot the current RoundState into `ckpt_dir` (atomic write,
-        `latest` pointer), keyed by the absolute round index."""
-        return ckpt_io.save_checkpoint(
-            ckpt_dir, self.round, fl_mod.state_to_tree(self.state),
-            keep=keep)
+        `latest` pointer), keyed by the absolute round index. On a mesh
+        rank 0 writes and every rank passes a barrier after it."""
+        return driver_mod.save_state(ckpt_dir, self.round, self.state, keep,
+                                     self.mesh)
 
     def restore(self, source: str) -> int:
         """Resume from a checkpoint: `source` is a checkpoint directory

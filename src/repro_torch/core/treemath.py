@@ -178,17 +178,32 @@ def tree_ravel(tree: Tree) -> tuple[torch.Tensor, Callable]:
     return vec, _cached_unravel(treedef, shapes, dtypes)
 
 
-def tree_ravel_stacked(stacked: Tree) -> tuple[torch.Tensor, Callable]:
+def tree_ravel_stacked(stacked: Tree,
+                       sharding=None) -> tuple[torch.Tensor, Callable]:
     """Flatten a K-stacked tree (leaves (K, ...)) into a contiguous (K, N)
     f32 buffer. Returns (buf, unravel); unravel maps an (N,) vector back
-    to ONE unstacked tree (leaf shapes without the K axis)."""
+    to ONE unstacked tree (leaf shapes without the K axis).
+
+    `sharding` (a client mesh's row sharding,
+    `core.fl_shard_map.flat_client_sharding`) ravels this rank's block
+    of the K rows only, (K / mesh size, N); K must divide."""
     leaves, treedef = tree_flatten(stacked)
+    if sharding is not None:
+        rows = sharding.rows(leaves[0].shape[0])
+        leaves = [l[rows] for l in leaves]
     k = leaves[0].shape[0]
     shapes = tuple(tuple(l.shape[1:]) for l in leaves)
     dtypes = tuple(l.dtype for l in leaves)
     buf = torch.cat([l.reshape(k, -1).to(torch.float32) for l in leaves],
                     dim=1)
     return buf, _cached_unravel(treedef, shapes, dtypes)
+
+
+def unraveler(tree: Tree) -> Callable:
+    """`tree_ravel(tree)`'s unravel, without raveling the tree."""
+    leaves, treedef = tree_flatten(tree)
+    return _cached_unravel(treedef, tuple(tuple(l.shape) for l in leaves),
+                           tuple(l.dtype for l in leaves))
 
 
 def tree_unravel_stacked(template: Tree, buf: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Entry points of the port: serving (`serve.py`)."""
+"""Entry points of the port: serving (`serve.py`) and the client mesh of
+the sharded engine (`mesh.py`)."""

@@ -12,9 +12,10 @@ against the JAX package.
     `draw_arrivals` (`straggle_max = 0`, the drop stream independent of
     straggling, seed-determinism).
 (c) buffered(buffer_m = K, no stragglers) == sync for the reference's
-    EQUIV_CASES without flat_sharded (tests/test_buffered.py:154-160),
-    at the reference's tolerances: 0.0 on tree / flat f32 and tree int8
-    with EF over 3 rounds, 1e-5 on flat int4 / int8 for one.
+    EQUIV_CASES (tests/test_buffered.py:154-160), at the reference's
+    tolerances: 0.0 on tree / flat f32 and tree int8 with EF over 3
+    rounds, 1e-5 on flat int4 / int8 and on flat_sharded int8 / int8
+    with EF (a world-of-one host mesh) for one.
 (d) `test_fixed_schedule_flush_semantics`'s tick-by-tick claims on the
     port's `FedServer(arrival_fn=)`, a stochastic schedule's
     seed-determinism, and a deterministic buffered server walking its
@@ -199,7 +200,9 @@ def _toy_rounds(cfg, rounds, sel):
         xb, yb = batch
         return torch.mean((xb @ p["w"] + p["b"] - yb) ** 2)
 
-    rf = tfl.make_round_fn(loss, cfg)
+    mesh = (repro_torch.make_host_mesh("cpu")
+            if cfg.engine == "flat_sharded" else None)
+    rf = tfl.make_round_fn(loss, cfg, mesh=mesh)
     st = tfl.init_round_state(cfg, convert.params_from_numpy(params, "cpu"))
     sizes = torch.tensor([10.0 * (i + 1) for i in range(k)])
     ws = []
@@ -211,12 +214,13 @@ def _toy_rounds(cfg, rounds, sel):
 
 
 # (engine, uplink, downlink, error_feedback, rounds, atol): the
-# reference's EQUIV_CASES without its flat_sharded row
+# reference's EQUIV_CASES
 EQUIV_CASES = [
     ("tree", "f32", "f32", False, 3, 0.0),
     ("flat", "f32", "f32", False, 3, 0.0),
     ("tree", "int8", "f32", True, 3, 0.0),
     ("flat", "int4", "int8", False, 1, 1e-5),
+    ("flat_sharded", "int8", "int8", True, 1, 1e-5),
 ]
 
 

@@ -25,7 +25,10 @@ int4, with and without error feedback) against the JAX package.
 (d) The EF residual after one round is flat0 - roundtrip(flat0), only in
     the selected rows, and equals JAX's `state.ef` to 1e-5.
 (e) error_feedback without `state.ef` raises ValueError.
-(f) What the port does not run yet still raises NotImplementedError.
+(f) What the port does not run yet still raises NotImplementedError: the
+    2D (client x model) mesh of the sharded engine on a quantized wire.
+    Without a mesh, engine="flat_sharded" raises the reference's
+    ValueError, and its state builds as in the reference.
 """
 import dataclasses
 import importlib
@@ -428,7 +431,18 @@ def test_error_feedback_needs_the_residual():
     dict(transport="int4", engine="flat_sharded", telemetry="node"),
 ])
 def test_what_is_not_ported_still_raises(change):
+    from repro_torch.core import fl_shard_map
+    from repro_torch.launch.mesh import make_host_mesh
+
     cfg = tfl.FLConfig(num_clients=4, clients_per_round=4, local_steps=1,
                        **change).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(ValueError, match="pass mesh= to make_round_fn"):
         tfl.make_round_fn(lambda p, b: 0.0, cfg)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 13b"):
+        fl_shard_map.make_round_ops_2d(
+            make_host_mesh("cpu"), {}, {}, alpha=cfg.alpha,
+            method=cfg.method, transport=cfg.transport,
+            group_size=cfg.group_size)
+    st = tfl.init_round_state(cfg, {"w": torch.zeros(3)})
+    assert (st.ef is not None) == cfg.error_feedback

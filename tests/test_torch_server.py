@@ -7,8 +7,9 @@
   generator streams are not JAX's, so the golden counts themselves are
   not expected.
 * Device policy: `device=None` means CUDA and raises without a GPU.
-* Configs outside the slice (the client-sharded engine) raise
-  NotImplementedError.
+* Configs outside the slice raise: the client-sharded engine without a
+  mesh ValueError (as the reference), on a mesh with a model axis (the
+  2D layout) NotImplementedError; its state builds as in the reference.
 * The client batching (torch.func.vmap over grad) against a per-client
   loop, and the epoch batcher's stream property.
 """
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import driver, fl
+from repro_torch.core import driver, fl, fl_shard_map
 from repro_torch.data import synthetic
 from repro_torch.models import small
 
@@ -80,11 +81,16 @@ def test_default_device_is_cuda_or_raises(monkeypatch, golden_task):
 def test_configs_outside_the_slice_raise(change):
     cfg = fl.FLConfig(num_clients=4, clients_per_round=4, local_steps=1,
                       **change).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pass mesh="):
         fl.make_round_fn(lambda p, b: 0.0, cfg)
-    params = {"w": torch.zeros(3)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fl.init_round_state(cfg, params)
+        fl_shard_map.make_round_ops_2d(
+            repro_torch.make_host_mesh("cpu"), {}, {}, alpha=cfg.alpha,
+            method=cfg.method, transport=cfg.transport,
+            group_size=cfg.group_size)
+    params = {"w": torch.zeros(3)}
+    state = fl.init_round_state(cfg, params)
+    assert state.angle.count.shape == (4,)
 
 
 def test_validate_keeps_the_reference_checks():
@@ -99,15 +105,24 @@ def test_validate_keeps_the_reference_checks():
 
 
 def test_server_rejects_what_is_not_ported(golden_task):
-    """Since the run surface is ported, the server refuses only the
-    client-sharded engine (item 13) and, as the reference, an unknown
-    run mode."""
+    """Since the client-sharded engine is ported, the server refuses, as
+    the reference does, that engine without a mesh and an unknown run
+    mode; a mesh that is not a ClientMesh raises TypeError, and the 2D
+    (client x model) layout's entry points, not ported yet, name item
+    13b."""
     _, nodes, test = golden_task
     cfg = fl.FLConfig(num_clients=10, clients_per_round=10, local_steps=12)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        repro_torch.FedServer(
-            "mlr", dataclasses.replace(cfg, engine="flat_sharded"), nodes,
-            test, batch_size=50, device="cpu")
+    sharded = dataclasses.replace(cfg, engine="flat_sharded")
+    with pytest.raises(ValueError, match="pass mesh="):
+        repro_torch.FedServer("mlr", sharded, nodes, test, batch_size=50,
+                              device="cpu")
+    with pytest.raises(TypeError, match="ClientMesh"):
+        repro_torch.FedServer("mlr", sharded, nodes, test, batch_size=50,
+                              mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        fl_shard_map.make_blocked_roundtrip(
+            repro_torch.make_host_mesh("cpu"), {}, {},
+            transport=sharded.transport)
     server = repro_torch.FedServer("mlr", cfg, nodes, test, batch_size=50,
                                    device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):

@@ -11,8 +11,9 @@ every argument to the same parameter in the port.
 (b) `delta_constraint` (on the stacked deltas) and `grad_constraint` (on
     each local step's gradients), here a scale by 0.5, give the JAX
     round at 1e-5, in the parallel round and in sequential mode.
-(c) `mesh` other than None raises NotImplementedError (no mesh engine in
-    the port yet) through `make_round_fn`, `make_step_fn` and `FedServer`.
+(c) The `mesh` slot of `make_round_fn`, `make_step_fn` and `FedServer`
+    takes a `launch.mesh.ClientMesh` (the client-sharded engine) and
+    refuses anything else with TypeError, by position and by name.
 (d) Each shared public callable's parameter list equals the JAX
     package's after the port's recorded renames (`RENAMES`, `DROPPED`,
     `ADDED`): names, order and kinds.
@@ -30,8 +31,11 @@ import repro_torch
 from repro.core import buffer as jbuffer
 from repro.core import driver as jdriver
 from repro.core import fl as jfl
+from repro.core import fl_shard_map as jsm
+from repro.core import treemath as jtm
 from repro.core import weighting as jweighting
 from repro.kernels import flash_attn as jflash
+from repro.launch import mesh as jmesh
 from repro.kernels import grad_dot as jgd
 from repro.kernels import ops as jops
 from repro.kernels import round_stats as jrs
@@ -40,12 +44,15 @@ from repro_torch import convert
 from repro_torch.core import buffer as tbuffer
 from repro_torch.core import driver as tdriver
 from repro_torch.core import fl as tfl
+from repro_torch.core import fl_shard_map as tsm
+from repro_torch.core import treemath as ttm
 from repro_torch.data import synthetic
 from repro_torch.kernels import flash_attn as tflash
 from repro_torch.kernels import grad_dot as tgd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import round_stats as trs
 from repro_torch.kernels import weighted_agg as twa
+from repro_torch.launch import mesh as tmesh
 from test_torch_round import METRIC_KEYS, _image
 
 TOL = 1e-5
@@ -186,19 +193,32 @@ def test_grad_constraint_sees_every_step():
 
 
 def test_mesh_is_refused():
-    cfg = tfl.FLConfig(num_clients=4, clients_per_round=4, local_steps=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfl.make_round_fn(lambda p, b: 0.0, cfg, None, None, None, "mesh")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfl.make_round_fn(lambda p, b: 0.0, cfg, mesh="mesh")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdriver.make_step_fn(lambda p, b: 0.0, cfg, None, mesh="mesh")
+    """A mesh that is not a ClientMesh is refused; a ClientMesh is taken
+    in the same slot, by position and by name."""
+    cfg = tfl.FLConfig(num_clients=4, clients_per_round=4, local_steps=2,
+                       engine="flat_sharded")
     train, test = synthetic.make_image_task(num_train=400, num_test=40)
     nodes = synthetic.make_federated(train, [("iid", None)] * 4,
                                      samples_per_node=50, seed=0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        repro_torch.FedServer("mlr", cfg, nodes, test, 10, 0, None, "mesh",
-                              device="cpu")
+    host = repro_torch.make_host_mesh("cpu")
+    for mesh, ok in (("mesh", False), (host, True)):
+        calls = (
+            lambda: tfl.make_round_fn(lambda p, b: 0.0, cfg, None, None,
+                                      None, mesh),
+            lambda: tfl.make_round_fn(lambda p, b: 0.0, cfg, mesh=mesh),
+            lambda: tdriver.make_step_fn(lambda p, b: 0.0, cfg, None,
+                                         mesh=mesh),
+            lambda: repro_torch.FedServer("mlr", cfg, nodes, test, 10, 0,
+                                          None, mesh, device="cpu"))
+        for call in calls:
+            if ok:
+                call()
+            else:
+                with pytest.raises(TypeError, match="ClientMesh"):
+                    call()
+    server = repro_torch.FedServer("mlr", cfg, nodes, test, 10, 0, None,
+                                   host)
+    assert server.mesh is host and server.device == torch.device("cpu")
 
 
 # ------------------------------------------------- (d) the parameter lists
@@ -208,7 +228,9 @@ RENAMES = {"key": "gen"}  # a torch.Generator takes a jax PRNG key's place
 DROPPED = {"interpret", "min_kernel_elems"}  # kernel-wrapper knobs: the
 # port's wrappers launch their kernel on every CUDA tensor
 ADDED = {"FedServer": [inspect.Parameter(
-    "device", inspect.Parameter.KEYWORD_ONLY, default=None)]}
+    "device", inspect.Parameter.KEYWORD_ONLY, default=None)],
+    "make_host_mesh": [inspect.Parameter(
+        "device", inspect.Parameter.POSITIONAL_OR_KEYWORD, default=None)]}
 
 SHARED = {
     "make_round_fn": (jfl.make_round_fn, tfl.make_round_fn),
@@ -234,6 +256,15 @@ SHARED = {
     "tree_dot_and_norms": (jops.tree_dot_and_norms, tops.tree_dot_and_norms),
     "tree_vdot_batched": (jops.tree_vdot_batched, tops.tree_vdot_batched),
     "tree_weighted_sum": (jops.tree_weighted_sum, tops.tree_weighted_sum),
+    "tree_ravel_stacked": (jtm.tree_ravel_stacked, ttm.tree_ravel_stacked),
+    "make_host_mesh": (jmesh.make_host_mesh, tmesh.make_host_mesh),
+    **{f"fl_shard_map.{name}": (getattr(jsm, name), getattr(tsm, name))
+       for name in ("client_axis_size", "model_axis_size",
+                    "flat_client_sharding", "make_round_ops",
+                    "make_round_ops_2d", "make_blocked_roundtrip",
+                    "make_buffered_flush_ops", "fedadp_aggregate",
+                    "_fedadp_aggregate_flat", "_shard_agg",
+                    "_shard_stats")},
 }
 
 
