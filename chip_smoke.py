@@ -14,7 +14,9 @@ algorithm on the MLR golden task; federated training of a dense LM (the
 100m preset of examples/torch_fl_lm_train.py, the flash kernel under
 torch.func.vmap(grad) in every local step); dense-LM serving
 (`launch.serve.generate`: gemma-2b at full width and depth in bf16,
-prefill on the flash-attention kernel, then greedy decode); and
+prefill on the flash-attention kernel, then greedy decode); serving of
+the other families (MoE with MLA, the Mamba hybrid, RWKV-6, Qwen2-VL's
+M-RoPE prefix, the Whisper encoder-decoder) at full width in bf16; and
 `kernels/ops.py` on a real CNN round's deltas. Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It imports nothing of jax or of the JAX package `repro`.
@@ -99,7 +101,16 @@ backward recompute), serve
 flash launches per prefill and none in decode, prefill and decode times,
 peak memory, the tensor-core kernel's share of a profiled prefill, where
 the f32 kernel must not appear; flash == xla prefill logits on the f32
-model, on the f32 kernel, and the two f32 prefill times), ops (tree_vdot_batched and tree_dot_and_norms
+model, on the f32 kernel, and the two f32 prefill times), families
+(each family's reduced f32 config, and deepseek-v2-236b's q-LoRA
+branch, card == CPU to 2e-4 on prefill logits and cache, 4 decode steps
+and the loss; then deepseek-v2-lite-16b at full width and depth,
+deepseek-v2-236b at 2 layers, jamba at one pattern group with 4
+experts, rwkv6-3b, qwen2-vl-2b and whisper-small in bf16 through
+generate, B = 4, 16 steps: init peak at most the params + 1 GB, flash
+launches = the causal GQA layers per prefill and none in decode, the
+prefill's argmax = generate's first token, prefill and decode times,
+peak memory, the MoE capacity's dropped share, profiles), ops (tree_vdot_batched and tree_dot_and_norms
 on the tree view of a CNN round's (K, N) buffer equal that round's
 round_stats; one client's tree_dot_and_norms runs one grad_dot device
 kernel a leaf of at most one block, two a larger leaf). Then, on lines
@@ -227,6 +238,32 @@ LM_HEADS = (12, 4, 64)  # H query heads over G KV heads, head dim
 # grads through gqa_flash under vmap(grad): clients, (B, T, H, G, hd)
 LM_GRAD_N, LM_GRAD_SHAPE = 3, (2, 256, 12, 4, 64)
 PARITY_B, PARITY_T, PARITY_TOL = 2, 512, 2e-4
+# the other model families served at full width: (architecture, the cut
+# of its config, the cut as printed, prompt tokens). B sequences, greedy
+# steps through launch.serve.generate; bf16, flash attention
+FAMILY_MODELS = (
+    ("deepseek-v2-lite-16b", {}, "none", 1024),
+    ("deepseek-v2-236b", {"num_layers": 2}, "depth 60 -> 2 layers", 1024),
+    ("jamba-1.5-large-398b", {"num_layers": 8, "moe": {"num_experts": 4}},
+     "depth 72 -> 8 (one pattern group); experts 16 -> 4, top-2 kept",
+     1024),
+    ("rwkv6-3b", {}, "none", 1024),  # a multiple of chunk_len 16
+    ("qwen2-vl-2b", {}, "none", 1024),  # after the 256-patch stub prefix
+    ("whisper-small", {}, "none", 384),  # its decoder's context is 448
+)
+FAMILY_B, FAMILY_STEPS = 4, 16
+# the causal GQA attention layers of each (one flash launch a prefill)
+FAMILY_FLASH = {"deepseek-v2-lite-16b": 0, "deepseek-v2-236b": 0,
+                "jamba-1.5-large-398b": 1, "rwkv6-3b": 0, "qwen2-vl-2b": 28,
+                "whisper-small": 12}
+# the reduced (smoke) configs held card == CPU in f32: the six families
+# and deepseek-v2-236b's q-LoRA branch, which reduced() zeroes
+FAMILY_PARITY = (("deepseek-v2-lite-16b", {}), ("deepseek-v2-236b", {}),
+                 ("deepseek-v2-236b", {"mla": {"q_lora_rank": 32}}),
+                 ("jamba-1.5-large-398b", {}), ("rwkv6-3b", {}),
+                 ("qwen2-vl-2b", {}), ("whisper-small", {}))
+FAMILY_PARITY_B, FAMILY_PARITY_T, FAMILY_PARITY_STEPS = 2, 64, 4
+INIT_SLACK = 1e9  # bytes an init may hold beyond the params (one draw)
 
 
 def emit(obj) -> None:
@@ -2847,6 +2884,268 @@ def phase_serve(fa, dev) -> dict:
     return out
 
 
+def with_changes(cfg, changes: dict):
+    """`cfg` with fields replaced; a dict value replaces sub-fields of a
+    nested config (moe, mla, ssm)."""
+    for field, value in changes.items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(cfg, field), **value)
+        cfg = dataclasses.replace(cfg, **{field: value})
+    return cfg
+
+
+def family_inputs(cfg, b: int, t: int, steps: int, dev) -> tuple:
+    """Seeded numpy inputs on `dev`: the prefill batch (tokens after the
+    vision prefix, stub embeddings, distinct M-RoPE streams) and each
+    decode step's tokens and extras."""
+    rng = np.random.default_rng(3)
+    p = cfg.vision_prefix
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t - p))}
+    if p:
+        batch["vision_embeds"] = rng.normal(size=(b, p, cfg.d_model)) * 0.02
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = rng.normal(
+            size=(b, cfg.encoder_len, cfg.d_model)) * 0.02
+    if cfg.rope_style == "mrope":
+        pos = np.arange(t)
+        batch["positions"] = np.stack([np.broadcast_to(z, (b, t)) for z in
+                                       (pos, pos // 4, pos % 4)])
+    feed = rng.integers(0, cfg.vocab_size, (steps, b, 1))
+    extras = [{"positions": rng.integers(0, 2 * t, (3, b, 1))}
+              if cfg.rope_style == "mrope" else {} for _ in range(steps)]
+
+    def put(x):
+        t_ = torch.from_numpy(np.asarray(x))
+        return t_.to(dev, torch.float32 if t_.is_floating_point()
+                     else torch.int64)
+
+    return ({k: put(v) for k, v in batch.items()}, [put(f) for f in feed],
+            [{k: put(v) for k, v in e.items()} for e in extras])
+
+
+def family_run(transformer, params, cfg, dev) -> dict:
+    """Prefill, the decode steps and loss_fn of a reduced model on
+    `dev`: every output (logits, the caches after prefill and after the
+    last step, aux, the loss) on the CPU, flattened by name."""
+    from repro_torch.core import treemath
+
+    b, t, steps = FAMILY_PARITY_B, FAMILY_PARITY_T, FAMILY_PARITY_STEPS
+    batch, feed, extras = family_inputs(cfg, b, t, steps, dev)
+    out = {}
+
+    def keep(name, tree):
+        for path, leaf in zip(treemath.tree_paths(tree),
+                              treemath.tree_leaves(tree)):
+            # a copy: decode writes the prefill's cache in place
+            out["/".join([name, *map(str, path)])] = \
+                leaf.detach().to("cpu", copy=True)
+
+    with torch.no_grad():
+        logits, aux, cache = transformer.forward(
+            params, cfg, batch, mode="prefill", max_len=t + steps)
+        keep("prefill", {"logits": logits, "aux": aux, "cache": cache})
+        for i in range(steps):
+            logits, cache = transformer.decode_step(
+                params, cfg, feed[i], cache, t + i, extras[i])
+            keep(f"decode{i}", {"logits": logits})
+        keep("decoded", cache)
+        keep("loss", {"loss": transformer.loss_fn(params, cfg, batch)})
+    return out
+
+
+def family_parity(transformer, registry, dev) -> dict:
+    """Each family's reduced config in f32 with flash attention: params
+    drawn once on the CPU from a seeded generator and copied to the card;
+    prefill, decode steps and loss_fn on both devices; card == CPU at
+    PARITY_TOL on every output."""
+    from repro_torch.core import treemath
+
+    worst = {}
+    for name, changes in FAMILY_PARITY:
+        cfg = with_changes(registry.smoke(name, attention_impl="flash"),
+                           changes)
+        params = transformer.init_params(torch.Generator().manual_seed(0),
+                                         cfg, device="cpu")
+        on_card = treemath.tree_map(lambda z: z.to(dev), params)
+        want = family_run(transformer, params, cfg, torch.device("cpu"))
+        got = family_run(transformer, on_card, cfg, dev)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: the card's outputs {sorted(got)}"
+                                 f" are not the CPU's {sorted(want)}")
+        errs = {k: allclose_err(got[k], want[k], PARITY_TOL) for k in got}
+        key = name + "".join(f"-{k}_{v}" for sub in changes.values()
+                             for k, v in sub.items())
+        top = max(errs, key=lambda k: errs[k][1])
+        worst[key] = {"max_abs": max(e[0] for e in errs.values()),
+                      "excess": errs[top][1], "where": top,
+                      "outputs": len(errs)}
+        if not errs[top][1] <= 1.0:
+            raise AssertionError(f"{key}: card vs CPU {top} max |d| "
+                                 f"{errs[top][0]}, {errs[top][1]}x the "
+                                 f"tolerance {PARITY_TOL}")
+        del on_card
+    return worst
+
+
+def brief(prof: dict, top: int = 5) -> dict:
+    """The wall, busy union, idle share and longest kernels of a
+    `profile_device` result."""
+    return {k: prof[k] for k in ("wall_us", "device_busy_union_us",
+                                 "device_idle_share_union",
+                                 "device_events")} | {"top": prof["top"][:top]}
+
+
+def phase_families(fa, dev) -> dict:
+    """The other model families (MoE with MLA, the Mamba hybrid, RWKV-6,
+    M-RoPE with a vision prefix, the Whisper encoder-decoder): first
+    card == CPU at the reduced size, then each served at full width in
+    bf16 through launch.serve.generate. Returns the flash launches of
+    each model's counted generate call."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+
+    t_phase = time.perf_counter()
+    parity = family_parity(transformer, registry, dev)
+    emit({"phase": "families", "part": "card_vs_cpu_f32",
+          "tol": PARITY_TOL, "batch": FAMILY_PARITY_B,
+          "prompt": FAMILY_PARITY_T, "decode_steps": FAMILY_PARITY_STEPS,
+          "worst": parity,
+          "seconds": time.perf_counter() - t_phase})
+
+    launches = {}
+    route = moe._route
+    for name, changes, cut, prompt in FAMILY_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = with_changes(dataclasses.replace(registry.get(name),
+                                               attention_impl="flash"),
+                           changes)
+        want_flash = FAMILY_FLASH[name]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = transformer.init_params(gen, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        peak_init = torch.cuda.max_memory_allocated() - base
+        nbytes = sum(z.numel() * z.element_size()
+                     for z in treemath.tree_leaves(params))
+        if peak_init > nbytes + INIT_SLACK:
+            raise AssertionError(f"{name}: init peaked at {peak_init} "
+                                 f"bytes for {nbytes} bytes of params")
+        tokens = torch.randint(0, cfg.vocab_size, (FAMILY_B, prompt),
+                               generator=gen, device=dev)
+        extras = serve.stub_extras(cfg, FAMILY_B, dev)
+        serve.generate(params, cfg, tokens, 2, extras=extras)  # warm-up
+        torch.cuda.synchronize()
+
+        def run(steps):
+            fa.flash_attention.launches = 0
+            t1 = time.perf_counter()
+            ids = serve.generate(params, cfg, tokens, steps, extras=extras)
+            torch.cuda.synchronize()
+            return ids, (time.perf_counter() - t1) * 1e3, \
+                fa.flash_attention.launches
+
+        # the main path, counted: every flash launch of one generate call
+        torch.cuda.reset_peak_memory_stats()
+        ids, total_ms, n_flash = run(FAMILY_STEPS)
+        peak_gen = torch.cuda.max_memory_allocated() - base
+        launches[name] = n_flash
+        if n_flash != want_flash:
+            raise AssertionError(f"{name}: generate launched flash "
+                                 f"attention {n_flash} times, want "
+                                 f"{want_flash}: one per causal GQA layer "
+                                 "of the prefill, none in decode")
+        if ids.shape != (FAMILY_B, FAMILY_STEPS) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: generate returned "
+                                 f"{tuple(ids.shape)} ids or ids outside "
+                                 "the vocabulary")
+        pre = [run(1) for _ in range(3)]  # the prefill alone
+        if any(p[2] != want_flash for p in pre) or not all(
+                torch.equal(p[0], ids[:, :1]) for p in pre):
+            raise AssertionError(f"{name}: a prefill alone launched "
+                                 "another count or chose another first "
+                                 "token")
+        prefill_ms = float(np.median([p[1] for p in pre]))
+        # one more prefill: its logits finite and its argmax generate's
+        # first token; the MoE layers' assignments dropped by capacity
+        kept = []
+
+        def spy(*a):
+            out = route(*a)
+            kept.append(out[5])
+            return out
+
+        moe._route = spy
+        try:
+            with torch.no_grad():
+                logits, _, _ = transformer.forward(
+                    params, cfg, {"tokens": tokens, **extras},
+                    mode="prefill")
+                last = logits[:, -1]
+                finite = bool(torch.isfinite(logits).all())
+                del logits
+        finally:
+            moe._route = route
+        if not finite or not torch.equal(last.argmax(-1)[:, None],
+                                         ids[:, :1]):
+            raise AssertionError(f"{name}: prefill logits finite {finite}; "
+                                 "their argmax is not generate's first "
+                                 "token")
+        dropped = None
+        if kept:
+            k = torch.cat(kept)
+            dropped = float((~k).sum()) / k.numel()
+        # where the time goes: a profiled prefill, and two decode steps
+        # from a prefilled cache. A recurrent prefill (a Python loop over
+        # tokens or chunks) leaves ~10^5 events in a trace, which the
+        # profiler takes minutes to read back: its prefill is not traced
+        with torch.no_grad():
+            prof_prefill = None
+            if not {"mamba", "rwkv"} & set(cfg.block_pattern):
+                prof_prefill = brief(profile_device(lambda: serve.generate(
+                    params, cfg, tokens, 1, extras=extras)))
+            start = prompt + cfg.vision_prefix
+            _, _, cache = transformer.forward(
+                params, cfg, {"tokens": tokens, **extras}, mode="prefill",
+                max_len=start + 2)
+            prof_decode = brief(profile_device(lambda: [
+                transformer.decode_step(params, cfg, ids[:, i:i + 1], cache,
+                                        start + i) for i in range(2)]))
+            del cache
+        out = {"phase": "families", "model": name, "reduced": cut,
+               "dtype": cfg.dtype, "params": transformer.count_params(cfg),
+               "active_params": transformer.count_params(cfg, True),
+               "param_bytes": nbytes, "init_s": init_s,
+               "peak_after_init": peak_init,
+               "peak_after_init_minus_params": peak_init - nbytes,
+               "peak_after_generate": peak_gen, "batch": FAMILY_B,
+               "prompt": prompt, "vision_prefix": cfg.vision_prefix,
+               "steps": FAMILY_STEPS, "flash_launches": n_flash,
+               "generate_ms": total_ms, "prefill_ms": prefill_ms,
+               "prefill_ms_runs": [p[1] for p in pre],
+               "decode_ms_per_step":
+                   (total_ms - prefill_ms) / (FAMILY_STEPS - 1),
+               "moe_dropped_share": dropped,
+               "sample_ids": ids[0, :8].tolist(),
+               "profile_prefill": prof_prefill,
+               "profile_decode_2_steps": prof_decode}
+        emit(out)
+        del params, tokens, extras, last, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "seconds": time.perf_counter() - t_phase,
+          "flash_launches": launches})
+    return launches
+
+
 def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
     """kernels/ops.py on a real f32 CNN round: the tree view of the
     (K, N) buffer that the round's flat engine passed to round_stats,
@@ -3031,6 +3330,7 @@ def main() -> int:
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
+    family_launches = phase_families(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
 
     for name, row in table.items():
@@ -3042,6 +3342,9 @@ def main() -> int:
     # the LM kernels' launches: serving's generate call, and the ops path
     # (bf16 in the generate call, f32 in the f32 model's prefill)
     lm_table["flash_attention"]["launches"] = serve_out["flash_launches"]
+    # and each of the other families' generate call (qwen2-vl, jamba and
+    # whisper's decoder prefill on the bf16 kernel; MLA and RWKV never)
+    lm_table["flash_attention"]["launches_families"] = family_launches
     lm_table["flash_attention_f32"]["launches"] = \
         serve_out["f32_parity"]["flash_launches"]
     for name in ("batched_dot", "grad_dot_stats"):

@@ -6,10 +6,11 @@ a seed).
     PYTHONPATH=src python examples/torch_serve_decode.py --arch gemma-2b --device cpu
 
 On CUDA unless `--device cpu` is given. Every architecture of the
-registry is offered; the port runs the dense family (gemma-2b,
-granite-20b, minitron-4b, starcoder2-15b) and raises NotImplementedError
-for the others, naming the ROADMAP item that brings them. The flow of
-`examples/serve_decode.py`, through `repro_torch.launch.serve.generate`.
+registry runs: dense, MoE with MLA, the Mamba hybrid, RWKV-6, Whisper
+(zero stub encoder frames) and Qwen2-VL (a zero stub vision prefix), as
+`examples/serve_decode.py` feeds them. The flow of that example, through
+`repro_torch.launch.serve.generate`, which decodes after the vision
+prefix (positions P + T + i).
 """
 import argparse
 import sys
@@ -39,24 +40,25 @@ def main(argv=None) -> None:
            else torch.device(args.device))
 
     cfg = registry.smoke(args.arch)
-    transformer.check_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = transformer.init_params(gen, cfg)
     b, t = args.batch, args.prompt_len
     tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
                            device=dev)
+    extras = serve.stub_extras(cfg, b, dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    first = serve.generate(params, cfg, tokens, 1)  # the prefill alone
+    first = serve.generate(params, cfg, tokens, 1,  # the prefill alone
+                           extras=extras)
     sync()
     prefill_s = time.perf_counter() - t0
     print(f"[{cfg.name}] prefill B={b} T={t}: {prefill_s:.2f}s")
     t0 = time.perf_counter()
-    ids = serve.generate(params, cfg, tokens, args.steps)
+    ids = serve.generate(params, cfg, tokens, args.steps, extras=extras)
     sync()
     dt = (time.perf_counter() - t0 - prefill_s) / max(args.steps - 1, 1)
     if not torch.equal(ids[:, :1], first):

@@ -1,6 +1,6 @@
 """GQA/MQA attention with RoPE, sliding-window option, and KV-cache
-decode: the counterpart of `repro/models/attention.py` (self-attention;
-cross-attention comes with the enc-dec family).
+decode, and the enc-dec family's cross-attention: the counterpart of
+`repro/models/attention.py`.
 
 Cache layout (per layer): {"k": (B, S, G, hd), "v": (B, S, G, hd)} with
 S = max_len for full attention or S = window for the sliding-window ring
@@ -23,15 +23,15 @@ from repro_torch.models import layers
 NEG_INF = -1e30
 
 
-def attn_init(gen, cfg, device) -> dict:
-    d = cfg.d_model
+def attn_init(cfg, d_in: int | None = None) -> dict:
+    d = d_in or cfg.d_model
     hd = cfg.hd
     dt = cfg.tdtype
     return {
-        "wq": layers.dense_init(gen, d, cfg.num_heads * hd, dt, device),
-        "wk": layers.dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
-        "wv": layers.dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
-        "wo": layers.dense_init(gen, cfg.num_heads * hd, d, dt, device),
+        "wq": layers.dense_init(d, cfg.num_heads * hd, dt),
+        "wk": layers.dense_init(d, cfg.num_kv_heads * hd, dt),
+        "wv": layers.dense_init(d, cfg.num_kv_heads * hd, dt),
+        "wo": layers.dense_init(cfg.num_heads * hd, d, dt),
     }
 
 
@@ -181,3 +181,29 @@ def _chunked_attention(q, k, v, scale, causal, window, q_chunk):
                          device=q.device)
         outs.append(_gqa_out(_masked_softmax(scores, mask), v))
     return torch.cat(outs, dim=1)
+
+
+# ------------------------------------------------------- cross-attention
+
+
+def cross_attn_init(cfg) -> dict:
+    return attn_init(cfg)
+
+
+def cross_attn_kv(p: dict, cfg, enc: torch.Tensor) -> dict:
+    """The encoder's K/V, computed once at prefill and reused by every
+    decode step: enc (B, S, d) -> {"k", "v"} (B, S, G, hd)."""
+    hd = cfg.hd
+    return {"k": _split_heads(enc @ p["wk"], cfg.num_kv_heads, hd),
+            "v": _split_heads(enc @ p["wv"], cfg.num_kv_heads, hd)}
+
+
+def cross_attn_apply(p: dict, cfg, x: torch.Tensor, kv: dict
+                     ) -> torch.Tensor:
+    """Non-causal attention of x (B, T, d) over all S encoder positions,
+    no mask and no RoPE (the einsum path)."""
+    hd = cfg.hd
+    q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
+    scores = _gqa_scores(q, kv["k"], _scale(hd, x.device))
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, kv["v"]).to(x.dtype) @ p["wo"]

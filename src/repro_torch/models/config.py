@@ -5,8 +5,8 @@ packages.
 One dataclass covers every architecture family of the registry: dense
 (GQA/MQA), MoE (incl. DeepSeek-V2 MLA), SSM (RWKV6), hybrid (Jamba
 Mamba+attention interleave), enc-dec audio backbone (Whisper), and VLM
-language backbone (Qwen2-VL with M-RoPE). The port's transformer runs
-the dense family so far (`models/transformer.py` raises for the others).
+language backbone (Qwen2-VL with M-RoPE); the port's transformer runs
+them all.
 
 Differences from the JAX package's copy: `tdtype` (a torch dtype)
 replaces `jdtype`, and `param_count` counts the port's own params.
@@ -162,6 +162,11 @@ class ModelConfig:
         from repro_torch.models import transformer  # lazy, avoids cycle
 
         return transformer.count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import transformer
+
+        return transformer.count_params(self, active_only=True)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

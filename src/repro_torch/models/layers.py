@@ -1,11 +1,14 @@
 """Common neural-net building blocks, functional torch: the counterpart
-of `repro/models/layers.py` for the dense LM stack.
+of `repro/models/layers.py`.
 
-Conventions (the reference's):
+Conventions (the reference's, but for the init functions, which take
+no PRNG key):
   * params are nested dicts of tensors; dense weights are (d_in, d_out),
     the embedding (vocab, d);
-  * init functions draw from an explicit `torch.Generator` (or from none
-    on the "meta" device, which allocates nothing) and return a subtree;
+  * init functions return a subtree of `Init`s (shape, dtype and how
+    to fill it); `make` turns one into tensors, drawing from an explicit
+    `torch.Generator` (or from none on the "meta" device, which
+    allocates nothing);
   * apply functions are pure: (params, x, ...) -> y;
   * compute dtype follows the input; norm statistics in f32.
 
@@ -17,38 +20,106 @@ with frequencies computed in float64 numpy and cast to f32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def _normal(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device)
+class Init(NamedTuple):
+    """A param leaf still to be made: its shape and dtype, and
+    `fill(gen, out)`, which writes its values into `out`, a tensor of
+    that shape and dtype. The init functions return trees of these;
+    `make` allocates each leaf once, in its dtype, and fills it."""
+    shape: tuple
+    dtype: torch.dtype
+    fill: Callable[[Optional[torch.Generator], torch.Tensor], None]
 
 
-def dense_init(gen, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
-    scale = 1.0 / np.sqrt(d_in)
-    return (_normal(gen, (d_in, d_out), device) * scale).to(dtype)
+# f32 elements drawn at once (256 MiB): a leaf is drawn in slices of
+# whole rows of at most this many, so a draw's transient stays below it
+_DRAW_ELEMS = 1 << 26
 
 
-def embed_init(gen, vocab: int, d: int, dtype, device) -> torch.Tensor:
-    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+def _fill_normal(gen, out: torch.Tensor, scale: float) -> None:
+    """out <- N(0, 1) * scale, drawn in f32, scaled, then cast to out's
+    dtype, as the reference does."""
+    flat = out.view(out.shape[0], -1)
+    step = max(1, _DRAW_ELEMS // flat.shape[1])
+    for i in range(0, flat.shape[0], step):
+        rows = flat[i:i + step]
+        # one expression: the draw is freed before the next one is made
+        rows.copy_(torch.randn(rows.shape, generator=gen,
+                               dtype=torch.float32,
+                               device=out.device).mul_(scale))
+
+
+def normal(shape, scale: float, dtype) -> Init:
+    return Init(tuple(shape), dtype,
+                lambda gen, out: _fill_normal(gen, out, scale))
+
+
+def uniform(shape, dtype) -> Init:
+    """U[0, 1) drawn in f32, then cast."""
+    def fill(gen, out):
+        out.copy_(torch.rand(out.shape, generator=gen, dtype=torch.float32,
+                             device=out.device))
+
+    return Init(tuple(shape), dtype, fill)
+
+
+def full(shape, value, dtype) -> Init:
+    """A constant: a scalar, or an array broadcast to `shape`."""
+    def fill(gen, out):
+        out.copy_(torch.as_tensor(value))
+
+    return Init(tuple(shape), dtype, fill)
+
+
+def stacked(n: int, tree):
+    """Every leaf of `tree` with a leading axis of n, filled slice by
+    slice (the reference vmaps the init over n keys)."""
+    if isinstance(tree, dict):
+        return {k: stacked(n, v) for k, v in tree.items()}
+
+    def fill(gen, out):
+        for i in range(n):
+            tree.fill(gen, out[i])
+
+    return Init((n,) + tree.shape, tree.dtype, fill)
+
+
+def make(tree, gen: Optional[torch.Generator], device):
+    """The tensors of a tree of `Init`s on `device`: each leaf allocated
+    once and filled in place from `gen`, so that the only transient is
+    one draw. On the "meta" device nothing is allocated or drawn."""
+    device = torch.device(device)
+    if isinstance(tree, dict):
+        return {k: make(v, gen, device) for k, v in tree.items()}
+    out = torch.empty(tree.shape, dtype=tree.dtype, device=device)
+    if device.type != "meta":
+        tree.fill(gen, out)
+    return out
+
+
+def dense_init(d_in: int, d_out: int, dtype) -> Init:
+    return normal((d_in, d_out), 1.0 / np.sqrt(d_in), dtype)
+
+
+def embed_init(vocab: int, d: int, dtype) -> Init:
+    return normal((vocab, d), 0.02, dtype)
 
 
 # ----------------------------------------------------------------- norms
 
 
-def norm_init(d: int, kind: str, dtype, device) -> dict:
+def norm_init(d: int, kind: str, dtype) -> dict:
     if kind == "rmsnorm":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+        return {"scale": full((d,), 1.0, dtype)}
     if kind == "layernorm":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device),
-                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+        return {"scale": full((d,), 1.0, dtype),
+                "bias": full((d,), 0.0, dtype)}
     raise ValueError(kind)
 
 
@@ -65,20 +136,31 @@ def norm_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm within each head: x (..., H, hd), in f32."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
 # ----------------------------------------------------------------- MLPs
 
 
-def mlp_init(gen, d: int, d_ff: int, kind: str, dtype, device) -> dict:
+def mlp_init(d: int, d_ff: int, kind: str, dtype) -> dict:
     if kind in ("swiglu", "geglu"):
         return {
-            "w_gate": dense_init(gen, d, d_ff, dtype, device),
-            "w_up": dense_init(gen, d, d_ff, dtype, device),
-            "w_down": dense_init(gen, d_ff, d, dtype, device),
+            "w_gate": dense_init(d, d_ff, dtype),
+            "w_up": dense_init(d, d_ff, dtype),
+            "w_down": dense_init(d_ff, d, dtype),
         }
     if kind in ("gelu", "relu_sq"):
         return {
-            "w_up": dense_init(gen, d, d_ff, dtype, device),
-            "w_down": dense_init(gen, d_ff, d, dtype, device),
+            "w_up": dense_init(d, d_ff, dtype),
+            "w_down": dense_init(d_ff, d, dtype),
         }
     raise ValueError(kind)
 
@@ -110,6 +192,20 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     freqs = torch.from_numpy(rope_freqs(head_dim, theta).astype(np.float32))
     ang = positions.to(torch.float32)[..., None] * freqs.to(positions.device)
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections):
+    """Qwen2-VL multimodal RoPE [arXiv:2409.12191]: positions (3, B, T),
+    the temporal / height / width streams; `sections` splits head_dim//2
+    among them. Returns cos/sin (B, T, head_dim//2)."""
+    assert positions.shape[0] == 3
+    cos3, sin3 = rope_cos_sin(positions, head_dim, theta)  # (3,B,T,hd/2)
+    cuts = np.cumsum(np.asarray(sections))[:-1].tolist()
+    cos_parts = torch.tensor_split(cos3, cuts, dim=-1)
+    sin_parts = torch.tensor_split(sin3, cuts, dim=-1)
+    return (torch.cat([cos_parts[i][i] for i in range(3)], dim=-1),
+            torch.cat([sin_parts[i][i] for i in range(3)], dim=-1))
 
 
 def rope_apply(x: torch.Tensor, cos: torch.Tensor,

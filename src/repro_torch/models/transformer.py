@@ -1,20 +1,31 @@
-"""Dense decoder-only transformer: the counterpart of
-`repro/models/transformer.py` for the `dense` family (gemma-2b,
-granite-20b, minitron-4b, starcoder2-15b).
+"""Unified architecture assembly for the model zoo: the counterpart of
+`repro/models/transformer.py`, for every family of the registry (dense
+GQA / MQA, MoE with MLA, the Jamba Mamba + attention hybrid, RWKV-6, the
+Whisper encoder-decoder and Qwen2-VL's M-RoPE language backbone).
 
 A model is `cfg.num_pattern_groups` groups of `len(cfg.block_pattern)`
-"attn" blocks; block params are stacked over groups with a leading axis
-exactly as in the reference, so weights carry across as plain copies
+blocks; block params are stacked over groups with a leading axis exactly
+as in the reference, so weights carry across as plain copies
 (`convert.lm_params_from_numpy`). The stack runs as a Python loop over
 groups (the reference scans), and the prefill cache is stacked over
 groups as the reference's scan stacks it.
+
+Block kinds: "attn" (GQA / MQA or MLA; + cross-attention for enc-dec),
+"mamba", "rwkv". Every non-rwkv block has an FFN slot (dense MLP or MoE
+by cfg.moe_pattern); rwkv blocks embed their own channel mix.
 
 Entry points:
   forward(..., mode="train")    -> (logits, aux, text_offset)
   forward(..., mode="prefill")  -> (logits, aux, cache)
   decode_step(...)              -> (logits, cache)   # one token
-  loss_fn(params, cfg, batch)   -> scalar f32 next-token cross-entropy
+  loss_fn(params, cfg, batch)   -> scalar f32 next-token CE + MoE aux
   hidden_forward(...)           -> (x, aux, text_offset) before unembed
+
+`decode_step` writes into `cache` in place (the reference returns an
+updated copy) and returns it. `init_params` allocates every stacked leaf
+once, in its dtype, and fills it group by group and expert by expert
+(`layers.make`), so that the transient of an init is one draw of at most
+256 MiB in f32, not a second copy of the model.
 
 `loss_fn` is what federated LM training differentiates (under
 `torch.func.vmap(grad)` in the round); with `cfg.attention_impl ==
@@ -28,10 +39,6 @@ under `torch.func.grad` (saved-tensor hooks), so here every chunk's
 logits are kept for the backward and the chunking saves no memory in
 training (a recompute autograd.Function for the loss is a later ROADMAP
 item).
-
-Configs of the other families (MoE, MLA, SSM, RWKV, hybrid, enc-dec,
-VLM prefixes, M-RoPE or no RoPE) raise NotImplementedError naming the
-ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -40,56 +47,71 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.core import treemath
+from repro_torch.models import attention, layers, mamba, mla, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
 Tree = Any
-
-_NOT_YET = ("ROADMAP Queue 1 item 15c (MoE / MLA / SSM / RWKV / hybrid / "
-            "audio / VLM families)")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config outside the dense family."""
-    found = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("ssm", cfg.ssm is not None), ("rwkv", cfg.rwkv is not None),
-        ("encoder_layers", cfg.encoder_layers > 0),
-        ("vision_prefix", cfg.vision_prefix > 0),
-        (f"rope_style={cfg.rope_style!r}", cfg.rope_style != "rope"),
-        (f"block_pattern={cfg.block_pattern}",
-         any(k != "attn" for k in cfg.block_pattern))) if on]
-    if found:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} is not ported yet; the port "
-            f"runs the dense family so far. It comes with {_NOT_YET}.")
 
 
 # =================================================================== init
 
 
-def _block_init(gen, cfg, device) -> dict:
-    d = cfg.d_model
-    return {
-        "norm1": layers.norm_init(d, cfg.norm, cfg.tdtype, device),
-        "mixer": attention.attn_init(gen, cfg, device),
-        "norm2": layers.norm_init(d, cfg.norm, cfg.tdtype, device),
-        "ffn": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp, cfg.tdtype,
-                               device),
-    }
+def _ffn_init(cfg, is_moe: bool) -> dict:
+    if is_moe:
+        return moe.moe_init(cfg)
+    return layers.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.tdtype)
 
 
-def _stack(trees: list) -> Tree:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _block_init(cfg, kind: str, is_moe: bool, cross: bool) -> dict:
+    d, dt = cfg.d_model, cfg.tdtype
+    p: dict = {"norm1": layers.norm_init(d, cfg.norm, dt)}
+    if kind == "attn":
+        p["mixer"] = (mla.mla_init(cfg) if cfg.mla
+                      else attention.attn_init(cfg))
+    elif kind == "mamba":
+        p["mixer"] = mamba.mamba_init(cfg)
+    elif kind == "rwkv":
+        p["mixer"] = rwkv6.rwkv_init(cfg)
+        p["norm2"] = layers.norm_init(d, cfg.norm, dt)
+        return p  # the rwkv block embeds its channel mix: no FFN slot
+    else:
+        raise ValueError(kind)
+    if cross:
+        p["norm_cross"] = layers.norm_init(d, cfg.norm, dt)
+        p["cross"] = attention.cross_attn_init(cfg)
+    p["norm2"] = layers.norm_init(d, cfg.norm, dt)
+    p["ffn"] = _ffn_init(cfg, is_moe)
+    return p
 
 
-def _stack_init(gen, cfg, device, *, num_groups: int) -> dict:
+def _stack_init(cfg, *, cross: bool, num_groups: int) -> dict:
     """Stacked block params: {"p{i}": leaves with a leading group axis}."""
-    return {f"p{i}": _stack([_block_init(gen, cfg, device)
-                             for _ in range(num_groups)])
-            for i in range(len(cfg.layer_kinds()))}
+    return {f"p{i}": layers.stacked(num_groups,
+                                    _block_init(cfg, kind, is_moe, cross))
+            for i, (kind, is_moe) in enumerate(cfg.layer_kinds())}
+
+
+def _param_inits(cfg: ModelConfig) -> Tree:
+    """The params of `cfg` as a tree of `layers.Init`s."""
+    dt = cfg.tdtype
+    params = {
+        "embed": layers.embed_init(cfg.vocab_size, cfg.d_model, dt),
+        "blocks": _stack_init(cfg, cross=cfg.encoder_layers > 0,
+                              num_groups=cfg.num_pattern_groups),
+        "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dt),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(cfg.d_model, cfg.vocab_size,
+                                              dt)
+    if cfg.encoder_layers:
+        # the encoder is a plain full-attention stack, one group a layer
+        params["encoder"] = {
+            "blocks": _stack_init(cfg, cross=False,
+                                  num_groups=cfg.encoder_layers),
+            "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dt),
+        }
+    return params
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -97,70 +119,163 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     """Random params of `cfg` from `gen`, on `device` (default: the
     generator's). On the "meta" device nothing is allocated and `gen`
     may be None. The draws differ from the reference's (another RNG);
-    the layout and the distributions are its."""
-    check_supported(cfg)
+    the layout, the dtypes and the distributions are its."""
     device = torch.device(device if device is not None else gen.device)
-    params = {
-        "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                   cfg.tdtype, device),
-        "blocks": _stack_init(gen, cfg, device,
-                              num_groups=cfg.num_pattern_groups),
-        "final_norm": layers.norm_init(cfg.d_model, cfg.norm, cfg.tdtype,
-                                       device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = layers.dense_init(gen, cfg.d_model,
-                                              cfg.vocab_size, cfg.tdtype,
-                                              device)
-    return params
+    return layers.make(_param_inits(cfg), gen, device)
 
 
 # ============================================================ positions
 
 
-def _rope_for(cfg, b: int, t: int, offset: int = 0, device=None):
-    """cos/sin (B, T, hd/2) of positions offset .. offset + T - 1."""
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Additive sinusoidal embedding (whisper-style positions)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _rope_for(cfg, batch, b: int, t: int, offset: int = 0, device=None):
+    """cos/sin (B, T, hd/2) for the configured rope style, at positions
+    offset .. offset + T - 1 (M-RoPE: `batch["positions"]` (3, B, T)
+    when given); (None, None) for rope_style "none". MLA rotates at its
+    rope_head_dim."""
+    hd = cfg.mla.rope_head_dim if cfg.mla else cfg.hd
+    if cfg.rope_style == "none":
+        return None, None
     pos = (torch.arange(t, device=device)[None] + offset).repeat(b, 1)
-    return layers.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    if cfg.rope_style == "mrope":
+        if batch.get("positions") is not None:
+            pos = batch["positions"]
+        else:
+            pos = pos[None].expand(3, b, t)
+        return layers.mrope_cos_sin(pos, hd, cfg.rope_theta,
+                                    cfg.mrope_sections)
+    return layers.rope_cos_sin(pos, hd, cfg.rope_theta)
 
 
 # =============================================================== blocks
 
 
-def _block(bp, cfg, x, ctx, cache, mode):
-    """One block. Returns (x, new_cache)."""
-    h = layers.norm_apply(bp["norm1"], x)
-    if mode == "decode":
-        y, new_cache = attention.attn_decode(
-            bp["mixer"], cfg, h, cache, ctx["pos"], ctx["cos"], ctx["sin"],
-            window=ctx["window"])
-    else:
-        y, new_cache = attention.attn_forward(
-            bp["mixer"], cfg, h, ctx["cos"], ctx["sin"], causal=True,
+def _write(cache: dict, state: dict) -> dict:
+    """Copy a recurrent layer's new state into its cache slice."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return cache
+
+
+def _mixer(bp, cfg, kind, x, ctx, cache, mode):
+    """Dispatch one mixer. Returns (y, new_cache_or_None)."""
+    cos, sin = ctx["cos"], ctx["sin"]
+    if kind == "attn":
+        if cfg.mla:
+            if mode == "decode":
+                return mla.mla_decode(bp["mixer"], cfg, x, cache,
+                                      ctx["pos"], cos, sin)
+            return mla.mla_forward(bp["mixer"], cfg, x, cos, sin,
+                                   return_cache=(mode == "prefill"),
+                                   max_len=ctx["max_len"])
+        if mode == "decode":
+            return attention.attn_decode(bp["mixer"], cfg, x, cache,
+                                         ctx["pos"], cos, sin,
+                                         window=ctx["window"])
+        return attention.attn_forward(
+            bp["mixer"], cfg, x, cos, sin, causal=True,
             window=ctx["window"], return_cache=(mode == "prefill"),
             max_len=ctx["max_len"] if mode == "prefill" else 0)
+    if kind == "mamba":
+        y, state = mamba.mamba_forward(bp["mixer"], cfg, x,
+                                       cache if mode == "decode" else None)
+        if mode == "decode":
+            return y, _write(cache, state)
+        return y, (state if mode == "prefill" else None)
+    raise ValueError(kind)
+
+
+def _block(bp, cfg, kind, is_moe, x, ctx, cache, mode):
+    """One block. Returns (x, new_cache, aux)."""
+    aux = None
+    h = layers.norm_apply(bp["norm1"], x)
+    if kind == "rwkv":
+        if mode == "decode":
+            y, tm = rwkv6.time_mix_decode(bp["mixer"], cfg, h, cache)
+        else:
+            y, tm = rwkv6.time_mix(bp["mixer"], cfg, h, None)
+        x = x + y
+        # rwkv: the channel mix lives inside the block (own token shift)
+        h2 = layers.norm_apply(bp["norm2"], x)
+        y2, cm = rwkv6.channel_mix(
+            bp["mixer"], h2, cache["cm_last"] if mode == "decode" else None)
+        x = x + y2
+        new_cache = None
+        if mode == "prefill":
+            new_cache = dict(tm, cm_last=cm)
+        elif mode == "decode":
+            new_cache = _write(cache, dict(tm, cm_last=cm))
+        return x, new_cache, aux
+
+    y, new_cache = _mixer(bp, cfg, kind, h, ctx, cache, mode)
+    x = x + y
+    if "cross" in bp:
+        hc = layers.norm_apply(bp["norm_cross"], x)
+        if mode == "decode":
+            kv = {"k": cache["cross_k"], "v": cache["cross_v"]}
+        else:
+            kv = attention.cross_attn_kv(bp["cross"], cfg, ctx["enc"])
+        x = x + attention.cross_attn_apply(bp["cross"], cfg, hc, kv)
+        if mode == "prefill":
+            new_cache = dict(new_cache or {}, cross_k=kv["k"],
+                             cross_v=kv["v"])
+    hf = layers.norm_apply(bp["norm2"], x)
+    if is_moe:
+        yf, aux = moe.moe_apply(bp["ffn"], cfg, hf)
+    else:
+        yf = layers.mlp_apply(bp["ffn"], hf, cfg.mlp)
+    return x + yf, new_cache, aux
+
+
+def _encoder_block(bp, cfg, x):
+    """One encoder block: non-causal self-attention with no RoPE (the
+    einsum path: flash is causal only), then the MLP."""
+    h = layers.norm_apply(bp["norm1"], x)
+    y, _ = attention.attn_forward(bp["mixer"], cfg, h, None, None,
+                                  causal=False)
     x = x + y
     hf = layers.norm_apply(bp["norm2"], x)
-    return x + layers.mlp_apply(bp["ffn"], hf, cfg.mlp), new_cache
+    return x + layers.mlp_apply(bp["ffn"], hf, cfg.mlp)
 
 
-def _run_stack(blocks, cfg, x, ctx, mode, cache=None):
-    """Run the stacked groups in order. Returns (x, aux, cache|None):
-    prefill returns a new cache stacked over groups; decode writes into
-    `cache` in place and returns it."""
-    positions = range(len(cfg.layer_kinds()))
-    caches = {f"p{i}": [] for i in positions}
-    for gi in range(cfg.num_pattern_groups):
-        for i in positions:
+def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
+    """Run the stacked groups in order. Returns (x, aux, cache|None): aux
+    sums the MoE blocks' load-balance losses; prefill returns a new cache
+    stacked over groups; decode writes into `cache` in place and returns
+    it."""
+    kinds = (("attn", False),) if encoder else cfg.layer_kinds()
+    groups = cfg.encoder_layers if encoder else cfg.num_pattern_groups
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = {f"p{i}": [] for i in range(len(kinds))}
+    for gi in range(groups):
+        for i, (kind, is_moe) in enumerate(kinds):
             sub = _index(blocks[f"p{i}"], gi)
+            if encoder:
+                x = _encoder_block(sub, cfg, x)
+                continue
             c_in = _index(cache[f"p{i}"], gi) if mode == "decode" else None
-            x, nc = _block(sub, cfg, x, ctx, c_in, mode)
+            x, nc, a = _block(sub, cfg, kind, is_moe, x, ctx, c_in, mode)
+            if a is not None:
+                aux = aux + a
             if mode == "prefill":
                 caches[f"p{i}"].append(nc)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "prefill":
         cache = {k: _stack(v) for k, v in caches.items()}
     return x, aux, cache if mode in ("prefill", "decode") else None
+
+
+def _stack(trees: list) -> Tree:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _index(tree, i: int):
@@ -173,21 +288,45 @@ def _index(tree, i: int):
 
 
 def embed_inputs(params, cfg, batch):
-    """Token embedding. Returns (x, text_offset)."""
-    return params["embed"][batch["tokens"]], 0
+    """Token embedding and the stub multimodal prefix: the (B, P, d)
+    `batch["vision_embeds"]` go before the text. Returns (x,
+    text_offset): the loss applies from text_offset onward."""
+    x = params["embed"][batch["tokens"]]
+    offset = 0
+    if cfg.vision_prefix:
+        v = batch["vision_embeds"].to(x.dtype)  # (B, P, d) stub patches
+        x = torch.cat([v, x], dim=1)
+        offset = v.shape[1]
+    return x, offset
+
+
+def _prologue(params, cfg, batch):
+    """The embedded inputs with their positions, and the encoder's
+    output for enc-dec models. Returns (x, text_offset, ctx)."""
+    x, text_offset = embed_inputs(params, cfg, batch)
+    b, t = x.shape[0], x.shape[1]
+    cos, sin = _rope_for(cfg, batch, b, t, device=x.device)
+    if cfg.rope_style == "none":
+        x = x + _sinusoid(torch.arange(t, device=x.device),
+                          cfg.d_model).to(x.dtype)[None]
+    enc = None
+    if cfg.encoder_layers:
+        enc = batch["enc_embeds"].to(x.dtype)  # stub frame embeddings
+        enc, _, _ = _run_stack(params["encoder"]["blocks"], cfg, enc, {},
+                               "train", encoder=True)
+        enc = layers.norm_apply(params["encoder"]["final_norm"], enc)
+    ctx = {"cos": cos, "sin": sin, "pos": None,
+           "window": cfg.sliding_window, "enc": enc, "max_len": t}
+    return x, text_offset, ctx
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
             max_len: int = 0):
     """Full-sequence forward. mode: "train" | "prefill"."""
-    check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(mode)
-    x, text_offset = embed_inputs(params, cfg, batch)
-    b, t = x.shape[0], x.shape[1]
-    cos, sin = _rope_for(cfg, b, t, device=x.device)
-    ctx = {"cos": cos, "sin": sin, "pos": None,
-           "window": cfg.sliding_window, "max_len": max(max_len, t)}
+    x, text_offset, ctx = _prologue(params, cfg, batch)
+    ctx["max_len"] = max(max_len, x.shape[1])
     x, aux, cache = _run_stack(params["blocks"], cfg, x, ctx, mode)
     x = layers.norm_apply(params["final_norm"], x)
     logits = unembed(params, cfg, x)
@@ -205,12 +344,7 @@ def unembed(params, cfg, x):
 def hidden_forward(params, cfg: ModelConfig, batch):
     """Forward up to the final norm, WITHOUT the unembed projection.
     Returns (x, aux, text_offset)."""
-    check_supported(cfg)
-    x, text_offset = embed_inputs(params, cfg, batch)
-    b, t = x.shape[0], x.shape[1]
-    cos, sin = _rope_for(cfg, b, t, device=x.device)
-    ctx = {"cos": cos, "sin": sin, "pos": None,
-           "window": cfg.sliding_window, "max_len": t}
+    x, text_offset, ctx = _prologue(params, cfg, batch)
     x, aux, _ = _run_stack(params["blocks"], cfg, x, ctx, "train")
     return layers.norm_apply(params["final_norm"], x), aux, text_offset
 
@@ -247,10 +381,11 @@ def _chunked_ce(params, cfg, x_pred, labels):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Next-token cross-entropy (+ the aux loss, 0 for the dense family):
-    predict tokens[1:] from positions [0 .. T-2]. `batch["loss_mask"]`,
-    when given, weights the tokens (not with `cfg.loss_chunk`, as in the
-    reference). Returns a scalar f32."""
+    """Next-token cross-entropy plus the MoE aux loss: predict
+    tokens[1:] from the positions [off .. off + T - 2], where off is the
+    vision prefix's length. `batch["loss_mask"]`, when given, weights the
+    tokens (not with `cfg.loss_chunk`, as in the reference). Returns a
+    scalar f32."""
     tokens = batch["tokens"]
     if cfg.loss_chunk:
         x, aux, off = hidden_forward(params, cfg, batch)
@@ -263,17 +398,24 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return ce + aux
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
-    """One-token decode. token (B,1) int; pos the absolute position.
+def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
+                batch_extras=None):
+    """One-token decode. token (B,1) int; pos the absolute position;
+    `batch_extras` may hold M-RoPE `positions` (3, B, 1).
 
-    Returns (logits (B,1,V), cache): the token's keys and values are
-    written into `cache` in place."""
-    check_supported(cfg)
+    Returns (logits (B,1,V), cache): the token's keys and values (or
+    latents, or recurrent state) are written into `cache` in place."""
     pos = int(pos)
     x = params["embed"][token]
-    cos, sin = _rope_for(cfg, x.shape[0], 1, offset=pos, device=x.device)
+    if cfg.rope_style == "none":
+        x = x + _sinusoid(torch.arange(pos, pos + 1, device=x.device),
+                          cfg.d_model).to(x.dtype)[None]
+        cos = sin = None
+    else:
+        cos, sin = _rope_for(cfg, batch_extras or {}, x.shape[0], 1,
+                             offset=pos, device=x.device)
     ctx = {"cos": cos, "sin": sin, "pos": pos,
-           "window": cfg.sliding_window, "max_len": 0}
+           "window": cfg.sliding_window, "enc": None, "max_len": 0}
     x, _, cache = _run_stack(params["blocks"], cfg, x, ctx, "decode", cache)
     x = layers.norm_apply(params["final_norm"], x)
     return unembed(params, cfg, x), cache
@@ -281,29 +423,54 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
 
 def init_cache(cfg: ModelConfig, b: int, max_len: int,
                device=None) -> Tree:
-    """Zero-initialised decode cache (leaves stacked over groups)."""
-    check_supported(cfg)
+    """Zero-initialised decode cache (leaves stacked over groups): K/V
+    (ring of the window for SWA), MLA latents, Mamba {h, conv}, RWKV
+    {S, tm_last, cm_last}, and the cross K/V of enc-dec models."""
     g = cfg.num_pattern_groups
     s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
-    shape = (g, b, s, cfg.num_kv_heads, cfg.hd)
-    return {f"p{i}": {"k": torch.zeros(shape, dtype=cfg.tdtype,
-                                       device=device),
-                      "v": torch.zeros(shape, dtype=cfg.tdtype,
-                                       device=device)}
-            for i in range(len(cfg.layer_kinds()))}
+
+    def zeros(shape, dtype=cfg.tdtype):
+        return torch.zeros((g,) + tuple(shape), dtype=dtype, device=device)
+
+    out = {}
+    for i, (kind, _) in enumerate(cfg.layer_kinds()):
+        if kind == "attn":
+            if cfg.mla:
+                m = cfg.mla
+                c = {"ckv": zeros((b, max_len, m.kv_lora_rank)),
+                     "krope": zeros((b, max_len, m.rope_head_dim))}
+            else:
+                c = {"k": zeros((b, s, cfg.num_kv_heads, cfg.hd)),
+                     "v": zeros((b, s, cfg.num_kv_heads, cfg.hd))}
+            if cfg.encoder_layers:
+                shape = (b, cfg.encoder_len, cfg.num_kv_heads, cfg.hd)
+                c["cross_k"], c["cross_v"] = zeros(shape), zeros(shape)
+        elif kind in ("mamba", "rwkv"):
+            mod = mamba if kind == "mamba" else rwkv6
+            c = {k: zeros(v.shape, v.dtype)
+                 for k, v in mod.init_state(cfg, b, device="meta").items()}
+        else:
+            raise ValueError(kind)
+        out[f"p{i}"] = c
+    return out
 
 
 # ========================================================== param count
 
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the shapes of `init_params` on the meta
-    device (nothing is allocated)."""
+    device (nothing is allocated). With `active_only`, each
+    routed-expert leaf (ndim 4: group, expert, in, out) counts top_k / E
+    of its size."""
     shapes = init_params(None, cfg, device="meta")
-
-    def total(tree) -> int:
-        if isinstance(tree, dict):
-            return sum(total(v) for v in tree.values())
-        return math.prod(tree.shape)
-
-    return total(shapes)
+    total = 0
+    for path, leaf in zip(treemath.tree_paths(shapes),
+                          treemath.tree_leaves(shapes)):
+        n = leaf.numel()
+        if (active_only and cfg.moe is not None and "ffn" in path
+                and path[-1] in ("w_gate", "w_up", "w_down")
+                and leaf.ndim == 4):
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
+    return total

@@ -2,9 +2,10 @@
 
 Each example's `main(argv)` runs with `--device cpu` at a tiny size, its
 outputs under pytest's `tmp_path`: the two FedAdp image drivers for 2
-rounds, the serving demo on a reduced dense architecture (and the
-port's NotImplementedError, naming its ROADMAP item, on one outside the
-dense family), and federated LM training, whose checkpoint must
+rounds, the serving demo on a reduced dense architecture and, with
+`python -m repro_torch.launch.serve`, on each of the other families
+(their greedy ids against the JAX package's `decode_step` loop at
+positions P + T + i), and federated LM training, whose checkpoint must
 restore the final RoundState, and whose round on the flash attention
 path and the flat engine must equal the one on xla and tree. The
 examples, like the port, import no jax, and without `--device` they run
@@ -86,10 +87,78 @@ def test_serve_decode_dense(capsys):
     assert len(ids) == 3
 
 
-def test_serve_decode_other_families_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        _load("torch_serve_decode").main(
-            ["--arch", "deepseek-v2-lite-16b", "--device", "cpu"])
+FAMILIES = ["deepseek-v2-236b", "deepseek-v2-lite-16b",
+            "jamba-1.5-large-398b", "qwen2-vl-2b", "rwkv6-3b",
+            "whisper-small"]
+
+
+def _jax_greedy(arch, params, tokens, steps):
+    """The JAX package's greedy loop on the port's params: its prefill
+    with zero stub embeddings, then its `decode_step` at positions
+    P + T + i."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry as jreg
+    from repro.models import transformer as jtr
+    from repro_torch import convert
+
+    cfg = jreg.smoke(arch)
+    jparams = jax.tree.map(jnp.asarray, convert.params_to_numpy(params))
+    b, t = tokens.shape
+    batch = {"tokens": jnp.asarray(tokens.numpy().astype(np.int32))}
+    if cfg.vision_prefix:
+        batch["vision_embeds"] = jnp.zeros((b, cfg.vision_prefix,
+                                            cfg.d_model), cfg.jdtype)
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = jnp.zeros((b, cfg.encoder_len, cfg.d_model),
+                                        cfg.jdtype)
+    start = cfg.vision_prefix + t
+    logits, _, cache = jtr.forward(jparams, cfg, batch, mode="prefill",
+                                   max_len=start + steps)
+    tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
+    out = [tok]
+    for i in range(steps - 1):
+        logits, cache = jtr.decode_step(jparams, cfg, tok, cache,
+                                        jnp.int32(start + i), {})
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+def _ids(text):
+    return [int(x) for x in re.search(r"sample token ids: \[(.*)\]",
+                                      text).group(1).split(",")]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_decode_and_launcher_run_the_other_families(arch, capsys):
+    """The example and `python -m repro_torch.launch.serve` on each new
+    family (reduced, B = 2, T = 16, 3 steps): their greedy ids are
+    `generate`'s on the same seeded params and tokens, which equal a
+    greedy loop over the JAX package's `decode_step` at P + T + i."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len", "16",
+            "--steps", "3", "--device", "cpu"]
+    _load("torch_serve_decode").main(argv)
+    text = capsys.readouterr().out
+    assert f"[{arch}-smoke] prefill B=2 T=16" in text
+    serve.main(argv)
+    launched = capsys.readouterr().out
+    assert f"[{arch}-smoke on cpu, attention=xla] B=2 T=16" in launched
+
+    cfg = registry.smoke(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = transformer.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    ids = serve.generate(params, cfg, tokens, 3,
+                         extras=serve.stub_extras(cfg, 2, "cpu"))
+    want = _jax_greedy(arch, params, tokens, 3)
+    np.testing.assert_array_equal(ids.numpy(), want)
+    assert _ids(text) == _ids(launched) == want[0].tolist()
 
 
 def test_fl_lm_train_saves_the_final_state(tmp_path, capsys):

@@ -15,8 +15,8 @@ Also: train-mode logits, decode from `init_cache`, the configs read the
 same in both packages, `count_params` equals
 the reference's for the full configs (analytic, nothing allocated), the
 building blocks match `repro.models.layers`, the sliding-window ring and
-the query-chunked path match, bf16 params carry across bit for bit, and
-configs outside the dense family raise NotImplementedError.
+the query-chunked path match, and bf16 params carry across bit for bit.
+The other families are held in tests/test_torch_families.py.
 """
 import dataclasses
 import functools
@@ -170,15 +170,6 @@ def test_configs_read_the_same_in_both_packages():
             assert dataclasses.asdict(getattr(treg, get)(name)) == want
     assert treg.get("gemma-2b").tdtype == torch.bfloat16
     assert treg.smoke("gemma-2b").tdtype == torch.float32
-
-
-@pytest.mark.parametrize("arch", sorted(set(jreg.ARCHS) - set(DENSE)))
-def test_other_families_raise_not_implemented(arch):
-    cfg = treg.smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.count_params(cfg)
 
 
 def test_building_blocks_match_reference():

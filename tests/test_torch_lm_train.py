@@ -23,7 +23,6 @@ the vmapped dim into the batch (batched or shared k and v), against
 2e-5. The Function's forward must only ever see plain tensors: the
 kernel's ctypes launch reads their storage.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -166,13 +165,6 @@ def test_hidden_forward_then_unembed_is_the_train_forward():
     logits, aux2, off2 = ttr.forward(params, tcfg, batch, mode="train")
     assert off == off2 == 0 and float(aux) == float(aux2) == 0.0
     assert torch.equal(ttr.unembed(params, tcfg, x), logits)
-
-
-def test_loss_fn_refuses_configs_outside_the_dense_family():
-    _, tcfg = _cfgs("xla")
-    cfg = dataclasses.replace(tcfg, rope_style="none")
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        ttr.loss_fn({}, cfg, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
 
 
 @pytest.mark.parametrize("impl", IMPLS)
