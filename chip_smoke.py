@@ -258,10 +258,8 @@ FAMILY_FLASH = {"deepseek-v2-lite-16b": 0, "deepseek-v2-236b": 0,
                 "whisper-small": 12}
 # the reduced (smoke) configs held card == CPU in f32: the six families
 # and deepseek-v2-236b's q-LoRA branch, which reduced() zeroes
-FAMILY_PARITY = (("deepseek-v2-lite-16b", {}), ("deepseek-v2-236b", {}),
-                 ("deepseek-v2-236b", {"mla": {"q_lora_rank": 32}}),
-                 ("jamba-1.5-large-398b", {}), ("rwkv6-3b", {}),
-                 ("qwen2-vl-2b", {}), ("whisper-small", {}))
+FAMILY_PARITY = tuple((name, {}) for name, *_ in FAMILY_MODELS) + (
+    ("deepseek-v2-236b", {"mla": {"q_lora_rank": 32}}),)
 FAMILY_PARITY_B, FAMILY_PARITY_T, FAMILY_PARITY_STEPS = 2, 64, 4
 INIT_SLACK = 1e9  # bytes an init may hold beyond the params (one draw)
 
@@ -1697,11 +1695,14 @@ def device_kernels(fn, whole: bool = True, tries: int = 6) -> list:
     on the H100 loses device events at its ends and never gains one: now
     and then its first, in a process that has launched many kernels its
     first three every time, in one run its first eleven in three traces
-    running, and once its last six. So a trace whose first and last
-    device events are sleep kernels holds every kernel of the call. Up to
-    `tries` traces are taken, the head doubled after each that lost it,
-    until one is whole; if none is, this raises, or with `whole` False
-    (a report, not a check) gives the trace with the most events."""
+    running, and once its last six; once, late in a run, it kept both
+    ends and lost every kernel between them. So a trace whose first and
+    last device events are sleep kernels, with at least one kernel of the
+    call between them (every caller's `fn` launches one), holds every
+    kernel of the call. Up to `tries` traces are taken, the head doubled
+    after each that lost it, until one is whole; if none is, this raises,
+    or with `whole` False (a report, not a check) gives the trace with
+    the most events."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1725,10 +1726,11 @@ def device_kernels(fn, whole: bool = True, tries: int = 6) -> list:
         kernels = Counter(n for n in names if SPIN_KERNEL not in n)
         first = bool(names) and SPIN_KERNEL in names[0]
         last = bool(names) and SPIN_KERNEL in names[-1]
-        if first and last:
+        if first and last and kernels:
             return kernels.most_common()
         lost.append({"head": head, "events": len(names),
-                     "first_kept": first, "last_kept": last})
+                     "first_kept": first, "last_kept": last,
+                     "between": sum(kernels.values())})
         if sum(kernels.values()) > sum(c for _, c in fullest):
             fullest = kernels.most_common()
         if not first:
@@ -2884,16 +2886,6 @@ def phase_serve(fa, dev) -> dict:
     return out
 
 
-def with_changes(cfg, changes: dict):
-    """`cfg` with fields replaced; a dict value replaces sub-fields of a
-    nested config (moe, mla, ssm)."""
-    for field, value in changes.items():
-        if isinstance(value, dict):
-            value = dataclasses.replace(getattr(cfg, field), **value)
-        cfg = dataclasses.replace(cfg, **{field: value})
-    return cfg
-
-
 def family_inputs(cfg, b: int, t: int, steps: int, dev) -> tuple:
     """Seeded numpy inputs on `dev`: the prefill batch (tokens after the
     vision prefix, stub embeddings, distinct M-RoPE streams) and each
@@ -2959,6 +2951,7 @@ def family_parity(transformer, registry, dev) -> dict:
     prefill, decode steps and loss_fn on both devices; card == CPU at
     PARITY_TOL on every output."""
     from repro_torch.core import treemath
+    from repro_torch.models.config import with_changes
 
     worst = {}
     for name, changes in FAMILY_PARITY:
@@ -2995,18 +2988,20 @@ def brief(prof: dict, top: int = 5) -> dict:
                                  "device_events")} | {"top": prof["top"][:top]}
 
 
-def phase_families(fa, dev) -> dict:
+def phase_families(fa, dev) -> tuple[dict, dict]:
     """The other model families (MoE with MLA, the Mamba hybrid, RWKV-6,
     M-RoPE with a vision prefix, the Whisper encoder-decoder): first
     card == CPU at the reduced size, then each served at full width in
     bf16 through launch.serve.generate. Returns the flash launches of
-    each model's counted generate call."""
+    each model's counted generate call, and each model's worst
+    (max |d|, excess) of its flash calls against the plain version."""
     import gc
 
     from repro_torch.configs import registry
     from repro_torch.core import treemath
     from repro_torch.launch import serve
     from repro_torch.models import moe, transformer
+    from repro_torch.models.config import with_changes
 
     t_phase = time.perf_counter()
     parity = family_parity(transformer, registry, dev)
@@ -3016,7 +3011,7 @@ def phase_families(fa, dev) -> dict:
           "worst": parity,
           "seconds": time.perf_counter() - t_phase})
 
-    launches = {}
+    launches, flash_errs = {}, {}
     route = moe._route
     for name, changes, cut, prompt in FAMILY_MODELS:
         gc.collect()
@@ -3075,15 +3070,30 @@ def phase_families(fa, dev) -> dict:
                                  "token")
         prefill_ms = float(np.median([p[1] for p in pre]))
         # one more prefill: its logits finite and its argmax generate's
-        # first token; the MoE layers' assignments dropped by capacity
-        kept = []
+        # first token; the MoE layers' assignments dropped by capacity;
+        # each flash launch held against the plain version on the inputs
+        # and tiles the model gave it
+        kept, flash_checks = [], []
 
         def spy(*a):
             out = route(*a)
             kept.append(out[5])
             return out
 
-        moe._route = spy
+        def flash_spy(q, k, v, **kw):
+            out = gqa(q, k, v, **kw)
+            if not kw.get("causal", True):
+                raise AssertionError(f"{name}: a non-causal flash call")
+            dtype = str(q.dtype).removeprefix("torch.")
+            flash_checks.append({
+                "q": list(q.shape), "kv_heads": k.shape[2], "dtype": dtype,
+                "blk": [kw.get("blk_q"), kw.get("blk_k")],
+                "err": allclose_err(out, gqa_plain(fa, q, k, v),
+                                    FLASH_TOL[dtype])})
+            return out
+
+        gqa = fa.gqa_flash
+        moe._route, fa.gqa_flash = spy, flash_spy
         try:
             with torch.no_grad():
                 logits, _, _ = transformer.forward(
@@ -3093,7 +3103,16 @@ def phase_families(fa, dev) -> dict:
                 finite = bool(torch.isfinite(logits).all())
                 del logits
         finally:
-            moe._route = route
+            moe._route, fa.gqa_flash = route, gqa
+        flash_worst = max((c["err"] for c in flash_checks),
+                          key=lambda e: e[1], default=None)
+        if len(flash_checks) != want_flash or (
+                flash_checks and not flash_worst[1] <= 1.0):
+            raise AssertionError(
+                f"{name}: {len(flash_checks)} flash calls in a prefill, "
+                f"want {want_flash}; against the plain version at "
+                f"{FLASH_TOL}: {flash_checks}")
+        flash_errs[name] = flash_worst
         if not finite or not torch.equal(last.argmax(-1)[:, None],
                                          ids[:, :1]):
             raise AssertionError(f"{name}: prefill logits finite {finite}; "
@@ -3134,6 +3153,10 @@ def phase_families(fa, dev) -> dict:
                "decode_ms_per_step":
                    (total_ms - prefill_ms) / (FAMILY_STEPS - 1),
                "moe_dropped_share": dropped,
+               "flash_calls_checked": len(flash_checks),
+               "flash_call": {k: v for k, v in flash_checks[0].items()
+                              if k != "err"} if flash_checks else None,
+               "flash_max_abs_err_and_excess": flash_worst,
                "sample_ids": ids[0, :8].tolist(),
                "profile_prefill": prof_prefill,
                "profile_decode_2_steps": prof_decode}
@@ -3142,8 +3165,9 @@ def phase_families(fa, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "families", "seconds": time.perf_counter() - t_phase,
-          "flash_launches": launches})
-    return launches
+          "flash_launches": launches, "flash_max_abs_err_and_excess":
+          flash_errs})
+    return launches, flash_errs
 
 
 def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
@@ -3330,7 +3354,7 @@ def main() -> int:
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
-    family_launches = phase_families(fa, dev)
+    family_launches, family_flash_errs = phase_families(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
 
     for name, row in table.items():
@@ -3345,6 +3369,9 @@ def main() -> int:
     # and each of the other families' generate call (qwen2-vl, jamba and
     # whisper's decoder prefill on the bf16 kernel; MLA and RWKV never)
     lm_table["flash_attention"]["launches_families"] = family_launches
+    # and its worst error against the plain version at those prefills
+    lm_table["flash_attention"]["max_abs_err_families"] = {
+        name: e[0] for name, e in family_flash_errs.items() if e}
     lm_table["flash_attention_f32"]["launches"] = \
         serve_out["f32_parity"]["flash_launches"]
     for name in ("batched_dot", "grad_dot_stats"):

@@ -209,3 +209,13 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["mrope_sections"] = (8, 12, 12)  # of reduced head_dim/2 = 32
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)
+
+
+def with_changes(cfg, changes: dict):
+    """`cfg` with fields replaced; a dict value replaces sub-fields of a
+    nested config (moe, mla, ssm, rwkv). Works on any config dataclass."""
+    for field, value in changes.items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(cfg, field), **value)
+        cfg = dataclasses.replace(cfg, **{field: value})
+    return cfg

@@ -22,6 +22,7 @@ import torch
 import repro_torch
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core import treemath
+from test_torch_families import NEW_FAMILIES
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 NAMES = ("torch_quickstart", "torch_fedadp_noniid", "torch_serve_decode",
@@ -87,9 +88,6 @@ def test_serve_decode_dense(capsys):
     assert len(ids) == 3
 
 
-FAMILIES = ["deepseek-v2-236b", "deepseek-v2-lite-16b",
-            "jamba-1.5-large-398b", "qwen2-vl-2b", "rwkv6-3b",
-            "whisper-small"]
 
 
 def _jax_greedy(arch, params, tokens, steps):
@@ -131,7 +129,7 @@ def _ids(text):
                                       text).group(1).split(",")]
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_serve_decode_and_launcher_run_the_other_families(arch, capsys):
     """The example and `python -m repro_torch.launch.serve` on each new
     family (reduced, B = 2, T = 16, 3 steps): their greedy ids are

@@ -22,11 +22,13 @@ the loss and its gradients at 1e-5 (tests/test_torch_lm_train.py), or
 and gradients are held in tests/test_torch_families_train.py, the
 modules one by one in tests/test_torch_family_parts.py.
 
-The two variants that store a tensor in bf16 (jamba's x / B / C streams,
-the MoE combine) are held at 2e-2, the reference's own tolerance for its
-Mamba scan (tests/test_recurrences.py): measured, their prefill logits
-differ from the JAX package's by up to 1.0e-2 (jamba) and 2.7e-3 (MoE)
-at logits of magnitude 5, their loss by 1.2e-4 and 1.2e-5. The cause is
+The two variants that store a tensor in bf16 are held at looser
+tolerances: jamba's x / B / C streams at 2e-2, the reference's own
+tolerance for its Mamba scan (tests/test_recurrences.py), and the MoE
+combine at 5e-3, about twice its own measured error. Measured, their
+prefill logits differ from the JAX package's by up to 1.0e-2 (jamba)
+and 2.7e-3 (MoE) at logits of magnitude 5, their loss by 1.2e-4 and
+1.2e-5. The cause is
 bf16 rounding, not the port: the two packages' f32 values before the
 cast differ in the last bits (another matmul summation order), which
 now and then sends one element to the neighbouring bf16 value, 2^-8 of
@@ -41,7 +43,6 @@ without `active_only`, allocating nothing; the layout and dtypes of
 `init_params`; and the init repair: `init_params`' live bytes peak at
 the params plus one draw, not two copies of the model.
 """
-import dataclasses
 import functools
 import weakref
 
@@ -61,11 +62,16 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
+from repro_torch.models.config import with_changes
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 FLASH_LOSS_TOL = dict(atol=2e-5, rtol=2e-5)
-BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # the reference's Mamba scan's
+BF16_TOL = {  # the variants that store a tensor in bf16
+    "jamba-stream_bf16": dict(atol=2e-2, rtol=2e-2),  # the reference's
+    # Mamba scan's (tests/test_recurrences.py)
+    "moe-combine_bf16": dict(atol=5e-3, rtol=5e-3),  # its measured 2.7e-3
+}
 B, T, STEPS = 2, 64, 4  # T counts the vision prefix: flash needs T % 64
 
 # variant -> (architecture, {config field: value or {subfield: value}})
@@ -104,18 +110,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _apply(cfg, changes: dict):
-    for field, value in changes.items():
-        if isinstance(value, dict):
-            value = dataclasses.replace(getattr(cfg, field), **value)
-        cfg = dataclasses.replace(cfg, **{field: value})
-    return cfg
-
-
 def _cfgs(variant: str, impl: str = "flash"):
     arch, changes = VARIANTS[variant]
-    return (_apply(jreg.smoke(arch, attention_impl=impl), changes),
-            _apply(treg.smoke(arch, attention_impl=impl), changes))
+    return (with_changes(jreg.smoke(arch, attention_impl=impl), changes),
+            with_changes(treg.smoke(arch, attention_impl=impl), changes))
 
 
 def _runs_flash(cfg) -> bool:
@@ -123,7 +121,7 @@ def _runs_flash(cfg) -> bool:
 
 
 def tol_for(variant: str, tol=TOL):
-    return BF16_TOL if variant in BF16_VARIANTS else tol
+    return BF16_TOL.get(variant, tol)
 
 
 def _close(got, want, what, tol=TOL):

@@ -31,7 +31,8 @@ from repro_torch.models import mamba as tmamba
 from repro_torch.models import mla as tmla
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rwkv6 as trwkv
-from test_torch_families import _apply, _close, _tree_close
+from repro_torch.models.config import with_changes
+from test_torch_families import _close, _tree_close
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,8 +59,8 @@ def _t(tree):
 @pytest.mark.parametrize("tokens", [(2, 16), (4, 1)])
 def test_moe_apply_matches_jax(changes, tokens):
     """Train / prefill shape and decode's (B, 1, d), where C = 8."""
-    jcfg = _apply(jreg.smoke("deepseek-v2-lite-16b"), {"moe": changes})
-    cfg = _apply(treg.smoke("deepseek-v2-lite-16b"), {"moe": changes})
+    jcfg = with_changes(jreg.smoke("deepseek-v2-lite-16b"), {"moe": changes})
+    cfg = with_changes(treg.smoke("deepseek-v2-lite-16b"), {"moe": changes})
     jp = jmoe.moe_init(jax.random.key(3), jcfg)
     x = np.random.default_rng(0).normal(
         size=tokens + (cfg.d_model,)).astype(np.float32)
@@ -74,7 +75,7 @@ def test_moe_apply_matches_jax(changes, tokens):
 def test_moe_route_drops_the_reference_assignments():
     """The kept / dropped assignments are the reference's: token-major
     within an expert, overflow to row E*C."""
-    cfg = _apply(treg.smoke("deepseek-v2-lite-16b"),
+    cfg = with_changes(treg.smoke("deepseek-v2-lite-16b"),
                  {"moe": {"capacity_factor": 0.25}})
     rng = np.random.default_rng(5)
     p = {"router": torch.from_numpy(rng.normal(size=(cfg.d_model, 4))
@@ -97,8 +98,8 @@ def test_moe_route_drops_the_reference_assignments():
 @pytest.mark.parametrize("q_lora", [0, 32])
 def test_mla_forward_and_decode_match_jax(q_lora):
     changes = {"mla": {"q_lora_rank": q_lora}}
-    jcfg = _apply(jreg.smoke("deepseek-v2-236b"), changes)
-    cfg = _apply(treg.smoke("deepseek-v2-236b"), changes)
+    jcfg = with_changes(jreg.smoke("deepseek-v2-236b"), changes)
+    cfg = with_changes(treg.smoke("deepseek-v2-236b"), changes)
     jp = jmla.mla_init(jax.random.key(4), jcfg)
     p = _t(jp)
     rng = np.random.default_rng(1)
@@ -128,8 +129,8 @@ def test_mla_forward_and_decode_match_jax(q_lora):
 @pytest.mark.parametrize("ssm", [{}, {"scan_unroll": 4},
                                  {"stream_dtype": "bfloat16"}])
 def test_mamba_forward_matches_jax(ssm):
-    jcfg = _apply(jreg.smoke("jamba-1.5-large-398b"), {"ssm": ssm})
-    cfg = _apply(treg.smoke("jamba-1.5-large-398b"), {"ssm": ssm})
+    jcfg = with_changes(jreg.smoke("jamba-1.5-large-398b"), {"ssm": ssm})
+    cfg = with_changes(treg.smoke("jamba-1.5-large-398b"), {"ssm": ssm})
     jp = jmamba.mamba_init(jax.random.key(5), jcfg)
     p = _t(jp)
     assert p["A_log"].dtype == p["dt_b"].dtype == p["D"].dtype == \
