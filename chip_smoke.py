@@ -113,8 +113,16 @@ prefill's argmax = generate's first token, prefill and decode times,
 peak memory, the MoE capacity's dropped share, profiles), ops (tree_vdot_batched and tree_dot_and_norms
 on the tree view of a CNN round's (K, N) buffer equal that round's
 round_stats; one client's tree_dot_and_norms runs one grad_dot device
-kernel a leaf of at most one block, two a larger leaf). Then, on lines
-of their own: the kernel table as one JSON object, the card's name and
+kernel a leaf of at most one block, two a larger leaf), launch (the
+dry run of gemma-2b x train_4k on the 32x8 mesh; the training launcher
+in this process at gemma-2b's full width and depth, bf16, host mesh,
+K = 1, T = 1024, B = 4: 3 rounds, then 2 with a checkpoint and --resume
+to 3, the params_sha256 equal; then for that train step, a prefill
+(B = 4, T = 1024) and a decode step (B = 4, S = 4096) the dry run's
+argument bytes against memory_allocated() once the inputs are placed,
+within 1% plus 512 B a tensor, and its live bytes against
+max_memory_allocated() over the step, the ratio within [0.8, 1.25]).
+Then, on lines of their own: the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
 `{"ok": true, "device": {...}}`.
 
@@ -262,6 +270,13 @@ FAMILY_PARITY = tuple((name, {}) for name, *_ in FAMILY_MODELS) + (
     ("deepseek-v2-236b", {"mla": {"q_lora_rank": 32}}),)
 FAMILY_PARITY_B, FAMILY_PARITY_T, FAMILY_PARITY_STEPS = 2, 64, 4
 INIT_SLACK = 1e9  # bytes an init may hold beyond the params (one draw)
+# the launch phase: the launcher's path at gemma-2b's full width and depth,
+# host mesh (K = 1), and the dry run's prediction against the card
+LAUNCH_ARGV = ["--arch", "gemma-2b", "--host-mesh", "--seq", "1024",
+               "--global-batch", "4"]
+LAUNCH_STEPS = {"train": (1024, 4), "prefill": (1024, 4), "decode": (4096, 4)}
+ARG_RTOL, ARG_SLACK = 0.01, 512  # the allocator rounds a tensor to 512 B
+PEAK_RATIO = (0.8, 1.25)  # the card's peak over the dry run's live bytes
 
 
 def emit(obj) -> None:
@@ -3260,6 +3275,139 @@ def phase_ops(wa, gd, ops, dev, nodes, test) -> dict:
     return launches
 
 
+def launch_inputs(kind, cfg, args, meta, dev):
+    """Real tensors on the card for a step built on the meta device:
+    params drawn from a seed, the train step's RoundState from the
+    runtime's own init, random tokens, a zero decode cache."""
+    import repro_torch
+    from repro_torch.core import treemath
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.init_params(gen, cfg)
+
+    def like(x, fill):
+        t = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        return fill(t)
+
+    def tokens(x):
+        return like(x, lambda t: t.random_(0, cfg.vocab_size, generator=gen))
+
+    if kind == "train":
+        fl = repro_torch.FLConfig(**meta["flcfg"])
+        state = repro_torch.init_round_state(fl, params)
+        batch = {k: tokens(v) if k == "tokens" else like(v, torch.zeros_like)
+                 for k, v in args[1].items()}
+        k = meta["K"]
+        return (state, batch, torch.arange(k, dtype=torch.int32, device=dev),
+                torch.ones((k,), device=dev))
+    if kind == "prefill":
+        return params, {k: tokens(v) if k == "tokens"
+                        else like(v, torch.zeros_like)
+                        for k, v in args[1].items()}
+    cache = treemath.tree_map(lambda x: like(x, torch.zeros_like), args[2])
+    pos = torch.tensor(args[1].shape[1] - 1, dtype=torch.int32, device=dev)
+    return params, tokens(args[1]), cache, pos
+
+
+def phase_launch(dev) -> dict:
+    """The launch layer: the dry run of gemma-2b x train_4k on the 32x8
+    mesh under this card's torch; the launcher's path in this process
+    (gemma-2b at full width and depth, bf16, host mesh, K = 1, T = 1024,
+    B = 4): 3 rounds, then 2 rounds with a checkpoint and --resume to 3,
+    the two params_sha256 equal; then for the train step, a prefill
+    (B = 4, T = 1024) and a decode step (B = 4, S = 4096), each built on
+    a (1, 1) mesh, the dry run's prediction against the card: the
+    argument bytes against memory_allocated() once the inputs are placed
+    (within 1% plus 512 B a tensor), and the live bytes (arguments +
+    outputs + temp - alias) against max_memory_allocated() over one run
+    of the step (the ratio within PEAK_RATIO)."""
+    import tempfile
+
+    from repro_torch.configs import registry, shapes
+    from repro_torch.launch import dryrun, steps, train
+    from repro_torch.launch.mesh import AbstractMesh, HBM_BYTES
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if total != HBM_BYTES:
+        raise AssertionError(f"launch.mesh.HBM_BYTES {HBM_BYTES} is not "
+                             f"this card's memory {total}")
+    dry = dryrun.run_one("gemma-2b", "train_4k", verbose=False)
+    emit({"phase": "launch", "dryrun": dry})
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        whole = train.main(LAUNCH_ARGV + ["--rounds", "3"])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        half = train.main(LAUNCH_ARGV + ["--rounds", "2", "--ckpt", ckpt])
+        half_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = train.main(LAUNCH_ARGV + ["--rounds", "3", "--ckpt", ckpt,
+                                            "--resume"])
+        resume_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    if resumed["params_sha256"] != whole["params_sha256"]:
+        raise AssertionError(f"resumed params {resumed['params_sha256']} != "
+                             f"uninterrupted {whole['params_sha256']}")
+    if half["losses"] != whole["losses"][:2] or not np.isfinite(
+            whole["losses"]).all():
+        raise AssertionError(f"launcher losses: {whole['losses']} then "
+                             f"{half['losses']}")
+
+    cfg = registry.get("gemma-2b")
+    host = AbstractMesh((1, 1), ("data", "model"))
+    checks = {}
+    for kind, (t, b) in LAUNCH_STEPS.items():
+        builder = getattr(steps, f"build_{kind}_step")
+        fn, args, ins, outs, meta = builder(
+            cfg, host, shapes.InputShape(kind, t, b, kind))
+        pred = dryrun.step_record(fn, args, ins, outs, host)
+        n_args = len(steps.spec_leaves(ins, args))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        real = launch_inputs(kind, cfg, args, meta, dev)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn(*real)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        want_args = pred["memory"]["argument_bytes"]
+        checks[kind] = {
+            "argument_bytes": want_args, "card_argument_bytes": placed,
+            "tensors": n_args, "memory": pred["memory"],
+            "live_bytes": pred["live_bytes"], "card_peak_bytes": peak,
+            "peak_ratio": peak / pred["live_bytes"], "ms": ms,
+            "global_flops": pred["global"]["flops"]}
+        del out, real
+        torch.cuda.empty_cache()
+        if abs(placed - want_args) > ARG_RTOL * want_args + ARG_SLACK * n_args:
+            raise AssertionError(f"{kind}: the card holds {placed} B of "
+                                 f"arguments, the dry run says {want_args}")
+        lo, hi = PEAK_RATIO
+        if not lo <= checks[kind]["peak_ratio"] <= hi:
+            raise AssertionError(f"{kind}: the card's peak {peak} B over "
+                                 f"the dry run's {pred['live_bytes']} B is "
+                                 f"outside {PEAK_RATIO}: {checks[kind]}")
+    out = {"phase": "launch", "dryrun_build_s": dry["build_s"],
+           "dryrun_fits": dry["fits"], "total_memory": total,
+           "launcher": {"losses": whole["losses"],
+                        "ms_a_round": [1e3 * x for x in whole["seconds"]],
+                        "params_sha256": whole["params_sha256"],
+                        "resumed_sha256": resumed["params_sha256"],
+                        "checkpointed_run_s": half_s,
+                        "resume_run_s": resume_s},
+           "prediction_vs_card": checks,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3286,7 +3434,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "tf32": False})
+          "cuda": torch.version.cuda, "tf32": False,
+          "total_memory": torch.cuda.get_device_properties(0).total_memory})
 
     t0 = time.perf_counter()
     logs = _build.build(SOURCES)  # one nvcc per source, all at once
@@ -3356,6 +3505,7 @@ def main() -> int:
     serve_out = phase_serve(fa, dev)
     family_launches, family_flash_errs = phase_families(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
+    phase_launch(dev)
 
     for name, row in table.items():
         # each row's launches: its wrapper's count on its own wire's path

@@ -277,6 +277,10 @@ def init_round_state(fl: FLConfig, params: Tree,
     device = treemath.tree_leaves(params)[0].device
     if isinstance(seed, torch.Generator):
         rng = seed
+    elif device.type == "meta":
+        # torch has no meta generator; a state on the meta device (the
+        # dry run's) never draws, so it carries a seeded CPU one
+        rng = torch.Generator().manual_seed(int(seed))
     else:
         rng = torch.Generator(device=device).manual_seed(int(seed))
     n = param_count(params)

@@ -38,7 +38,9 @@ clients) one launch serves every client and the forward receives plain
 tensors, whose storage the ctypes launch reads; a folded tensor is made
 contiguous only where the kernel's layout checks need it.
 `flash_attention.launches` counts the kernel's forward launches from
-either wrapper, of either kernel.
+either wrapper, of either kernel. Inside a training recompute
+(`models/recompute.py`) the output is kept on the recompute's tape, so
+the backward's rerun of a group reads it back and launches nothing.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models import recompute
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash_attn.cu is built for
@@ -191,7 +194,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal):
-        return _forward(q, k, v, causal)
+        # inside a training recompute, the backward's run reads the first
+        # run's output back instead of launching again
+        return recompute.saved(lambda: _forward(q, k, v, causal))
 
     @staticmethod
     def setup_context(ctx, inputs, output):

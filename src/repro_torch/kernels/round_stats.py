@@ -22,7 +22,8 @@ the same from run to run (the source files' headers have the designs).
 g and the mask are f32 and in logical columns; sums are f32.
 
 A wrapper takes its plain version (`*_plain`) only for tensors that lie
-on the CPU. On a CUDA tensor it launches the kernels or raises.
+on the CPU (or on the meta device, which has no data: the dry run's
+sequential round). On a CUDA tensor it launches the kernels or raises.
 `<wrapper>.launches` counts each wrapper's calls on the card (one per
 call, whatever the number of launches).
 """
@@ -102,7 +103,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts if t is not None)
+    """Do the tensors all lie on the CPU, or all on the meta device (the
+    dry run's, where the plain version gives the outputs' shapes)?"""
+    kinds = {t.device.type for t in ts if t is not None}
+    return kinds == {"cpu"} or kinds == {"meta"}
 
 
 # ---------------------------------------------------------------- f32 / bf16

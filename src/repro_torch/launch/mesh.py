@@ -1,11 +1,12 @@
-"""The client mesh: the ranks that `FLConfig(engine="flat_sharded")`
-splits a round's client axis over.
+"""Meshes: the client mesh that `FLConfig(engine="flat_sharded")` splits
+a round's client axis over, and the abstract production mesh of the
+launch layer (`launch/steps.py`, `launch/dryrun.py`).
 
-The counterpart of `repro/launch/mesh.py` on the client axis only. A
-`ClientMesh` holds a `torch.distributed` process group, this process's
-rank in it, the group's size and the device its tensors live on. It has
-no model axis: the 2D (client x model) layout is not ported yet (ROADMAP
-Queue 1 item 13b; `core.fl_shard_map.make_round_ops_2d` raises).
+The counterpart of `repro/launch/mesh.py`. A `ClientMesh` holds a
+`torch.distributed` process group, this process's rank in it, the
+group's size and the device its tensors live on. It has no model axis:
+the 2D (client x model) layout is not ported yet (ROADMAP Queue 1 item
+13b; `core.fl_shard_map.make_round_ops_2d` raises).
 
 Every rank runs the same round on the same global arguments, as every
 process of a multi-controller JAX program does; the round's schedule
@@ -18,11 +19,21 @@ the CPU and for two ranks that share one card:
     mesh = make_client_mesh()                   # cuda:<LOCAL_RANK>
 
 `make_host_mesh()` is a world of one without a process group.
+
+`make_production_mesh()` is an `AbstractMesh`: axis names and sizes, no
+devices and no process group, which the sharding rules
+(`models/sharding.py`) and the step builders read as they read a JAX
+mesh. It is a cluster of H100 SXM cards: the "model" axis spans one
+HGX node's 8 NVLink-connected cards, "data" 32 nodes (256 cards), and
+`multi_pod` a second such cluster on "pod" (512 cards), the device
+counts of the reference's 16 x 16 and 2 x 16 x 16 TPU v5e pods.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -65,6 +76,16 @@ class ClientMesh:
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        """The mesh's axes as the sharding rules read them: the ranks
+        are the "data" (client) axis; there is no model axis yet."""
+        return OrderedDict((("data", self.size), ("model", 1)))
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
     def check_device(self, device) -> None:
         """Raise ValueError unless `device` is the mesh's: a rank never
@@ -123,3 +144,46 @@ def make_host_mesh(device=None) -> ClientMesh:
     device = (repro_torch.default_device() if device is None
               else torch.device(device))
     return ClientMesh(group=None, rank=0, size=1, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes with no devices and no process group: what
+    the sharding rules and the step builders read of a mesh (`.shape`,
+    `.axis_names`, `.size`), as of `jax.sharding.AbstractMesh`."""
+
+    axis_sizes: tuple
+    axis_names: tuple
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{len(self.axis_sizes)} sizes for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        return OrderedDict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        """The device count."""
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The H100 cluster's mesh: (data, model) = (32, 8), 256 cards (one
+    HGX node of 8 NVLink-connected cards on "model"); multi_pod adds a
+    second cluster on "pod": (2, 32, 8), 512 cards."""
+    if multi_pod:
+        return AbstractMesh((2, 32, 8), ("pod", "data", "model"))
+    return AbstractMesh((32, 8), ("data", "model"))
+
+
+# H100 SXM constants for the roofline and the fits check, per card
+# (NVIDIA's H100 Tensor Core GPU datasheet, SXM5 column)
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12  # B/s, HBM3
+NVLINK_BW = 450e9  # B/s per direction a card (NVLink 4, 900 GB/s total)
+# device memory as torch.cuda.get_device_properties(0).total_memory
+# reports it on an H100 80GB HBM3 (chip_smoke.py prints it)
+HBM_BYTES = 85_017_493_504

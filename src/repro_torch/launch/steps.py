@@ -1,0 +1,284 @@
+"""Step builders shared by the dry run and the training launcher: the
+counterpart of `repro/launch/steps.py`, builder for builder.
+
+Each builder returns `(fn, args, in_specs, out_specs, meta)`. `args` are
+tensors on the "meta" device at the step's global shapes (the port's
+`jax.ShapeDtypeStruct` trees): `fn(*args)` runs the whole step on meta
+and allocates nothing, and the same `fn` runs on real tensors of those
+shapes. `in_specs` / `out_specs` are `models.sharding.NamedSpec` trees
+(where the reference has `NamedSharding`s); as in JAX, a spec at a node
+of the tree covers every leaf below it. The train step's `RoundState`
+carries its generator and its round as host values, which have no spec
+(None in `in_specs`).
+
+The port has no partitioner yet (ROADMAP Queue 1 item 13b), so the specs
+say where each tensor would live and nothing moves it; the reference's
+`delta_constraint` and `grad_constraint` are identities here, passed to
+`make_round_fn` where the reference passes its constraints. The
+builders take the reference's model path: the tree engine and
+`attention_impl` as the config has it ("xla" in the registry).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs import shapes as shapes_mod
+from repro_torch.configs.registry import get as get_arch
+from repro_torch.core import fl as fl_mod
+from repro_torch.core import treemath
+from repro_torch.core.weighting import AngleState
+from repro_torch.models import sharding, transformer
+from repro_torch.models.config import ModelConfig
+
+SEQUENTIAL_THRESHOLD = 40e9  # params; larger models use the sequential engine
+
+
+def fl_mode_for(cfg: ModelConfig) -> str:
+    return "sequential" if cfg.param_count() > SEQUENTIAL_THRESHOLD else "parallel"
+
+
+def _replicate_extra(cfg: ModelConfig, mesh, mqa_replicate_kv: bool):
+    """KV projections to replicate when heads can't fill the model axis."""
+    if mqa_replicate_kv and cfg.num_kv_heads < mesh.shape.get("model", 1):
+        return frozenset({"wk", "wv"})
+    return frozenset()
+
+
+def params_sds(cfg: ModelConfig):
+    """The param tree of `cfg` on the meta device."""
+    return transformer.init_params(None, cfg, device="meta")
+
+
+def _identity(tree):
+    return tree
+
+
+# ------------------------------------------------------------- train
+
+
+def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
+                     *, fl_mode: str | None = None, method: str = "fedadp",
+                     stale: bool = False, local_steps: int = 1,
+                     q_chunk: int = 0, angle_filter: str = "all",
+                     mqa_replicate_kv: bool = False,
+                     ssm_unroll: int = 0, loss_chunk: int = 0,
+                     rs_grads: bool = False, ssm_stream_bf16: bool = False,
+                     act_constrain: bool = False, moe_combine_bf16: bool = False,
+                     telemetry: str | None = None):
+    if q_chunk:
+        cfg = dataclasses.replace(cfg, q_chunk=q_chunk)
+    if loss_chunk:
+        cfg = dataclasses.replace(cfg, loss_chunk=loss_chunk)
+    if ssm_unroll and cfg.ssm is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, scan_unroll=ssm_unroll))
+    if ssm_stream_bf16 and cfg.ssm is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, stream_dtype="bfloat16"))
+    if act_constrain:
+        cfg = dataclasses.replace(cfg, act_constrain=True)
+        sharding.set_constraint_mesh(mesh)
+    if moe_combine_bf16 and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, combine_dtype="bfloat16"))
+    rep_extra = _replicate_extra(cfg, mesh, mqa_replicate_kv)
+    fl_mode = fl_mode or fl_mode_for(cfg)
+    K = sharding.batch_total(mesh) if fl_mode == "parallel" else 16
+    B = max(shape.global_batch // K, 1)
+    tau = local_steps
+
+    def loss(params, batch):
+        return transformer.loss_fn(params, cfg, batch)
+
+    # telemetry=None keeps the round telemetry-free; "node" adds the
+    # per-node tel/* metrics and flows through meta["flcfg"]
+    flcfg = fl_mod.FLConfig(
+        num_clients=K, clients_per_round=K, local_steps=tau, method=method,
+        mode=fl_mode, stale_angles=stale, telemetry=telemetry,
+    )
+
+    p_sds = params_sds(cfg)
+    # the state comes from the same init the runtime uses (on meta)
+    state_sds = fl_mod.init_round_state(flcfg, p_sds)
+    batch_one = shapes_mod.token_batch_specs(cfg, B, shape.seq_len)
+    batch_sds = {k: shapes_mod.spec((K, tau) + tuple(v.shape), v.dtype)
+                 for k, v in batch_one.items()}
+    args = (state_sds, batch_sds, shapes_mod.spec((K,), torch.int32),
+            shapes_mod.spec((K,), torch.float32))
+
+    fsdp = fl_mode == "sequential"
+    p_shard = sharding.param_shardings(p_sds, mesh, fsdp=fsdp,
+                                       replicate_extra=rep_extra)
+    # the reference's sharding constraints; without a partitioner each
+    # is the identity, passed where the reference passes its own
+    delta_constraint = _identity if fl_mode == "parallel" else None
+    grad_constraint = (_identity if fl_mode == "sequential" and rs_grads
+                       else None)
+    angle_pred = (
+        fl_mod.moe_dense_only_pred
+        if (angle_filter == "dense_only" and cfg.moe is not None)
+        else None
+    )
+    round_fn = fl_mod.make_round_fn(loss, flcfg, delta_constraint, angle_pred,
+                                    grad_constraint)
+    if fl_mode == "parallel":
+        b_shard = sharding.shard_batch_dim(mesh, batch_sds, default_dim=0)
+    else:
+        # K is the scan axis; shard the within-client batch dim instead
+        # (positions (K, tau, 3, B, T): B at dim 3)
+        b_shard = {k: _pos_shard(mesh, v, dim=3 if k == "positions" else 2)
+                   for k, v in batch_sds.items()}
+    rep = sharding.NamedSpec(mesh, ())
+    state_shard = fl_mod.RoundState(
+        params=p_shard, angle=AngleState(rep, rep), prev_delta=p_shard,
+        ef=None, dl_ef=None, bcast=None, rng=None, round=None)
+    in_shard = (state_shard, b_shard, rep, rep)
+    out_shard = (state_shard, rep)  # the metrics: every leaf replicated
+    meta = {"K": K, "B": B, "tau": tau, "fl_mode": fl_mode,
+            "flcfg": dataclasses.asdict(flcfg)}
+    return round_fn, args, in_shard, out_shard, meta
+
+
+# ------------------------------------------------------------ prefill
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
+                       *, fsdp: bool | None = None, q_chunk: int = 0):
+    if q_chunk:
+        cfg = dataclasses.replace(cfg, q_chunk=q_chunk)
+    B, T = shape.global_batch, shape.seq_len
+    if fsdp is None:
+        fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
+
+    def prefill_step(params, batch):
+        logits, aux, cache = transformer.forward(
+            params, cfg, batch, mode="prefill", max_len=T
+        )
+        return logits[:, -1:], cache
+
+    p_sds = params_sds(cfg)
+    batch_sds = shapes_mod.token_batch_specs(cfg, B, T)
+    p_shard = sharding.param_shardings(p_sds, mesh, fsdp=fsdp)
+    b_shard = sharding.shard_batch_dim(mesh, batch_sds, default_dim=0)
+    if "positions" in batch_sds:
+        b_shard["positions"] = _pos_shard(mesh, batch_sds["positions"], dim=1)
+    # the outputs' shapes, without running the step: the last position's
+    # logits, and a cache of every prompt position (the vision prefix's
+    # too) laid out as init_cache lays it out
+    logits_sds = shapes_mod.spec((B, 1, cfg.vocab_size), cfg.tdtype)
+    cache_sds = shapes_mod.cache_specs(cfg, B, T + cfg.vision_prefix)
+    out_shard = (
+        sharding.shard_batch_dim(mesh, logits_sds, default_dim=0),
+        _cache_shardings(cfg, mesh, cache_sds),
+    )
+    return (prefill_step, (p_sds, batch_sds), (p_shard, b_shard), out_shard,
+            {"B": B, "T": T})
+
+
+def _pos_shard(mesh, x, dim):
+    spec = [None] * len(x.shape)
+    total = sharding.batch_total(mesh)
+    if x.shape[dim] % total == 0 and x.shape[dim] >= total:
+        spec[dim] = sharding.batch_spec_entry(mesh)
+    return sharding.NamedSpec(mesh, tuple(spec))
+
+
+# ------------------------------------------------------------- decode
+
+
+def _cache_shardings(cfg, mesh, cache_sds):
+    """Decode-cache rules: batch dim over (pod,data); if B is unshardable
+    (long_500k B=1) the sequence dim of attention caches goes on "data";
+    SSM inner dims follow their params onto "model"."""
+    total = sharding.batch_total(mesh)
+    msize = mesh.shape.get("model", 1)
+    baxes = sharding.batch_spec_entry(mesh)
+
+    def leaf(keys, x):
+        name = keys[-1]
+        nd = len(x.shape)
+        spec: list[Any] = [None] * nd
+        # dim0 = scan group axis (never sharded); dim1 = batch
+        if nd >= 2 and x.shape[1] % total == 0 and x.shape[1] >= total:
+            spec[1] = baxes
+        elif name in ("k", "v", "ckv", "krope", "cross_k", "cross_v") and nd >= 3:
+            if x.shape[2] % mesh.shape.get("data", 1) == 0:
+                spec[2] = "data"
+        if name in ("k", "v", "cross_k", "cross_v") and nd >= 4:
+            if x.shape[3] % msize == 0 and x.shape[3] >= msize:
+                spec[3] = "model"
+        if name == "h" and nd >= 3 and x.shape[2] % msize == 0:
+            spec[2] = "model"
+        if name == "conv" and nd >= 4 and x.shape[3] % msize == 0:
+            spec[3] = "model"
+        if name == "S" and nd >= 3 and x.shape[2] % msize == 0:
+            spec[2] = "model"  # rwkv heads
+        return sharding.NamedSpec(mesh, tuple(spec))
+
+    return sharding.map_leaves(leaf, cache_sds)
+
+
+def build_decode_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
+                      *, fsdp: bool | None = None):
+    cfg = shapes_mod.config_for_shape(cfg, shape)
+    B, S = shape.global_batch, shape.seq_len
+    if fsdp is None:
+        fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
+
+    def serve_step(params, token, cache, pos):
+        # a meta position has no value; a decode step's shapes and work
+        # do not depend on it, so the dry run decodes at position 0
+        return transformer.decode_step(
+            params, cfg, token, cache,
+            0 if pos.device.type == "meta" else int(pos))
+
+    p_sds = params_sds(cfg)
+    d = shapes_mod.decode_specs(cfg, B, S)
+    p_shard = sharding.param_shardings(p_sds, mesh, fsdp=fsdp)
+    tok_shard = sharding.shard_batch_dim(mesh, d["token"], default_dim=0)
+    cache_shard = _cache_shardings(cfg, mesh, d["cache"])
+    pos_shard = sharding.NamedSpec(mesh, ())
+    args = (p_sds, d["token"], d["cache"], d["pos"])
+    in_shard = (p_shard, tok_shard, cache_shard, pos_shard)
+    logits_sds = shapes_mod.spec((B, 1, cfg.vocab_size), cfg.tdtype)
+    out_shard = (
+        sharding.shard_batch_dim(mesh, logits_sds, default_dim=0),
+        cache_shard,  # the step writes the cache in place and returns it
+    )
+    return serve_step, args, in_shard, out_shard, {"B": B, "S": S,
+                                                   "window": cfg.sliding_window}
+
+
+def build_step(arch: str, shape_name: str, mesh, **kw):
+    cfg = get_arch(arch)
+    shape = shapes_mod.SHAPES[shape_name]
+    if shape.kind == "train":
+        return build_train_step(cfg, mesh, shape, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, mesh, shape, **kw)
+    return build_decode_step(cfg, mesh, shape, **kw)
+
+
+def spec_leaves(specs, tree) -> list:
+    """[(NamedSpec, tensor)] over every tensor of `tree`, each with the
+    spec at or above it in `specs` (a spec at a node covers the subtree;
+    None covers host values, which are skipped)."""
+    if isinstance(specs, sharding.NamedSpec):
+        return [(specs, x) for x in treemath.tree_leaves(tree)
+                if isinstance(x, torch.Tensor)]
+    if specs is None or isinstance(tree, torch.Tensor):
+        if isinstance(tree, torch.Tensor):
+            raise ValueError(f"no spec for a tensor of shape "
+                             f"{tuple(tree.shape)}")
+        return []
+    if isinstance(tree, dict):
+        if set(specs) != set(tree):
+            raise ValueError(f"spec keys {sorted(specs)} != tree keys "
+                             f"{sorted(tree)}")
+        return [p for k in sorted(tree) for p in spec_leaves(specs[k], tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [p for s, t in zip(specs, tree) for p in spec_leaves(s, t)]
+    return []

@@ -15,6 +15,7 @@ place (the reference returns an updated copy) and returns that cache.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attn
@@ -39,10 +40,12 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _scale(hd: int, device) -> torch.Tensor:
-    """1 / sqrt(hd) computed in f32, as the reference does."""
-    return 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                         device=device))
+def _scale(hd: int) -> float:
+    """1 / sqrt(hd) computed in f32, as the reference does: an f32 value
+    as a Python float, so that no tensor is built from a host value (no
+    host-to-device copy a call, and it works on the meta device under
+    `torch.func.grad`)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
 def _gqa_scores(q, k, scale):
@@ -98,7 +101,7 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
     if cos is not None:
         q = layers.rope_apply(q, cos, sin)
         k = layers.rope_apply(k, cos, sin)
-    scale = _scale(hd, x.device)
+    scale = _scale(hd)
     q_chunk = getattr(cfg, "q_chunk", 0)
     use_flash = (getattr(cfg, "attention_impl", "xla") == "flash"
                  and window == 0 and causal and t % 64 == 0)
@@ -158,7 +161,7 @@ def attn_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     ck[:, slot:slot + 1] = k
     cv[:, slot:slot + 1] = v
 
-    scores = _gqa_scores(q, ck, _scale(hd, x.device))  # (B,G,Hg,1,S)
+    scores = _gqa_scores(q, ck, _scale(hd))  # (B,G,Hg,1,S)
     idx = torch.arange(s, device=x.device)
     if window:
         valid = idx < min(pos + 1, s)  # ring: all that is written is in
@@ -204,6 +207,6 @@ def cross_attn_apply(p: dict, cfg, x: torch.Tensor, kv: dict
     no mask and no RoPE (the einsum path)."""
     hd = cfg.hd
     q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
-    scores = _gqa_scores(q, kv["k"], _scale(hd, x.device))
+    scores = _gqa_scores(q, kv["k"], _scale(hd))
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(probs, kv["v"]).to(x.dtype) @ p["wo"]

@@ -30,15 +30,14 @@ once, in its dtype, and fills it group by group and expert by expert
 `loss_fn` is what federated LM training differentiates (under
 `torch.func.vmap(grad)` in the round); with `cfg.attention_impl ==
 "flash"` its attention runs the flash kernel, whose backward is the
-reference's recompute. With `cfg.loss_chunk` the unembed and the
+reference's recompute. In training mode each group of blocks runs under
+`recompute.recompute`, as the reference wraps its scanned group body in
+`jax.checkpoint`: the backward keeps one residual stream a group and
+runs the group again. With `cfg.loss_chunk` the unembed and the
 cross-entropy run chunk by chunk over tokens (`_chunked_ce`), with the
-reference's padding and masking. The reference wraps each chunk in
-`jax.checkpoint`, so that a chunk's (B, L, V) logits are recomputed in
-the backward rather than kept; `torch.utils.checkpoint` refuses to run
-under `torch.func.grad` (saved-tensor hooks), so here every chunk's
-logits are kept for the backward and the chunking saves no memory in
-training (a recompute autograd.Function for the loss is a later ROADMAP
-item).
+reference's padding and masking, each chunk recomputed in the backward
+as the reference's `jax.checkpoint(chunk)` is, so a chunk's (B, L, V)
+logits are never kept.
 """
 from __future__ import annotations
 
@@ -48,7 +47,15 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import treemath
-from repro_torch.models import attention, layers, mamba, mla, moe, rwkv6
+from repro_torch.models import (
+    attention,
+    layers,
+    mamba,
+    mla,
+    moe,
+    recompute,
+    rwkv6,
+)
 from repro_torch.models.config import ModelConfig
 
 Tree = Any
@@ -250,19 +257,20 @@ def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
     """Run the stacked groups in order. Returns (x, aux, cache|None): aux
     sums the MoE blocks' load-balance losses; prefill returns a new cache
     stacked over groups; decode writes into `cache` in place and returns
-    it."""
+    it. In training mode each group is recomputed in the backward
+    (`_train_group`)."""
     kinds = (("attn", False),) if encoder else cfg.layer_kinds()
     groups = cfg.encoder_layers if encoder else cfg.num_pattern_groups
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {f"p{i}": [] for i in range(len(kinds))}
     for gi in range(groups):
+        subs = [_index(blocks[f"p{i}"], gi) for i in range(len(kinds))]
+        if mode == "train":
+            x, aux = _train_group(subs, cfg, kinds, x, aux, ctx, encoder)
+            continue
         for i, (kind, is_moe) in enumerate(kinds):
-            sub = _index(blocks[f"p{i}"], gi)
-            if encoder:
-                x = _encoder_block(sub, cfg, x)
-                continue
             c_in = _index(cache[f"p{i}"], gi) if mode == "decode" else None
-            x, nc, a = _block(sub, cfg, kind, is_moe, x, ctx, c_in, mode)
+            x, nc, a = _block(subs[i], cfg, kind, is_moe, x, ctx, c_in, mode)
             if a is not None:
                 aux = aux + a
             if mode == "prefill":
@@ -270,6 +278,37 @@ def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
     if mode == "prefill":
         cache = {k: _stack(v) for k, v in caches.items()}
     return x, aux, cache if mode in ("prefill", "decode") else None
+
+
+_CTX_TENSORS = ("cos", "sin", "enc")  # the tensors of ctx a block reads
+
+
+def _train_group(subs, cfg, kinds, x, aux, ctx, encoder):
+    """One group of blocks in training mode, (x, aux) -> (x, aux), under
+    `recompute.recompute`: the group's params, its input and ctx's
+    tensors are the Function's arguments, so the backward keeps only
+    them and runs the group again."""
+    flat = [treemath.tree_flatten(sub) for sub in subs]
+    sizes = [len(lv) for lv, _ in flat]
+    present = [name for name in _CTX_TENSORS if ctx.get(name) is not None]
+
+    def group(x, aux, *rest):
+        gctx = dict(ctx, **dict(zip(present, rest)))
+        leaves = rest[len(present):]
+        for i, (kind, is_moe) in enumerate(kinds):
+            sub = treemath.tree_unflatten(flat[i][1], leaves[:sizes[i]])
+            leaves = leaves[sizes[i]:]
+            if encoder:
+                x = _encoder_block(sub, cfg, x)
+                continue
+            x, _, a = _block(sub, cfg, kind, is_moe, x, gctx, None, "train")
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    return recompute.recompute(group, x, aux,
+                               *(ctx[name] for name in present),
+                               *(leaf for lv, _ in flat for leaf in lv))
 
 
 def _stack(trees: list) -> Tree:
@@ -353,8 +392,9 @@ def _chunked_ce(params, cfg, x_pred, labels):
     """Cross-entropy with the unembed applied chunk by chunk over tokens
     (cfg.loss_chunk): x_pred (B, T, d), labels (B, T). T is padded to a
     multiple of the chunk with zero rows and labels, masked out of the
-    mean, as the reference does. A plain loop over the chunks: each
-    chunk's logits are kept for the backward (module docstring)."""
+    mean, as the reference does. Each chunk runs under
+    `recompute.recompute`, as the reference's `jax.checkpoint(chunk)`:
+    its (B, L, V) logits are recomputed in the backward, never kept."""
     b, t, d = x_pred.shape
     size = cfg.loss_chunk
     pad = (-t) % size
@@ -365,10 +405,11 @@ def _chunked_ce(params, cfg, x_pred, labels):
     if pad:
         x_pred = torch.cat([x_pred, x_pred.new_zeros((b, pad, d))], 1)
         labels = torch.cat([labels, labels.new_zeros((b, pad))], 1)
-    total = torch.zeros((), dtype=torch.float32, device=x_pred.device)
-    for i in range(0, t + pad, size):
-        xc, yc, mc = (z[:, i:i + size] for z in (x_pred, labels, mask))
-        logits = unembed(params, cfg, xc).to(torch.float32)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+    def chunk(w, xc, yc, mc):
+        logits = (xc @ w.T if cfg.tie_embeddings else xc @ w).to(
+            torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
         iota = torch.arange(logits.shape[-1], dtype=yc.dtype,
                             device=logits.device)
@@ -376,7 +417,12 @@ def _chunked_ce(params, cfg, x_pred, labels):
                                    torch.zeros((), dtype=torch.float32,
                                                device=logits.device)),
                        dim=-1)
-        total = total + torch.sum((logz - ll) * mc)
+        return (torch.sum((logz - ll) * mc),)
+
+    total = torch.zeros((), dtype=torch.float32, device=x_pred.device)
+    for i in range(0, t + pad, size):
+        xc, yc, mc = (z[:, i:i + size] for z in (x_pred, labels, mask))
+        total = total + recompute.recompute(chunk, w, xc, yc, mc)[0]
     return total / torch.clamp(torch.sum(mask), min=1.0)
 
 

@@ -57,7 +57,11 @@ def test_module_walk_finds_every_module():
     for mod in ("repro_torch", "repro_torch.core.buffer",
                 "repro_torch.transport.downlink",
                 "repro_torch.checkpoint.io", "repro_torch.telemetry.sinks",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.launch.steps",
+                "repro_torch.launch.train", "repro_torch.launch.dryrun",
+                "repro_torch.launch.optrace", "repro_torch.models.sharding",
+                "repro_torch.models.recompute",
+                "repro_torch.configs.shapes"):
         assert mod in MODULES, mod
     assert len(MODULES) >= 45
 

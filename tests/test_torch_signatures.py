@@ -16,9 +16,21 @@ every argument to the same parameter in the port.
     refuses anything else with TypeError, by position and by name.
 (d) Each shared public callable's parameter list equals the JAX
     package's after the port's recorded renames (`RENAMES`, `DROPPED`,
-    `ADDED`): names, order and kinds.
+    `ADDED`): names, order and kinds. The launch layer's renames: the
+    module `launch/hlo_scoped.py` is `launch/optrace.py`, whose
+    `analyze` reads a recorded op trace where the reference reads HLO
+    text (`text` -> `trace`); a dry-run record's `compile_s` is
+    `build_s`; the launcher adds `--device` and the dry run `--budget-s`
+    to the reference's flags. `repro.launch.dryrun` sets XLA_FLAGS for
+    512 host devices when imported, so its `run_one` is read from its
+    source, never imported.
+(e) The launcher's and the dry run's command-line flags are the
+    reference's plus those additions.
 """
+import ast
 import inspect
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +46,12 @@ from repro.core import fl as jfl
 from repro.core import fl_shard_map as jsm
 from repro.core import treemath as jtm
 from repro.core import weighting as jweighting
+from repro.configs import shapes as jshapes
 from repro.kernels import flash_attn as jflash
+from repro.launch import hlo_scoped as jhlo_scoped
 from repro.launch import mesh as jmesh
+from repro.launch import steps as jsteps
+from repro.models import sharding as jsharding
 from repro.kernels import grad_dot as jgd
 from repro.kernels import ops as jops
 from repro.kernels import round_stats as jrs
@@ -52,7 +68,12 @@ from repro_torch.kernels import grad_dot as tgd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import round_stats as trs
 from repro_torch.kernels import weighted_agg as twa
+from repro_torch.configs import shapes as tshapes
+from repro_torch.launch import dryrun as tdryrun
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import optrace as toptrace
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import sharding as tsharding
 from test_torch_round import METRIC_KEYS, _image
 
 TOL = 1e-5
@@ -224,13 +245,38 @@ def test_mesh_is_refused():
 # ------------------------------------------------- (d) the parameter lists
 
 # The port's recorded departures from the reference's parameter lists:
-RENAMES = {"key": "gen"}  # a torch.Generator takes a jax PRNG key's place
+RENAMES = {"key": "gen",  # a torch.Generator takes a jax PRNG key's place
+           "text": "trace"}  # optrace.analyze reads an op trace, not HLO
 DROPPED = {"interpret", "min_kernel_elems"}  # kernel-wrapper knobs: the
 # port's wrappers launch their kernel on every CUDA tensor
 ADDED = {"FedServer": [inspect.Parameter(
     "device", inspect.Parameter.KEYWORD_ONLY, default=None)],
     "make_host_mesh": [inspect.Parameter(
         "device", inspect.Parameter.POSITIONAL_OR_KEYWORD, default=None)]}
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _source_function(path: str, name: str):
+    """A stub with the parameter list of function `name` in the source
+    file `path`, made without importing the file."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    node.body, node.decorator_list, node.returns = [ast.Pass()], [], None
+    args = node.args
+    for a in args.posonlyargs + args.args + args.kwonlyargs + [
+            args.vararg, args.kwarg]:
+        if a is not None:
+            a.annotation = None
+    ns: dict = {}
+    exec(compile(ast.fix_missing_locations(ast.Module([node], [])), path,
+                 "exec"), ns)
+    return ns[name]
+
+
+JDRYRUN = os.path.join(ROOT, "src", "repro", "launch", "dryrun.py")
 
 SHARED = {
     "make_round_fn": (jfl.make_round_fn, tfl.make_round_fn),
@@ -258,6 +304,23 @@ SHARED = {
     "tree_weighted_sum": (jops.tree_weighted_sum, tops.tree_weighted_sum),
     "tree_ravel_stacked": (jtm.tree_ravel_stacked, ttm.tree_ravel_stacked),
     "make_host_mesh": (jmesh.make_host_mesh, tmesh.make_host_mesh),
+    "make_production_mesh": (jmesh.make_production_mesh,
+                             tmesh.make_production_mesh),
+    **{f"shapes.{name}": (getattr(jshapes, name), getattr(tshapes, name))
+       for name in ("needs_swa_for_long", "config_for_shape",
+                    "token_batch_specs", "cache_specs", "decode_specs")},
+    **{f"sharding.{name}": (getattr(jsharding, name),
+                            getattr(tsharding, name))
+       for name in ("_leaf_spec", "param_pspecs", "param_shardings",
+                    "batch_axes", "shard_batch_dim", "replicated",
+                    "set_constraint_mesh", "constrain")},
+    **{f"steps.{name}": (getattr(jsteps, name), getattr(tsteps, name))
+       for name in ("fl_mode_for", "_replicate_extra", "params_sds",
+                    "build_train_step", "build_prefill_step", "_pos_shard",
+                    "_cache_shardings", "build_decode_step", "build_step")},
+    "dryrun.run_one": (_source_function(JDRYRUN, "run_one"),
+                       tdryrun.run_one),
+    "optrace.analyze": (jhlo_scoped.analyze, toptrace.analyze),
     **{f"fl_shard_map.{name}": (getattr(jsm, name), getattr(tsm, name))
        for name in ("client_axis_size", "model_axis_size",
                     "flat_client_sharding", "make_round_ops",
@@ -288,3 +351,21 @@ def test_the_reference_positional_round_call_binds_alike():
         bound = inspect.signature(fn).bind("loss", "fl", None, keep_bias)
         assert bound.arguments["angle_pred"] is keep_bias
         assert "arrival_fn" not in bound.arguments
+
+
+# ------------------------------------------------ (e) the command lines
+
+_FLAG = re.compile(r"add_argument\(\s*\"(--[\w-]+)\"")
+
+
+def _flags(*parts) -> list:
+    with open(os.path.join(ROOT, "src", *parts)) as f:
+        return _FLAG.findall(f.read())
+
+
+@pytest.mark.parametrize("module,added", [("train.py", ["--device"]),
+                                          ("dryrun.py", ["--budget-s"])])
+def test_command_line_flags_are_the_references(module, added):
+    want = _flags("repro", "launch", module)
+    assert len(want) >= 10
+    assert _flags("repro_torch", "launch", module) == want + added
