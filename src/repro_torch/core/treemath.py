@@ -44,18 +44,19 @@ def tree_flatten(tree: Tree) -> tuple[list, Any]:
 
 
 def tree_unflatten(treedef, leaves) -> Tree:
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is _LEAF:
-            return next(it)
-        kind, keys, defs = d
-        children = [build(c) for c in defs]
-        if kind == "dict":
-            return dict(zip(keys, children))
-        return list(children) if kind == "list" else tuple(children)
 
-    return build(treedef)
+def _build(d, it) -> Tree:
+    # a module-level function: a recursive closure would be a reference
+    # cycle holding the leaves until the cyclic collector ran
+    if d is _LEAF:
+        return next(it)
+    kind, keys, defs = d
+    children = [_build(c, it) for c in defs]
+    if kind == "dict":
+        return dict(zip(keys, children))
+    return list(children) if kind == "list" else tuple(children)
 
 
 def tree_leaves(tree: Tree) -> list:

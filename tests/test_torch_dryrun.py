@@ -10,7 +10,9 @@
 (b) On the meta device the traced peak of a train step grows by one
     residual stream a group added (2 -> 4 and 4 -> 8 groups), and with
     `loss_chunk` by no chunk's logits when the chunks double; neither
-    holds with the recompute taken out (checked in the same tests).
+    holds with the recompute taken out (checked in the same tests). The
+    peak is the same with the cyclic collector off: no reference cycle
+    holds a tensor.
 (c) `attention._scale` is bit for bit the f32 tensor it replaced, at
     every head dim of the registry.
 (d) `optrace` counts hand-checked mm / bmm / addmm / baddbmm /
@@ -26,6 +28,7 @@
     (less the reference's 8-byte PRNG key and 4-byte round, which the
     port holds on the host).
 """
+import gc
 import math
 
 import jax
@@ -182,6 +185,31 @@ def test_meta_peak_keeps_no_chunk_logits(monkeypatch, use):
     chunk_logits = 2 * 2 * 16 * cfg.vocab_size * 4
     growth = _train_peak(cfg, 128) - _train_peak(cfg, 64)
     assert (growth < chunk_logits) == use, (growth, chunk_logits)
+
+
+def test_meta_peak_does_not_wait_for_the_cyclic_collector():
+    """A train step leaves no reference cycle holding tensors: its traced
+    peak is the same with the cyclic collector off, so the dry run's
+    prediction (and the card's peak) does not depend on when it runs.
+    `treemath.tree_unflatten` was a recursive closure, a cycle that
+    held every unflattened tree's leaves until the collector ran."""
+    cfg = registry.smoke("gemma-2b")
+    mesh = TorchMesh((1, 1), ("data", "model"))
+    peaks = []
+    for collect in (True, False):
+        fn, args, ins, outs, _ = steps.build_train_step(
+            cfg, mesh, shapes.InputShape("train_4k", 64, 2, "train"))
+        gc.collect()
+        if not collect:
+            gc.disable()
+        try:
+            with optrace.OpTrace(keep_ops=False) as trace:
+                del ins, outs
+                fn(*args)
+            peaks.append(trace.peak)
+        finally:
+            gc.enable()
+    assert peaks[0] == peaks[1]
 
 
 # --------------------------------------------------------- (c) the scale
