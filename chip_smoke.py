@@ -84,7 +84,23 @@ on f32 and int8: the ranks bit for bit, one round at 2 local steps from
 the initial model against the flat round at 2e-4 / 2e-5, 2 + 1 launches
 per rank per round over K_loc = 5 rows, fedadp in no more MLR rounds to
 85% than fedavg; NCCL over min(cards, 4) cards when there are two or
-more; the kernel table's `launches_sharded`), lm_train
+more; the kernel table's `launches_sharded`), mesh2d (the 2D
+(client x model) mesh: the aggregation and statistics kernels, f32,
+bf16, int8 and int4, at a (K_loc, N_loc) = (5, 831,685) tile against
+their plain versions; the CNN on a (2, 2) gloo world of four processes
+on this card (`--mesh2d-child`) per uplink wire: one round at 2 local
+steps from the initial model on the 2D flat_sharded and tree engines
+(and the 1D flat engine on f32 / bf16) aggregating the same pinned
+deltas, equal at 1e-5, and on f32 / bf16 the two 2D engines on their
+own trained deltas at 2e-4 / 2e-5; then 2 counted FedServer rounds: the
+ranks bit for bit, 2 + 1 launches a rank a round, ms a round per rank;
+NCCL over (2, 2)
+cards or (1, 2) where there are 4 or 2-3; then the 100m LM on a (1, 2)
+gloo world, f32 and int8, one round after a warm-up: 2D flat_sharded ==
+2D tree at 1e-5, every region output of its shard shape, the region's
+largest all_gather below the smallest model-sharded leaf, peak memory
+and the bytes of every collective; the kernel table's
+`launches_mesh2d`), lm_train
 (grads through gqa_flash under vmap(grad) on the card, f32 and bf16,
 equal the plain version's at the forward's tolerance, and the forward
 runs the dtype's kernel; the 100m preset, f32, K = 4, tau = 2, B = 4,
@@ -2008,18 +2024,22 @@ def sharded_world1(wa, rs, dev, nodes, test) -> tuple[dict, dict]:
     return out, launches
 
 
-def run_world(backend: str, world: int) -> list:
-    """`world` child processes of this script (`--sharded-child`), one
-    rank each, joined with SHARD_TIMEOUT; returns each rank's result.
-    A child that fails or outlives the timeout raises."""
+def run_world(backend: str, world: int, argv=None) -> list:
+    """`world` child processes of this script, one rank each, joined with
+    SHARD_TIMEOUT; returns each rank's result. `argv` is the children's
+    arguments with "{rank}", "{port}" and "{out}" filled in per rank
+    (default: `--sharded-child`'s). A child that fails or outlives the
+    timeout raises."""
     import tempfile
 
     port = free_port()
+    argv = argv or ["--sharded-child", backend, "{rank}", str(world),
+                    "{port}", "{out}"]
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-child",
-             backend, str(r), str(world), str(port), outs[r]],
+            [sys.executable, os.path.abspath(__file__)]
+            + [a.format(rank=r, port=port, out=outs[r]) for a in argv],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
         deadline = time.monotonic() + SHARD_TIMEOUT
@@ -2185,6 +2205,410 @@ def phase_sharded(wa, rs, dev, nodes, test) -> dict:
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return launches
+
+
+# ---- the 2D (client x model) mesh ----
+
+MESH2D_TILE = (5, MAIN_N // 2)  # (K_loc, N_loc) of the CNN on a (2, 2) mesh
+MESH2D_CNN = (2, 2)  # (data, model): four gloo processes on one card
+MESH2D_LM = (1, 2)  # two gloo processes on one card
+MESH2D_LM_WIRES = ("f32", "int8")
+MESH2D_ROUNDS = 2
+MESH2D_CARD_NOTE = "processes share one card: no speed-up"
+
+
+def mesh2d_kernel_check(wa, rs, tq, dev) -> dict:
+    """Rows 1-6 at a 2D tile's shape, (K_loc, N_loc) = MESH2D_TILE (the
+    CNN's ceil-split columns: N_loc odd), against their plain versions
+    at the kernels phase's tolerance: {row: (max abs error, normalised
+    error)}."""
+    k, n = MESH2D_TILE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(k, n, device=dev, generator=gen)
+    g = torch.randn(n, device=dev, generator=gen)
+    w = torch.rand(k, device=dev, generator=gen)
+    mask = (torch.rand(n, device=dev, generator=gen) > 0.25).float()
+    errs = {}
+    for tag, xt in (("", x), ("_bf16", x.to(torch.bfloat16))):
+        xf = xt.float()
+        errs["weighted_agg" + tag] = agg_err(
+            wa.weighted_agg(w, xt, out_dtype=torch.float32),
+            wa.weighted_agg_plain(w, xt, torch.float32), w, xf)
+        worst = (0.0, 0.0)
+        for m in (None, mask):
+            e = stats_err(rs.round_stats(xt, g, m),
+                          rs.round_stats_plain(xt, g, m), xf, g, m)
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        errs["round_stats" + tag] = worst
+    q8 = tq.quantize(spread(x, tq.CHUNK), "int8")
+    errs.update(check_wire("q", wa.weighted_agg_q, wa.weighted_agg_q_plain,
+                           rs.round_stats_q, rs.round_stats_q_plain, q8,
+                           tq.dequantize(q8), w, g, mask))
+    q4 = tq.quantize(spread(x, MAIN_GS), "int4", group_size=MAIN_GS)
+    errs.update(check_wire("q4", wa.weighted_agg_q4,
+                           wa.weighted_agg_q4_plain, rs.round_stats_q4,
+                           rs.round_stats_q4_plain, q4, tq.dequantize(q4),
+                           w, g, mask, group_size=MAIN_GS))
+    torch.cuda.synchronize()
+    bad = {key: e for key, e in errs.items() if not e[1] <= TOL}
+    if bad:
+        raise AssertionError(f"at the 2D tile {MESH2D_TILE}: {bad}")
+    return errs
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def collective_bytes(log) -> dict:
+    """{"op axes scope": bytes this rank sent} over a recording."""
+    out: dict = {}
+    for c in log:
+        key = f"{c.op} {'+'.join(c.axes)} {c.scope or 'round'}"
+        out[key] = out.get(key, 0) + c.nbytes
+    return out
+
+
+def mesh2d_cnn(mesh, dev, rank: int) -> dict:
+    """One rank of the CNN's 2D world. Per wire: one round at SEQ_TAU
+    local steps from the initial model on continuous images, on the 2D
+    flat_sharded and tree engines (and on rank 0 the 1D flat one), every
+    engine aggregating the same deltas: all clients trained once on this
+    rank and pinned by `delta_constraint` (a rank trains K_loc = 5
+    clients, and cuDNN need not give a batch of 5 the bits of a batch of
+    10); on f32 and bf16 the same round of both 2D engines on their own
+    trained deltas;
+    then MESH2D_ROUNDS counted FedServer rounds after a warm-up."""
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.core import fl_shard_map
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+
+    nodes, test = image_task()
+    res = {"tensors": {}, "flat": {}, "launches": {}, "round_ms": {}}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand((10, SEQ_TAU, 50, 28, 28, 1), generator=gen, device=dev)
+    y = torch.randint(0, 10, (10, SEQ_TAU, 50), generator=gen, device=dev)
+    args = ((x, y), torch.arange(10, device=dev),
+            torch.full((10,), 600.0, device=dev))
+    for wire in WIRES:
+        cfg = dataclasses.replace(slice_config(wire), engine="flat_sharded")
+        server = repro_torch.FedServer("cnn", cfg, nodes, test,
+                                       batch_size=50, mesh=mesh)
+        torch.backends.cudnn.deterministic = True
+        ref, _ = fl_mod._clients(cnn_loss, cfg, None, None)(
+            server.state.params, (x, y), fl_mod._lr_at(cfg, 0))
+        rows = fl_shard_map.flat_client_sharding(mesh).rows(10)
+
+        def pin(deltas):
+            if deltas["c1"].shape[0] == 10:
+                return ref
+            return {key: v[rows] for key, v in ref.items()}
+
+        runs = {}
+        for engine in ("flat_sharded", "tree", "flat"):
+            if engine == "flat" and (rank or wire not in ("f32", "bf16")):
+                continue
+            mine = None if engine == "flat" else mesh
+            c = dataclasses.replace(cfg, engine=engine)
+            runs[engine] = fl_mod.make_round_fn(cnn_loss, c, pin, mesh=mine)(
+                server.state, *args)
+            if mine is not None and wire in ("f32", "bf16"):
+                runs["own_" + engine] = fl_mod.make_round_fn(
+                    cnn_loss, c, mesh=mine)(server.state, *args)
+        torch.backends.cudnn.deterministic = False
+        for engine, (st, m) in runs.items():
+            pairs = state_pairs(st, m, st, m, keys=EQUIV_KEYS)
+            dest = res["flat"] if engine == "flat" else res["tensors"]
+            dest.update({f"{wire}/{engine}/{k}": a.cpu()
+                         for k, (a, _) in pairs.items()})
+        server.step(eval_every=0)  # warm-up
+        server.reset()
+        torch.cuda.synchronize()
+        ms, metrics, counts = counted_rounds(server, counters(wa, rs),
+                                             MESH2D_ROUNDS)
+        res["tensors"].update({
+            f"{wire}/server/{k}": a.cpu() for k, (a, _) in shard_pairs(
+                server.state, metrics[-1], server.state,
+                metrics[-1]).items()})
+        res["launches"][wire] = counts
+        res["round_ms"][wire] = ms
+    return res
+
+
+def mesh2d_lm(mesh, dev, rank: int) -> dict:
+    """One rank of the 100m LM's 2D world: per wire, one round of the 2D
+    flat_sharded engine after a warm-up, recorded (every collective, the
+    region's outputs against their shard shapes, the launches, the peak
+    memory), then the 2D tree engine's round from the same state."""
+    import repro_torch
+    from repro_torch.core import fl_shard_map
+    from repro_torch.core import treemath
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models import sharding, transformer
+
+    ex = load_lm_example()
+    cfg = ex.model_config(LM_PRESET, "xla")
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    specs = sharding.param_pspecs(params, mesh)
+    sharded_sizes = [leaf.numel() for leaf, spec in zip(
+        treemath.tree_leaves(params), treemath.tree_leaves_like(params,
+                                                                specs))
+        if "model" in spec]
+    k, tau, b, t = LM_K, LM_TAU, LM_B, LM_T
+    tokens = ex.round_tokens(0, k, tau, b, t, cfg.vocab_size, dev)
+    sel = torch.arange(k, dtype=torch.int32, device=dev)
+    sizes = torch.ones((k,), device=dev)
+    shapes_ok = []
+    build = fl_shard_map.make_round_ops_2d
+
+    def spy(mesh_, template, pspecs, **kw):
+        """The region, its outputs held to their shard shapes."""
+        op = build(mesh_, template, pspecs, **kw)
+        want = [sharding.NamedSpec(mesh_, spec).shard_shape(leaf.shape[1:])
+                for leaf, spec in zip(treemath.tree_leaves(template),
+                                      treemath.tree_leaves_like(template,
+                                                                pspecs))]
+
+        def region(*a):
+            out = op(*a)
+            shapes_ok.append(all(
+                tuple(leaf.shape) == w for tree in (out[0], out[4])
+                for leaf, w in zip(treemath.tree_leaves(tree), want)))
+            return out
+
+        return region
+
+    fl_shard_map.make_round_ops_2d = spy
+    res = {"params": transformer.count_params(cfg),
+           "sharded_leaves": len(sharded_sizes),
+           "smallest_sharded_leaf": min(sharded_sizes)}
+    try:
+        for wire in MESH2D_LM_WIRES:
+            fl = repro_torch.FLConfig(
+                num_clients=k, clients_per_round=k, local_steps=tau,
+                method="fedadp", base_lr=0.05, lr_decay=0.999,
+                engine="flat_sharded", transport=wire)
+            rounds = {engine: repro_torch.make_round_fn(
+                lambda p, bt: transformer.loss_fn(p, cfg, bt),
+                dataclasses.replace(fl, engine=engine), mesh=mesh)
+                for engine in ("flat_sharded", "tree")}
+            state0 = repro_torch.init_round_state(fl, params)
+            rounds["flat_sharded"](state0, tokens, sel, sizes)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters(wa, rs).values():
+                fn.launches = 0
+            del shapes_ok[:]
+            with mesh.recording() as log:
+                t0 = time.perf_counter()
+                st, m = rounds["flat_sharded"](state0, tokens, sel, sizes)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            launches = {name: fn.launches
+                        for name, fn in counters(wa, rs).items()}
+            peak = torch.cuda.max_memory_allocated()
+            region_gathers = [c.nbytes // 4 * mesh.model_size for c in log
+                              if c.op == "all_gather"
+                              and c.scope == "round_ops_2d"]
+            ts, tm = rounds["tree"](state0, tokens, sel, sizes)
+            torch.cuda.synchronize()
+            worst, where = excess_err({
+                **tree_pairs("params", st.params, ts.params),
+                **tree_pairs("prev_delta", st.prev_delta, ts.prev_delta),
+                "angle": (st.angle.smoothed, ts.angle.smoothed),
+                **{f"metrics/{key}": (m[key], tm[key])
+                   for key in ("loss", "weights", "theta", "divergence")}},
+                TOL, TOL)
+            res[wire] = {
+                "round_ms": ms, "peak_bytes": peak, "launches": launches,
+                "collective_bytes": collective_bytes(log),
+                "largest_region_gather": max(region_gathers, default=0),
+                "region_shapes_ok": shapes_ok[:],
+                "vs_tree_excess_err": worst, "vs_tree_worst": where,
+                "params_sha256": digest(treemath.tree_ravel(st.params)[0]),
+                "weights": m["weights"].cpu(),
+                "finite": bool(all(torch.isfinite(v).all()
+                                   for v in m.values()))}
+            del st, ts, m, tm, state0
+            torch.cuda.empty_cache()
+    finally:
+        fl_shard_map.make_round_ops_2d = build
+    return res
+
+
+def mesh2d_child(task: str, backend: str, rank: int, world: int,
+                 model: int, port: int, out_path: str) -> int:
+    """One rank of a 2D world: `task` "cnn" or "lm" on a (world / model,
+    model) mesh over `backend`."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = repro_torch.make_client_mesh(device=dev, model=model)
+        res = (mesh2d_cnn if task == "cnn" else mesh2d_lm)(mesh, dev, rank)
+        res["coords"] = (mesh.client_index, mesh.model_index)
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh2d(task: str, backend: str, shape: tuple) -> list:
+    """A world of child processes of this script (`--mesh2d-child`), one
+    rank each on a `shape` (data, model) mesh; each rank's result."""
+    return run_world(backend, shape[0] * shape[1],
+                     ["--mesh2d-child", task, backend, "{rank}",
+                      str(shape[0] * shape[1]), str(shape[1]), "{port}",
+                      "{out}"])
+
+
+def check_mesh2d_cnn(results: list, what: str) -> dict:
+    """The ranks bit for bit; per wire, on the pinned deltas, 2D
+    flat_sharded == 2D tree at 1e-5 and, on f32 and bf16, == the 1D flat
+    engine at 1e-5; on f32 and bf16 the two 2D engines on their own
+    trained deltas at SEQ_TOL (the sharded phase's tolerance across batch
+    sizes; on an int wire deltas that far apart can round one step
+    apart, and a step of int4 is a seventh of a group's largest value);
+    2 + 1 launches a rank a round. Returns the line's part."""
+    r0 = results[0]
+    for r, res in enumerate(results[1:], 1):
+        for key, t in r0["tensors"].items():
+            o = res["tensors"][key]
+            if t.dtype != o.dtype or not torch.equal(t, o):
+                raise AssertionError(f"{what}: rank {r} differs from rank 0 "
+                                     f"at {key}")
+    out = {"ranks": len(results), "ranks_bit_equal": True,
+           "coords": [res["coords"] for res in results]}
+    for wire in WIRES:
+        keys = [k[len(f"{wire}/tree/"):] for k in r0["tensors"]
+                if k.startswith(f"{wire}/tree/")]
+        checks = {"tree": {k: (r0["tensors"][f"{wire}/flat_sharded/{k}"],
+                               r0["tensors"][f"{wire}/tree/{k}"])
+                           for k in keys}}
+        if wire in ("f32", "bf16"):
+            checks["own_tree"] = {
+                k: (r0["tensors"][f"{wire}/own_flat_sharded/{k}"],
+                    r0["tensors"][f"{wire}/own_tree/{k}"]) for k in keys}
+            checks["flat_1d"] = {k: (r0["tensors"][f"{wire}/flat_sharded/"
+                                                   f"{k}"],
+                                     r0["flat"][f"{wire}/flat/{k}"])
+                                 for k in keys}
+        part = {}
+        for name, pairs in checks.items():
+            tol = SEQ_TOL if name.startswith("own") else (TOL, TOL)
+            worst, where = excess_err(pairs, *tol)
+            part[f"vs_{name}_excess_err"] = worst
+            part[f"vs_{name}_max_abs_diff"] = max_abs_diff(pairs)
+            if worst > 0:
+                raise AssertionError(f"{what} {wire}: 2D flat_sharded and "
+                                     f"{name} differ at {where}: {worst}")
+        for r, res in enumerate(results):
+            if res["launches"][wire] != expected_launches(wire,
+                                                          MESH2D_ROUNDS):
+                raise AssertionError(f"{what} {wire}: rank {r} launched "
+                                     f"{res['launches'][wire]}")
+        out[wire] = {**part, "round_ms_per_rank": [res["round_ms"][wire]
+                                           for res in results],
+                     "launches_per_rank": r0["launches"][wire]}
+    return out
+
+
+def check_mesh2d_lm(results: list) -> dict:
+    """The ranks bit for bit (params digest, weights); per wire 2D
+    flat_sharded == 2D tree at 1e-5, every region output of its shard
+    shape, the region's largest all_gather below the smallest
+    model-sharded leaf, 2 + 1 launches. Returns the line's part."""
+    r0 = results[0]
+    out = {"params": r0["params"], "sharded_leaves": r0["sharded_leaves"],
+           "smallest_sharded_leaf": r0["smallest_sharded_leaf"]}
+    for wire in MESH2D_LM_WIRES:
+        parts = [res[wire] for res in results]
+        p0 = parts[0]
+        if any(p["params_sha256"] != p0["params_sha256"]
+               or not torch.equal(p["weights"], p0["weights"])
+               for p in parts):
+            raise AssertionError(f"lm {wire}: the ranks differ")
+        if not all(p["finite"] for p in parts):
+            raise AssertionError(f"lm {wire}: metrics not finite")
+        for r, p in enumerate(parts):
+            if p["vs_tree_excess_err"] > 0:
+                raise AssertionError(f"lm {wire} rank {r}: 2D flat_sharded "
+                                     f"and tree differ at "
+                                     f"{p['vs_tree_worst']}: "
+                                     f"{p['vs_tree_excess_err']}")
+            if p["region_shapes_ok"] != [True]:
+                raise AssertionError(f"lm {wire} rank {r}: region outputs "
+                                     f"{p['region_shapes_ok']}, want one "
+                                     "call of shard shapes")
+            if not 0 < p["largest_region_gather"] < \
+                    r0["smallest_sharded_leaf"]:
+                raise AssertionError(f"lm {wire} rank {r}: the region's "
+                                     f"largest all_gather "
+                                     f"{p['largest_region_gather']} vs the "
+                                     f"smallest sharded leaf "
+                                     f"{r0['smallest_sharded_leaf']}")
+            if p["launches"] != expected_launches(wire, 1):
+                raise AssertionError(f"lm {wire} rank {r}: launched "
+                                     f"{p['launches']}")
+        out[wire] = {
+            "round_ms_per_rank": [p["round_ms"] for p in parts],
+            "peak_bytes_per_rank": [p["peak_bytes"] for p in parts],
+            "collective_bytes_rank0": p0["collective_bytes"],
+            "largest_region_gather": p0["largest_region_gather"],
+            "vs_tree_excess_err": max(p["vs_tree_excess_err"]
+                                      for p in parts),
+            "launches_per_rank": p0["launches"]}
+    return out
+
+
+def phase_mesh2d(wa, rs, tq, dev, smi: str) -> dict:
+    """The 2D (client x model) mesh: the kernels at a 2D tile's shape,
+    the CNN on a (2, 2) gloo world of four processes on this card (every
+    wire), NCCL across cards where there are two or more, and the 100m
+    LM on a (1, 2) gloo world (f32, int8). Returns rank 0's CNN launches
+    a wire."""
+    t0 = time.perf_counter()
+    out = {"phase": "mesh2d", "card": smi, "note": MESH2D_CARD_NOTE,
+           "kernels_at_tile": {
+               "shape": list(MESH2D_TILE),
+               "errors": mesh2d_kernel_check(wa, rs, tq, dev)}}
+    t1 = time.perf_counter()
+    cnn = check_mesh2d_cnn(run_mesh2d("cnn", "gloo", MESH2D_CNN),
+                           "cnn gloo (2, 2)")
+    out["cnn_gloo_2x2_one_card"] = {**cnn,
+                                    "seconds": time.perf_counter() - t1}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        shape = (2, 2) if cards >= 4 else (1, 2)
+        out[f"cnn_nccl_{shape[0]}x{shape[1]}"] = check_mesh2d_cnn(
+            run_mesh2d("cnn", "nccl", shape), f"cnn nccl {shape}")
+    else:
+        print(f"mesh2d: NCCL across cards not run: {cards} card visible",
+              flush=True)
+    t1 = time.perf_counter()
+    out["lm_gloo_1x2_one_card"] = {
+        **check_mesh2d_lm(run_mesh2d("lm", "gloo", MESH2D_LM)),
+        "seconds": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return cnn
 
 
 # ---- the dense-LM serving path and kernels/ops.py ----
@@ -3501,6 +3925,7 @@ def main() -> int:
     phase_telemetry(wa, rs, tq, dev, nodes, test)
     phase_algorithm(dev, nodes, test)
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
+    mesh2d = phase_mesh2d(wa, rs, tq, dev, smi)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     family_launches, family_flash_errs = phase_families(fa, dev)
@@ -3513,6 +3938,9 @@ def main() -> int:
         row["launches"] = launches[row["wire"]][wrapper]
         if row["wire"] in sharded_launches:  # the same kernels at K_loc
             row["launches_sharded"] = sharded_launches[row["wire"]][wrapper]
+        # and at a (K_loc, N_loc) tile of the (2, 2) mesh, per rank
+        row["launches_mesh2d"] = \
+            mesh2d[row["wire"]]["launches_per_rank"][wrapper]
     # the LM kernels' launches: serving's generate call, and the ops path
     # (bf16 in the generate call, f32 in the f32 model's prefill)
     lm_table["flash_attention"]["launches"] = serve_out["flash_launches"]
@@ -3555,4 +3983,8 @@ if __name__ == "__main__":
         backend, rank, world, port, out_path = sys.argv[2:7]
         sys.exit(sharded_child(backend, int(rank), int(world), int(port),
                                out_path))
+    if sys.argv[1:2] == ["--mesh2d-child"]:  # one rank of phase_mesh2d
+        task, backend, rank, world, model, port, out_path = sys.argv[2:9]
+        sys.exit(mesh2d_child(task, backend, int(rank), int(world),
+                              int(model), int(port), out_path))
     sys.exit(main())

@@ -36,11 +36,29 @@ parallel round (mode="parallel", aggregation="sync"):
 * engine="flat_sharded" (with `mesh=`, a `launch.mesh.ClientMesh`): the
   flat engine split over the ranks of a client mesh. Every rank runs the
   same round on the same arguments, trains only its rows of the client
-  axis zero-padded to a multiple of the mesh size, and streams them
+  axis zero-padded to a multiple of that axis's size, and streams them
   through the same kernels; `core.fl_shard_map.make_round_ops` sums the
   partial aggregates and statistics with `all_reduce`, and the rows the
   state keeps (the EF residual, the losses) are broadcast from their
-  owners, so every rank ends the round with the same state, bit for bit.
+  owners, so every rank ends the round with the same state, bit for bit;
+* on a 2D ("data", "model") mesh (a model axis of size M > 1) the uplink
+  is the reference's 2D wire: flat_sharded runs
+  `fl_shard_map.make_round_ops_2d` on each rank's (K_loc, N_loc) tile of
+  the blocked layout (quantization chunks shard-local), the tree engine
+  reads the same wire through `make_blocked_roundtrip`, and error
+  feedback on a quantized uplink is refused. Two points are the port's
+  own. First, `make_round_fn` keeps the mesh for the tree engine only
+  on a 2D mesh (the reference passes it to both engines of the 2D
+  wire): the tree engine then trains every client on every rank and
+  quantizes every model block locally, which gives the reference's
+  blocked roundtrip bit for bit, since each row's int8 / int4 chunks
+  depend only on its own model block. Second, the port runs each
+  client's model whole on every rank (tensor-parallel execution is
+  ROADMAP item 13c): the ranks of one model group train the same K_loc
+  clients and get the same deltas, each cuts and ravels only its own
+  block, and after the region the round all-gathers each model-sharded
+  leaf of g and of the delta over "model" (never inside the region),
+  so every rank's params and state stay whole.
 
 mode="sequential" trains one client at a time, twice (or once against
 the previous round's delta with `stale_angles`), with each client's
@@ -762,9 +780,11 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     both for sharding constraints. `mesh` (a `launch.mesh.ClientMesh`) is
     required by engine="flat_sharded", which splits the client axis over
     its ranks (K not divisible by the mesh size is zero-padded) and runs
-    on the mesh's device; the other engines ignore it. The 2D (client x
-    model) layout is not ported (ROADMAP Queue 1 item 13b).
-    When `angle_pred` is None,
+    on the mesh's device. A mesh with a "model" axis of size > 1 is the
+    2D (client x model) layout: the flat_sharded engine runs
+    `fl_shard_map.make_round_ops_2d`, and the sync tree engine keeps
+    the mesh too, for its blocked wire (`make_blocked_roundtrip`); the
+    other engines ignore the mesh. When `angle_pred` is None,
     `fl.angle_filter` picks the built-in predicate ("dense_only" ->
     `moe_dense_only_pred`). `fl.mode` picks the parallel round (engine
     "flat" or "tree") or the sequential one; `fl.aggregation="buffered"`
@@ -780,19 +800,20 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
         raise ValueError(
             "engine='flat_sharded' shards the (K, N) delta buffer over "
             "the mesh client axis; pass mesh= to make_round_fn")
-    if fl.engine != "flat_sharded":
-        mesh = None
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
     if fl.mode == "sequential":
         return _make_sequential_round(loss_fn, fl, angle_pred,
                                       grad_constraint)
+    round_mesh = mesh if fl.engine == "flat_sharded" else None
     if fl.aggregation == "buffered":
         return _make_buffered_round(loss_fn, fl, delta_constraint,
-                                    angle_pred, grad_constraint, mesh,
+                                    angle_pred, grad_constraint, round_mesh,
                                     arrival_fn)
+    if fl.engine == "tree" and fl_shard_map.model_axis_size(mesh) > 1:
+        round_mesh = mesh  # the 2D wire
     return _make_parallel_round(loss_fn, fl, delta_constraint, angle_pred,
-                                grad_constraint, mesh)
+                                grad_constraint, round_mesh)
 
 
 def _clients(loss_fn: Callable, fl: FLConfig,
@@ -815,29 +836,38 @@ def _clients(loss_fn: Callable, fl: FLConfig,
 
 
 def _sharded_clients(clients: Callable, mesh) -> Callable:
-    """(params, batches, lr, k) -> (flat, losses, real): this rank's
-    clients of a K-client round, trained alone. `flat` is the rank's
-    (Kp/P, N) f32 block of the client axis zero-padded to
-    `fl_shard_map.padded_k(k, mesh.size)`: rows past K are zero (padding
-    carries no data, so it gets zero weight and zero statistics). `real`
-    slices the rank's rows below K (none on a rank past K), and `losses`
-    holds their mean losses."""
+    """(params, batches, lr, k) -> (deltas, losses, real): this rank's
+    clients of a K-client round, trained alone (the ranks of one model
+    group train the same ones). `deltas` is the rank's stacked block of
+    the client axis zero-padded to `fl_shard_map.padded_k(k, C)` (C the
+    client axis's size): rows past K are zero (padding carries no data,
+    so it gets zero weight and zero statistics). `real` slices the
+    rank's rows below K (none on a rank past K), and `losses` holds
+    their mean losses."""
 
     def run(params, batches, lr, k: int):
-        kp = fl_shard_map.padded_k(k, mesh.size)
+        kp = fl_shard_map.padded_k(k, fl_shard_map.client_axis_size(mesh))
         mine = fl_shard_map.flat_client_sharding(mesh).rows(kp)
         real = slice(min(mine.start, k), min(mine.stop, k))
         if real.stop > real.start:
             deltas, losses = clients(
                 params, treemath.tree_map(lambda a: a[real], batches), lr)
-            flat, _ = treemath.tree_ravel_stacked(deltas)
         else:
-            flat = torch.zeros((0, param_count(params)), device=mesh.device)
+            deltas = treemath.tree_map(
+                lambda p: p.new_zeros((0,) + tuple(p.shape)), params)
             losses = torch.zeros(0, device=mesh.device)
-        return (fl_shard_map.pad_rows(flat, mine.stop - mine.start), losses,
-                real)
+        return (treemath.tree_map(lambda d: fl_shard_map.pad_rows(
+            d, mine.stop - mine.start), deltas), losses, real)
 
     return run
+
+
+def _derive_param_pspecs(params: Tree, mesh) -> Tree:
+    """The UNSTACKED param specs of the 2D wire: the launch layer's
+    name-based rules (`models.sharding.param_pspecs`) on the mesh."""
+    from repro_torch.models import sharding
+
+    return sharding.param_pspecs(params, mesh)
 
 
 def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
@@ -847,11 +877,68 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
                          mesh=None) -> Callable:
     clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
-    if mesh is not None:
+    # a "model" axis of size > 1 makes the wire the 2D blocked layout:
+    # quantization chunks are shard-local, model-sharded leaves are
+    # raveled a block a rank, and the flat_sharded aggregate comes out in
+    # blocks; the tree engine reads the same wire through
+    # fl_shard_map.make_blocked_roundtrip
+    wire_2d = fl_shard_map.model_axis_size(mesh) > 1
+    if wire_2d and fl.transport != "f32" and fl.error_feedback:
+        raise ValueError(
+            "error_feedback carries a global (num_clients, N) residual in "
+            "tree-ravel order, but a (client x model) mesh quantizes the "
+            "wire in shard-local blocked order; drop error_feedback or "
+            "use a client-only mesh")
+    sharded = mesh is not None and fl.engine == "flat_sharded"
+    if sharded:
         sharded_clients = _sharded_clients(clients, mesh)
-        round_ops = fl_shard_map.make_round_ops(
-            mesh, alpha=fl.alpha, method=fl.method, transport=fl.transport,
-            group_size=fl.group_size)
+        if not wire_2d:
+            round_ops = fl_shard_map.make_round_ops(
+                mesh, alpha=fl.alpha, method=fl.method,
+                transport=fl.transport, group_size=fl.group_size)
+    regions: dict = {}  # the 2D round's region, built once a layout
+
+    def region_2d(params, kp: int):
+        """(make_round_ops_2d's op, the param specs) for a round of kp
+        padded rows."""
+        key = (kp, tuple(tuple(p.shape) for p in
+                         treemath.tree_leaves(params)))
+        if key not in regions:
+            pspecs = _derive_param_pspecs(params, mesh)
+            template = treemath.tree_map(lambda p: torch.empty(
+                (kp,) + tuple(p.shape), dtype=p.dtype, device="meta"),
+                params)
+            keep = (angle_keep_list(params, angle_pred) if angle_pred
+                    else None)
+            regions[key] = (fl_shard_map.make_round_ops_2d(
+                mesh, template, pspecs, alpha=fl.alpha, method=fl.method,
+                transport=fl.transport, group_size=fl.group_size,
+                keep=keep), pspecs)
+        return regions[key]
+
+    def sharded_uplink_2d(state, params, batches, sel, data_sizes,
+                          psi_avg, lr):
+        """The flat_sharded engine on a 2D mesh: the rank's clients train
+        whole models, the rank's model blocks of their deltas go through
+        the 2D region, and the aggregates' model-sharded leaves are
+        gathered after it, so every rank ends with whole params. Returns
+        what `sharded_uplink` does (no EF: refused on a 2D wire)."""
+        k = sel.shape[0]
+        kp = fl_shard_map.padded_k(k, fl_shard_map.client_axis_size(mesh))
+        deltas, losses, _ = sharded_clients(params, batches, lr, k)
+        round_op, pspecs = region_2d(params, kp)
+        pad = fl_shard_map.pad_rows
+        # padding rows: zero deltas and zero data size, so zero weight
+        g_loc, dots, sqs, sqg, delta_loc, theta, _, w = round_op(
+            fl_shard_map.local_blocks(mesh, deltas, pspecs),
+            pad(psi_avg, kp), pad(state.angle.smoothed[sel], kp),
+            pad(state.angle.count[sel], kp), pad(data_sizes, kp))
+        g_avg, delta = fl_shard_map.gather_model_sharded(
+            mesh, [g_loc, delta_loc], pspecs)
+        # f32 in the region, ONE cast to the param dtype after it
+        delta = treemath.tree_map(lambda d, p: d.to(p.dtype), delta, params)
+        return (fl_shard_map.replicate_rows(mesh, losses, k), state.ef,
+                g_avg, dots[:k], sqs[:k], sqg, theta[:k], w[:k], delta)
 
     def sharded_uplink(state, params, batches, sel, data_sizes, psi_avg,
                        lr):
@@ -859,8 +946,9 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         EF, g_avg, dots, sqs, sqg, theta, w, delta), the same on every
         rank."""
         k = sel.shape[0]
-        kp = fl_shard_map.padded_k(k, mesh.size)
-        flat, losses, real = sharded_clients(params, batches, lr, k)
+        kp = fl_shard_map.padded_k(k, fl_shard_map.client_axis_size(mesh))
+        deltas, losses, real = sharded_clients(params, batches, lr, k)
+        flat, _ = treemath.tree_ravel_stacked(deltas)
         nreal = real.stop - real.start
         new_ef = state.ef
         if fl.error_feedback:
@@ -891,7 +979,14 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         new_ef = state.ef
 
         # ---- the uplink: ravel once, compress once to the wire ----
-        if fl.engine == "flat" or fl.transport != "f32":
+        if wire_2d and fl.transport != "f32":
+            # the tree engine on a 2D mesh reads the blocked wire: each
+            # model block quantized on its own, as flat_sharded's region
+            # does
+            deltas = fl_shard_map.make_blocked_roundtrip(
+                mesh, deltas, _derive_param_pspecs(params, mesh),
+                transport=fl.transport, group_size=fl.group_size)(deltas)
+        elif fl.engine == "flat" or fl.transport != "f32":
             flat, unravel = treemath.tree_ravel_stacked(deltas)
             if fl.error_feedback:
                 # EF-SGD: replay the carried residual into this round's
@@ -959,10 +1054,10 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
             new_bcast = new_bcast._replace(ver=new_bcast.ver.index_copy(
                 0, sel, v.expand(sel.shape[0])))
         psi_avg = weighting.fedavg_weights(data_sizes)
-        if mesh is not None:
-            (losses, new_ef, g_avg, dots, sqs, sqg, theta, w,
-             delta) = sharded_uplink(state, params, batches, sel,
-                                     data_sizes, psi_avg, lr)
+        if sharded:
+            (losses, new_ef, g_avg, dots, sqs, sqg, theta, w, delta) = (
+                sharded_uplink_2d if wire_2d else sharded_uplink)(
+                state, params, batches, sel, data_sizes, psi_avg, lr)
             # Eq. 9 scatter: the region computed the same float ops for
             # its weights; this is the state's bookkeeping
             new_angle = _scatter_angles(angle_state, sel, theta)
@@ -1013,10 +1108,16 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
     cohort, and the admitted reports' dequantized f32 rows are broadcast
     from their owners, so every rank admits the same buffer; the flush
     (`fl_shard_map.make_buffered_flush_ops`) streams each rank's rows of
-    it, the padding rows landed False.
+    it, the padding rows landed False. On a 2D (client x model) mesh the
+    flush streams the rank's column tile of those rows (admission is
+    unchanged: the global f32 buffer on every rank): N is zero-padded to
+    a multiple of the model axis's size, the tile copied out contiguous
+    once a flush, and the (N/M,) aggregates gathered over "model" and
+    cut back to N.
     """
     clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
+    msize = fl_shard_map.model_axis_size(mesh)
     if mesh is not None:
         sharded_clients = _sharded_clients(clients, mesh)
         flush_ops = fl_shard_map.make_buffered_flush_ops(
@@ -1057,7 +1158,8 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
         params_srv = state.params
         params, new_dl, new_bcast = _broadcast(fl, state)
         if mesh is not None:
-            flat0, losses, real = sharded_clients(params, batches, lr, k)
+            deltas, losses, real = sharded_clients(params, batches, lr, k)
+            flat0, _ = treemath.tree_ravel_stacked(deltas)
             losses = fl_shard_map.replicate_rows(mesh, losses, k)
         else:
             deltas, losses = clients(params, batches, lr)
@@ -1114,16 +1216,25 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
             buf.sizes, buf.age, landed, fl.staleness_beta)
         if mesh is not None:
             # each rank's rows of the buffer; padding rows land False
-            kp = fl_shard_map.padded_k(k, mesh.size)
+            kp = fl_shard_map.padded_k(k, fl_shard_map.client_axis_size(
+                mesh))
             pad = fl_shard_map.pad_rows
             shard = fl_shard_map.flat_client_sharding(mesh)
+            values = fl_shard_map.local_block(buf.data, kp, shard)
+            mvec = segment_mask(params)
+            if msize > 1:  # and its column tile
+                values, mvec = fl_shard_map.column_tile(mesh, values, mvec)
             g_flat, dots, sqs, sqg, delta_flat, theta, _, w = flush_ops(
-                fl_shard_map.local_block(buf.data, kp, shard), pad(psi_b, kp),
-                segment_mask(params),
+                values, pad(psi_b, kp), mvec,
                 pad(angle_state.smoothed[slot], kp),
                 pad(angle_state.count[slot], kp), pad(buf.sizes, kp, 1.0),
                 pad(buf.age, kp), pad(landed, kp, False))
             dots, sqs, theta, w = dots[:k], sqs[:k], theta[:k], w[:k]
+            if msize > 1:
+                n = buf.data.shape[1]
+                g_flat, delta_flat = (mesh.all_gather(
+                    v, axes=(fl_shard_map.MODEL_AXIS,))[:n]
+                    for v in (g_flat, delta_flat))
             g_avg = unravel0(g_flat, torch.float32)
         elif fl.engine == "flat":
             g_flat = weighted_agg(psi_b, buf.data, out_dtype=torch.float32)

@@ -22,8 +22,8 @@ holds the reference's keys, with these meanings:
     outputs' (XLA's sense: scratch beside the outputs);
   * flops, bytes_accessed, memory.temp_bytes — the global figures over
     the device count, "partition": "ideal": the port has no partitioner
-    yet (ROADMAP Queue 1 item 13b), so no per-device program exists to
-    measure;
+    yet (ROADMAP Queue 1 items 13c and 17), so no per-device program
+    exists to measure;
   * fits — per device, arguments + outputs + temp - alias (the
     reference's live bytes a device) within one card's memory;
   * collectives — {} with the reason: without a partitioner nothing
@@ -49,7 +49,7 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import optrace, steps
 from repro_torch.launch.mesh import HBM_BYTES, make_production_mesh
 
-NO_COLLECTIVES = ("no partitioner yet (ROADMAP Queue 1 item 13b): the "
+NO_COLLECTIVES = ("no partitioner yet (ROADMAP Queue 1 item 13c): the "
                   "step runs as one program, and nothing issues them")
 
 

@@ -1,24 +1,34 @@
 """Meshes: the client mesh that `FLConfig(engine="flat_sharded")` splits
-a round's client axis over, and the abstract production mesh of the
-launch layer (`launch/steps.py`, `launch/dryrun.py`).
+a round over, and the abstract production mesh of the launch layer
+(`launch/steps.py`, `launch/dryrun.py`).
 
 The counterpart of `repro/launch/mesh.py`. A `ClientMesh` holds a
-`torch.distributed` process group, this process's rank in it, the
-group's size and the device its tensors live on. It has no model axis:
-the 2D (client x model) layout is not ported yet (ROADMAP Queue 1 item
-13b; `core.fl_shard_map.make_round_ops_2d` raises).
+`torch.distributed` process group of P ranks, this process's rank in
+it, and the device its tensors live on. Its ranks form a (P/M, M)
+("data", "model") grid, rank r at (r // M, r % M), row-major as
+`jax.make_mesh((P/M, M), ("data", "model"))` places devices; M = 1
+(the default) is a client-only mesh. "data" is the client axis: the
+ranks of one column share a model index j and split the cohort's rows.
+"model" is the axis the 2D wire splits each client's delta over
+(`core.fl_shard_map.make_round_ops_2d`): the ranks of one row hold the
+same clients and one column block each of every leaf.
 
 Every rank runs the same round on the same global arguments, as every
-process of a multi-controller JAX program does; the round's schedule
-(`core.fl_shard_map`) uses two collectives, `all_reduce` (the
-reference's `psum`) and `broadcast`, the two that gloo also takes on
-CUDA tensors. The backend is the caller's: NCCL across cards, gloo on
-the CPU and for two ranks that share one card:
+process of a multi-controller JAX program does. The round's schedule
+(`core.fl_shard_map`) names the axes each collective spans:
+`all_reduce` (the reference's `psum`), `broadcast`, and `all_gather`
+over "model" (the reference's `all_gather`, which re-joins a leaf's
+column blocks). The backend is the caller's: NCCL across cards, gloo on
+the CPU and for ranks that share one card (gloo takes CUDA tensors in
+all three):
 
-    torch.distributed.init_process_group("nccl")  # under torchrun
-    mesh = make_client_mesh()                   # cuda:<LOCAL_RANK>
+    torch.distributed.init_process_group("nccl")   # under torchrun
+    mesh = make_client_mesh(model=2)               # cuda:<LOCAL_RANK>
 
 `make_host_mesh()` is a world of one without a process group.
+`mesh.recording()` lists every collective the mesh runs inside it
+(its axes and bytes, and the `scope` it ran in), which is how the
+round's traffic is counted.
 
 `make_production_mesh()` is an `AbstractMesh`: axis names and sizes, no
 devices and no process group, which the sharding rules
@@ -30,48 +40,161 @@ counts of the reference's 16 x 16 and 2 x 16 x 16 TPU v5e pods.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 from collections import OrderedDict
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 import repro_torch
 
+AXES = ("data", "model")
+
+
+class Collective(NamedTuple):
+    """One collective as `ClientMesh.recording` lists it: the op, the
+    axes it spans, the shape and bytes of this rank's tensor (for an
+    all_gather, the part it sends), and the scope it ran in."""
+
+    op: str
+    axes: tuple
+    shape: tuple
+    nbytes: int
+    scope: Optional[str]
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
-    """A client-only mesh. `group` None is a world of one that runs no
-    collective (`make_host_mesh`); otherwise every collective goes
-    through `group`. A mesh of more ranks without a group raises: its
-    collectives would quietly be local sums."""
+    """A (data, model) mesh of `size` ranks, `model` of them on the model
+    axis. `group` spans every rank; `data_group` the ranks that share
+    this rank's model index, `model_group` those that share its client
+    index (each None where its axis has one rank, or on a client-only
+    mesh, where "data" is `group`). `group` None is a world of one that
+    runs no collective (`make_host_mesh`); a mesh of more ranks without
+    a group raises: its collectives would quietly be local sums."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
     size: int
     device: torch.device
+    model: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+    _log: dict = dataclasses.field(default_factory=lambda: {
+        "logs": [], "scope": None}, repr=False, compare=False)
 
     def __post_init__(self):
         if self.group is None and (self.size, self.rank) != (1, 0):
             raise ValueError(
                 f"a ClientMesh of size {self.size} (rank {self.rank}) "
                 "needs a process group; only a world of one runs without")
+        if self.model < 1 or self.size % self.model:
+            raise ValueError(f"a model axis of {self.model} does not "
+                             f"divide a mesh of {self.size} ranks")
+        for axis, n, sub in (("data", self.client_size, self.data_group),
+                             ("model", self.model, self.model_group)):
+            if n > 1 and self.model > 1 and sub is None:
+                raise ValueError(f"a (data, model) mesh needs the group "
+                                 f"of its {axis!r} axis ({n} ranks)")
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the ranks, in place (the reference's psum over
-        the client axis); returns it."""
-        if self.group is not None:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+    @property
+    def client_index(self) -> int:
+        """This rank's index on the "data" (client) axis."""
+        return self.rank // self.model
+
+    @property
+    def client_size(self) -> int:
+        return self.size // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's index on the "model" axis."""
+        return self.rank % self.model
+
+    @property
+    def model_size(self) -> int:
+        return self.model
+
+    def _group(self, axes: tuple):
+        """The group of `axes` and its size; None where it is one rank."""
+        axes = tuple(axes)
+        if axes == ("data", "model"):
+            return self.group, self.size
+        if axes == ("data",):
+            n = self.client_size
+            return (self.group if self.model == 1 else self.data_group), n
+        if axes == ("model",):
+            return self.model_group, self.model
+        raise ValueError(f"unknown mesh axes {axes}; use a non-empty "
+                         f"ordered subset of {AXES}")
+
+    def _record(self, op: str, axes: tuple, t: torch.Tensor) -> None:
+        for log in self._log["logs"]:
+            log.append(Collective(op, tuple(axes), tuple(t.shape),
+                                  t.numel() * t.element_size(),
+                                  self._log["scope"]))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """A list of every collective this mesh runs inside the block
+        (`Collective` entries, this rank's side), for counting a round's
+        traffic. Collectives over one rank are not listed: they move
+        nothing."""
+        log: list = []
+        self._log["logs"].append(log)
+        try:
+            yield log
+        finally:
+            self._log["logs"].remove(log)
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        """Label the collectives run inside the block `name` in every
+        recording."""
+        outer, self._log["scope"] = self._log["scope"], name
+        try:
+            yield
+        finally:
+            self._log["scope"] = outer
+
+    def all_reduce(self, t: torch.Tensor, axes=("data",)) -> torch.Tensor:
+        """Sum `t` over the ranks of `axes`, in place (the reference's
+        psum over those axes); returns it. The default is the client
+        axis, which on a client-only mesh is every rank."""
+        group, n = self._group(axes)
+        if n > 1:
+            self._record("all_reduce", axes, t)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
 
-    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
-        """Rank `src`'s `t` on every rank, in place; returns it."""
-        if self.group is not None:
-            dist.broadcast(t, src=dist.get_global_rank(self.group, src),
-                           group=self.group)
+    def broadcast(self, t: torch.Tensor, src: int,
+                  axes=("data", "model")) -> torch.Tensor:
+        """The `t` of the rank at index `src` of `axes` (on both axes,
+        the world rank) on every rank of them, in place; returns it."""
+        group, n = self._group(axes)
+        if n > 1:
+            self._record("broadcast", axes, t)
+            dist.broadcast(t, src=dist.get_global_rank(group, src),
+                           group=group)
         return t
+
+    def all_gather(self, t: torch.Tensor, axes=("model",),
+                   dim: int = 0) -> torch.Tensor:
+        """Every rank's `t` over `axes`, concatenated along `dim` in the
+        axes' order (the reference's tiled all_gather); `t` itself on an
+        axis of one rank."""
+        group, n = self._group(axes)
+        if n == 1:
+            return t
+        self._record("all_gather", axes, t)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
 
     def barrier(self) -> None:
         if self.group is not None:
@@ -79,9 +202,9 @@ class ClientMesh:
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
-        """The mesh's axes as the sharding rules read them: the ranks
-        are the "data" (client) axis; there is no model axis yet."""
-        return OrderedDict((("data", self.size), ("model", 1)))
+        """The mesh's axes as the sharding rules read them."""
+        return OrderedDict((("data", self.client_size),
+                            ("model", self.model)))
 
     @property
     def axis_names(self) -> tuple:
@@ -111,19 +234,25 @@ def _placed(device: torch.device) -> tuple:
 
 
 def make_client_mesh(group: Optional[dist.ProcessGroup] = None,
-                     device=None) -> ClientMesh:
+                     device=None, *, model: int = 1) -> ClientMesh:
     """A ClientMesh over `group` (the default group when None), which
-    `torch.distributed.init_process_group` must have made. `device` None
-    means `cuda:<local rank>` (the LOCAL_RANK that torchrun sets, else
-    the rank) and raises without a GPU; pass "cpu" (gloo only) or a card
-    explicitly, e.g. when two gloo ranks share one card."""
+    `torch.distributed.init_process_group` must have made, with `model`
+    ranks on its model axis. `device` None means `cuda:<local rank>`
+    (the LOCAL_RANK that torchrun sets, else the rank) and raises
+    without a GPU; pass "cpu" (gloo only) or a card explicitly, e.g.
+    when gloo ranks share one card.
+
+    With model > 1 the mesh spans the whole job, and every process
+    must call this with the same `model`: each makes the same
+    sub-groups (`dist.new_group`, every client group, then every model
+    group), as that call requires of every process of the job."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_client_mesh needs a process group: call "
             "torch.distributed.init_process_group first (or use "
             "make_host_mesh for a world of one)")
     group = dist.group.WORLD if group is None else group
-    rank = dist.get_rank(group)
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
     if device is None:
         repro_torch.default_device()
         device = torch.device(
@@ -133,8 +262,29 @@ def make_client_mesh(group: Optional[dist.ProcessGroup] = None,
         raise ValueError(
             f"the NCCL backend reduces CUDA tensors only, not {device}; "
             "use gloo for a CPU mesh")
-    return ClientMesh(group=group, rank=rank,
-                      size=dist.get_world_size(group), device=device)
+    if model < 1 or size % model:
+        raise ValueError(f"a model axis of {model} does not divide a "
+                         f"world of {size} ranks")
+    subs = {}
+    if model > 1:
+        if size != dist.get_world_size():
+            raise ValueError("a mesh with a model axis spans the whole "
+                             "job: pass group=None")
+        clients = size // model
+        for axis, members in (
+                ("data", [[c * model + j for c in range(clients)]
+                          for j in range(model)]),
+                ("model", [[c * model + j for j in range(model)]
+                           for c in range(clients)])):
+            if len(members[0]) == 1:
+                continue
+            for ranks in members:  # every rank makes every group
+                made = dist.new_group(ranks)
+                if rank in ranks:
+                    subs[axis] = made
+    return ClientMesh(group=group, rank=rank, size=size, device=device,
+                      model=model, data_group=subs.get("data"),
+                      model_group=subs.get("model"))
 
 
 def make_host_mesh(device=None) -> ClientMesh:

@@ -11,7 +11,7 @@ of the tree covers every leaf below it. The train step's `RoundState`
 carries its generator and its round as host values, which have no spec
 (None in `in_specs`).
 
-The port has no partitioner yet (ROADMAP Queue 1 item 13b), so the specs
+The port has no partitioner yet (ROADMAP Queue 1 item 13c), so the specs
 say where each tensor would live and nothing moves it; the reference's
 `delta_constraint` and `grad_constraint` are identities here, passed to
 `make_round_fn` where the reference passes its constraints. The

@@ -3,10 +3,11 @@
 
 It runs the round `launch.steps.build_train_step` builds (the step the
 dry run traces), on CUDA unless `--device cpu` is given. Only the host
-mesh runs today: training on the production mesh shards each client's
-model over the mesh's model axis, which needs the 2D (client x model)
-layout (ROADMAP Queue 1 item 13b); without `--host-mesh` the launcher
-raises NotImplementedError rather than fall back to one card.
+mesh runs today: training on the production mesh runs each client's
+forward and backward tensor-parallel over the mesh's model axis, which
+the port does not do yet (ROADMAP Queue 1 item 13c); without
+`--host-mesh` the launcher raises NotImplementedError rather than fall
+back to one card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --host-mesh --smoke --rounds 5
@@ -84,9 +85,10 @@ def main(argv=None) -> dict:
         ap.error("--telemetry-every must be >= 1")
     if not args.host_mesh:
         raise NotImplementedError(
-            "training on the production mesh shards each client's model "
-            "over its model axis, which needs the 2D (client x model) "
-            "layout (ROADMAP Queue 1 item 13b); run with --host-mesh")
+            "training on the production mesh runs each client's forward "
+            "and backward tensor-parallel over its model axis, which the "
+            "port does not do yet (ROADMAP Queue 1 item 13c: tensor-"
+            "parallel model execution); run with --host-mesh")
 
     import repro_torch
     from repro_torch.checkpoint import io as ckpt_io

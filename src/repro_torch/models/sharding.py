@@ -13,9 +13,13 @@ leading dim, each None (replicated), an axis name or a tuple of names.
 leaf carries a leading scan-group axis which is never sharded. Dims are
 only sharded when divisible by the axis size.
 
-The port has no partitioner yet (ROADMAP Queue 1 item 13b): the rules
-say where each tensor would live and what one device would hold, which
-the dry run reports; nothing here moves data.
+The rules say where each tensor lives and what one device holds: the
+dry run reports them, and on a `launch.mesh.ClientMesh` with a model
+axis the 2D wire reads them (`core.fl._derive_param_pspecs`): a
+model-sharded leaf is raveled, quantized and aggregated a block a rank
+(`core.fl_shard_map.make_round_ops_2d`). Nothing here moves data, and
+the port runs no model tensor-parallel yet (ROADMAP Queue 1 item 13c):
+`constrain` changes nothing.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@
     and `python -m repro_torch.launch.train ... --resume` to 3 with
     `--telemetry`: the resumed `params_sha256` equals the
     uninterrupted one and the stream validates. Without `--host-mesh` it
-    raises NotImplementedError naming ROADMAP item 13b. Torch runs on one
+    raises NotImplementedError naming ROADMAP item 13c. Torch runs on one
     intra-op thread: several CPU threads sum in an order that changes
     from process to process.
 """
@@ -242,5 +242,5 @@ def test_launcher_resumes_bit_exactly(tmp_path):
 
 
 def test_launcher_without_host_mesh_names_item_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         train.main(["--arch", "gemma-2b", "--device", "cpu"])

@@ -438,8 +438,8 @@ def test_what_is_not_ported_still_raises(change):
                        **change).validate()
     with pytest.raises(ValueError, match="pass mesh= to make_round_fn"):
         tfl.make_round_fn(lambda p, b: 0.0, cfg)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13b"):
+    with pytest.raises(ValueError, match="needs a mesh with a 'model' "
+                       "axis of size > 1"):
         fl_shard_map.make_round_ops_2d(
             make_host_mesh("cpu"), {}, {}, alpha=cfg.alpha,
             method=cfg.method, transport=cfg.transport,

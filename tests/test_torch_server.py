@@ -83,7 +83,7 @@ def test_configs_outside_the_slice_raise(change):
                       **change).validate()
     with pytest.raises(ValueError, match="pass mesh="):
         fl.make_round_fn(lambda p, b: 0.0, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'model' axis of size > 1"):
         fl_shard_map.make_round_ops_2d(
             repro_torch.make_host_mesh("cpu"), {}, {}, alpha=cfg.alpha,
             method=cfg.method, transport=cfg.transport,
@@ -108,8 +108,8 @@ def test_server_rejects_what_is_not_ported(golden_task):
     """Since the client-sharded engine is ported, the server refuses, as
     the reference does, that engine without a mesh and an unknown run
     mode; a mesh that is not a ClientMesh raises TypeError, and the 2D
-    (client x model) layout's entry points, not ported yet, name item
-    13b."""
+    wire's roundtrip refuses an int4 group size the wire cannot take,
+    with the reference's message."""
     _, nodes, test = golden_task
     cfg = fl.FLConfig(num_clients=10, clients_per_round=10, local_steps=12)
     sharded = dataclasses.replace(cfg, engine="flat_sharded")
@@ -119,10 +119,10 @@ def test_server_rejects_what_is_not_ported(golden_task):
     with pytest.raises(TypeError, match="ClientMesh"):
         repro_torch.FedServer("mlr", sharded, nodes, test, batch_size=50,
                               mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(ValueError, match="group_size"):
         fl_shard_map.make_blocked_roundtrip(
-            repro_torch.make_host_mesh("cpu"), {}, {},
-            transport=sharded.transport)
+            repro_torch.make_host_mesh("cpu"), {}, {}, transport="int4",
+            group_size=3)
     server = repro_torch.FedServer("mlr", cfg, nodes, test, batch_size=50,
                                    device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):

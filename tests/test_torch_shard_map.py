@@ -38,8 +38,8 @@ under a `fixed_arrival_schedule`. Held:
   sharded == flat at 1e-5; the telemetry stream comes from rank 0 only
   and scanned == stepwise.
 
-The rest runs in this process: the refusals (no mesh, a model axis, a
-mesh on another device), `tree_ravel_stacked(sharding=)`, and the
+The rest runs in this process: the refusals (no mesh, a 2D region on a
+client-only mesh, a mesh on another device), `tree_ravel_stacked(sharding=)`, and the
 padding helpers.
 """
 import json
@@ -639,22 +639,21 @@ def test_flat_sharded_requires_mesh():
 
 
 def test_model_axis_raises_item_13b():
-    """A ClientMesh has no model axis; the 2D layout's entry points raise
-    NotImplementedError naming item 13b, and the flat engine refuses a
-    model-sharded leaf as the reference does."""
+    """A model axis is now accepted: a ClientMesh carries one (of size 1
+    on the host mesh), `make_round_ops_2d` on a mesh whose model axis is
+    1 raises the reference's ValueError, and the flat engine on a
+    client-only mesh still refuses a model-sharded leaf with the
+    reference's message."""
     from repro_torch.core import fl_shard_map as tsm
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh("cpu")
-    assert not hasattr(mesh, "model")
+    assert (mesh.model, mesh.model_index, mesh.client_index) == (1, 0, 0)
+    assert dict(mesh.shape) == {"data": 1, "model": 1}
     assert tsm.model_axis_size(mesh) == 1
-    for build in (lambda: tsm.make_round_ops_2d(mesh, {}, {}, alpha=ALPHA),
-                  lambda: tsm.make_blocked_roundtrip(mesh, {}, {},
-                                                     transport="int8")):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            build()
-    # the flat engine's own refusal of a model-sharded leaf
-    with pytest.raises(ValueError, match="client-only"):
+    with pytest.raises(ValueError, match="'model' axis of size > 1"):
+        tsm.make_round_ops_2d(mesh, {}, {}, alpha=ALPHA)
+    with pytest.raises(ValueError, match="add a 'model' mesh axis"):
         tsm.fedadp_aggregate(mesh, {"a": ("data", None, "model")},
                              alpha=ALPHA, engine="flat")
 

@@ -326,8 +326,13 @@ SHARED = {
                     "flat_client_sharding", "make_round_ops",
                     "make_round_ops_2d", "make_blocked_roundtrip",
                     "make_buffered_flush_ops", "fedadp_aggregate",
-                    "_fedadp_aggregate_flat", "_shard_agg",
-                    "_shard_stats")},
+                    "_fedadp_aggregate_flat", "_fedadp_aggregate_flat_2d",
+                    "_shard_agg", "_shard_stats")},
+    **{f"treemath.{name}": (getattr(jtm, name), getattr(ttm, name))
+       for name in ("tree_dot", "tree_dot_and_norms", "tree_zeros_like",
+                    "tree_cast", "global_norm", "BlockedLayout",
+                    "blocked_layout", "blocked_ravel_local", "blocked_split",
+                    "blocked_segment_mask")},
 }
 
 
