@@ -100,7 +100,23 @@ gloo world, f32 and int8, one round after a warm-up: 2D flat_sharded ==
 2D tree at 1e-5, every region output of its shard shape, the region's
 largest all_gather below the smallest model-sharded leaf, peak memory
 and the bytes of every collective; the kernel table's
-`launches_mesh2d`), lm_train
+`launches_mesh2d`), tp (tensor-parallel execution over the model axis:
+the 100m preset, f32, flash, K = 4, tau = 2, B = 4, T = 256, on (1, 2)
+and (2, 2) gloo worlds on this card (`--mesh2d-child tp`): the state
+placed in each rank's blocks, memory_allocated() within 1% plus 512 B a
+tensor of the specs' shard bytes; a warm-up round whose every flash
+launch, at the rank's local heads, is held to the plain version at
+2e-5; one recorded round: 2 + 1 FL launches and one flash launch a
+layer a local step, the "tp" collectives' count and bytes equal to
+those of the shapes, no other all_gather as large as a sharded block,
+every state leaf of its shard shape, the gathered params and the
+metrics == the whole-model 2D round at 2e-4, the ranks bit for bit; NCCL
+across two cards where there are two; then the launcher on a (1, 2)
+gloo world (`--mesh2d-child launch`): gemma-2b at full width and depth,
+bf16, K = 1, B = 4, T = 1024, 2 rounds, ms a round and the peak a rank,
+the gathered params_sha256 equal on both ranks, and at the smoke width a
+resumed run bit for bit the uninterrupted one; the kernel table's
+`launches_tp`), lm_train
 (grads through gqa_flash under vmap(grad) on the card, f32 and bf16,
 equal the plain version's at the forward's tolerance, and the forward
 runs the dtype's kernel; the 100m preset, f32, K = 4, tau = 2, B = 4,
@@ -2445,7 +2461,8 @@ def mesh2d_lm(mesh, dev, rank: int) -> dict:
 
 def mesh2d_child(task: str, backend: str, rank: int, world: int,
                  model: int, port: int, out_path: str) -> int:
-    """One rank of a 2D world: `task` "cnn" or "lm" on a (world / model,
+    """One rank of a 2D world: `task` "cnn", "lm", "tp" (the 100m LM
+    tensor-parallel) or "launch" (the launcher) on a (world / model,
     model) mesh over `backend`."""
     import torch.distributed as dist
 
@@ -2462,7 +2479,11 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
                             rank=rank, world_size=world)
     try:
         mesh = repro_torch.make_client_mesh(device=dev, model=model)
-        res = (mesh2d_cnn if task == "cnn" else mesh2d_lm)(mesh, dev, rank)
+        if task == "launch":  # the launcher makes its own mesh
+            res = tp_launch(mesh, dev, rank, out_path)
+        else:
+            res = {"cnn": mesh2d_cnn, "lm": mesh2d_lm,
+                   "tp": tp_lm}[task](mesh, dev, rank)
         res["coords"] = (mesh.client_index, mesh.model_index)
         torch.save(res, out_path)
     finally:
@@ -2609,6 +2630,298 @@ def phase_mesh2d(wa, rs, tq, dev, smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return cnn
+
+
+# ---- tensor-parallel model execution over the mesh's model axis ----
+
+TP_LM_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}  # gloo worlds on one card
+TP_LAUNCH_ARGV = ["--arch", "gemma-2b", "--seq", "1024", "--global-batch",
+                  "4", "--rounds", "2"]  # bf16, K = 1, B = 4, full width
+TP_SMOKE_ARGV = ["--arch", "gemma-2b", "--smoke", "--seq", "64",
+                 "--global-batch", "2"]  # the resume, at the smoke width
+
+
+def tp_collectives_from_shapes(cfg, k_loc: int) -> tuple[int, int]:
+    """(count, bytes) of the collectives a rank's clients run under "tp"
+    in one round of the dense LM at LM_TAU steps, from the shapes, on a
+    model axis whose blocks hold whole heads: a step is the
+    vocab-parallel embedding's all-reduce; per layer the forward's two
+    all-reduces (after wo and w_down), again in the recompute's rerun,
+    and the backward's two (copy_to_model's cotangents at the attention
+    and FFN inputs), each of the (K_loc, B, T, d) f32 activations; the
+    head's input cotangent (the same size); and the loss's max, exp sum
+    and label pick over (K_loc, B, T - 1)."""
+    act = k_loc * LM_B * LM_T * cfg.d_model * 4
+    small = k_loc * LM_B * (LM_T - 1) * 4
+    per_step = (6 * cfg.num_layers + 2, 3)
+    return (LM_TAU * sum(per_step),
+            LM_TAU * (per_step[0] * act + per_step[1] * small))
+
+
+def tp_lm(mesh, dev, rank: int) -> dict:
+    """One rank of the 100m LM's tensor-parallel world: the state placed
+    in this rank's blocks (memory_allocated against the specs' shard
+    bytes), a warm-up round whose every flash launch is held to the plain
+    version at its local shape, one recorded round (the collectives by
+    scope, the launches, ms, the peak), then the whole-model 2D round from
+    the same state and tokens for the comparison."""
+    import repro_torch
+    from repro_torch.core import fl_shard_map, treemath
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models import sharding, transformer
+    from repro_torch.models.sharding import NamedSpec
+
+    ex = load_lm_example()
+    cfg = ex.model_config(LM_PRESET, "flash")
+    k, tau, b, t = LM_K, LM_TAU, LM_B, LM_T
+    fl = repro_torch.FLConfig(num_clients=k, clients_per_round=k,
+                              local_steps=tau, method="fedadp",
+                              base_lr=0.05, lr_decay=0.999,
+                              engine="flat_sharded")
+    shapes = transformer.init_params(None, cfg, device="meta")
+    specs = sharding.param_pspecs(shapes, mesh)
+
+    def init():
+        return transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+
+    # the placed state: this rank's blocks of the params, prev_delta in f32
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state0 = repro_torch.init_round_state(
+        fl, sharding.shard_params(init(), mesh, specs))
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    shard = [math.prod(NamedSpec(mesh, s).shard_shape(tuple(x.shape)))
+             for x, s in zip(treemath.tree_leaves(shapes),
+                             treemath.tree_leaves_like(shapes, specs))]
+    want_placed = (sum(shard) * (cfg.tdtype.itemsize + 4)
+                   + k * 4 * 2)  # params, prev_delta f32, the angles
+    n_tensors = 2 * len(shard) + 2
+    tokens = ex.round_tokens(0, k, tau, b, t, cfg.vocab_size, dev)
+    sel = torch.arange(k, dtype=torch.int32, device=dev)
+    sizes = torch.ones((k,), device=dev)
+
+    def loss(p, bt):
+        return transformer.loss_fn(p, cfg, bt)
+
+    tp_round = repro_torch.make_round_fn(loss, fl, mesh=mesh,
+                                         param_specs=specs)
+    flash_calls = []
+    real = fa._forward
+
+    def spy(q, k_, v, causal):
+        o = real(q, k_, v, causal)
+        flash_calls.append((list(q.shape), list(k_.shape), allclose_err(
+            o, gqa_plain(fa, q, k_, v), FLASH_TOL["float32"])))
+        return o
+
+    fa._forward = spy
+    try:
+        tp_round(state0, tokens, sel, sizes)  # warm-up, every flash call held
+    finally:
+        fa._forward = real
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"weighted_agg": wa.weighted_agg,
+                "round_stats": rs.round_stats,
+                "flash_attention": fa.flash_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    with mesh.recording() as log:
+        t0 = time.perf_counter()
+        st, m = tp_round(state0, tokens, sel, sizes)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    leaves_ok = all(
+        tuple(x.shape) == NamedSpec(mesh, s).shard_shape(tuple(w.shape))
+        for tree in (st.params, st.prev_delta)
+        for x, w, s in zip(treemath.tree_leaves(tree),
+                           treemath.tree_leaves(shapes),
+                           treemath.tree_leaves_like(shapes, specs)))
+    sharded_blocks = [n * 4 for n, s in zip(
+        shard, treemath.tree_leaves_like(shapes, specs)) if "model" in s]
+    full = {"params": sharding.gather_params(st.params, mesh, specs),
+            "prev_delta": sharding.gather_params(st.prev_delta, mesh,
+                                                 specs)}
+    del st, state0
+    torch.cuda.empty_cache()
+    params = init()
+    sw, mw = repro_torch.make_round_fn(loss, fl, mesh=mesh)(
+        repro_torch.init_round_state(fl, params), tokens, sel, sizes)
+    torch.cuda.synchronize()
+    worst, where = excess_err({
+        **tree_pairs("params", full["params"], sw.params),
+        **tree_pairs("prev_delta", full["prev_delta"], sw.prev_delta),
+        **{f"metrics/{key}": (m[key], mw[key])
+           for key in ("loss", "weights", "theta", "divergence")}},
+        PARITY_TOL, PARITY_TOL)
+    by_scope = collective_bytes(log)
+    return {
+        "round_ms": ms, "peak_bytes": peak, "launches": launches,
+        "layers": cfg.num_layers, "placed_bytes": placed,
+        "want_placed_bytes": want_placed,
+        "placed_tensors": n_tensors, "leaves_of_shard_shape": leaves_ok,
+        "collective_bytes": by_scope,
+        "tp_count": sum(c.scope == "tp" for c in log),
+        "tp_bytes": sum(c.nbytes for c in log if c.scope == "tp"),
+        "want_tp": tp_collectives_from_shapes(  # the rank's clients
+            cfg, fl_shard_map.padded_k(k, mesh.client_size)
+            // mesh.client_size),
+        "largest_other_gather": max(
+            [c.nbytes for c in log if c.op == "all_gather"
+             and c.scope != "tp"], default=0),
+        "smallest_block_bytes": min(sharded_blocks),
+        "flash_calls": flash_calls,
+        "vs_whole_excess_err": worst, "vs_whole_worst": where,
+        "params_sha256": digest(treemath.tree_ravel(full["params"])[0]),
+        "weights": m["weights"].cpu(),
+        "finite": bool(all(torch.isfinite(v).all() for v in m.values()))}
+
+
+def tp_launch(mesh, dev, rank: int, out_path: str) -> dict:
+    """One rank of the launcher on a (1, 2) world: gemma-2b at full width
+    and depth for 2 rounds (ms a round, the peak, the gathered sha), then
+    at the smoke width 3 rounds against 2 + a resumed 1 from a checkpoint
+    that rank 0 writes beside `out_path`."""
+    from repro_torch.launch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    run = train.main(TP_LAUNCH_ARGV + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(os.path.dirname(out_path), "tp_ckpt")
+    smoke = TP_SMOKE_ARGV + ["--device", str(dev)]
+    whole = train.main(smoke + ["--rounds", "3"])
+    half = train.main(smoke + ["--rounds", "2", "--ckpt", ckpt])
+    resumed = train.main(smoke + ["--rounds", "3", "--ckpt", ckpt,
+                                  "--resume"])
+    return {"round_seconds": run["seconds"], "losses": run["losses"],
+            "peak_bytes": peak, "params_sha256": run["params_sha256"],
+            "engine": run["meta"]["flcfg"]["engine"], "K": run["meta"]["K"],
+            "smoke_sha": whole["params_sha256"],
+            "resumed_sha": resumed["params_sha256"],
+            "resumed_start": resumed["start_round"],
+            "half_losses": half["losses"], "whole_losses": whole["losses"],
+            "resumed_losses": resumed["losses"]}
+
+
+def check_tp_lm(results: list, what: str) -> dict:
+    """The ranks bit for bit; the tensor-parallel round == the whole-model
+    2D round at PARITY_TOL; 2 + 1 FL launches and LM_TAU flash launches a
+    layer; every flash call at its local shape within FLASH_TOL of the
+    plain version; the "tp" collectives' count and bytes those of the
+    shapes; no other all_gather as large as a sharded block; each state
+    leaf of its shard shape; memory_allocated of the placed state within
+    1% + 512 B a tensor of the shard bytes. Returns the line's part."""
+    r0 = results[0]
+    if any(r["params_sha256"] != r0["params_sha256"]
+           or not torch.equal(r["weights"], r0["weights"])
+           for r in results):
+        raise AssertionError(f"{what}: the ranks differ")
+    for r, res in enumerate(results):
+        want_launch = {"weighted_agg": 2, "round_stats": 1,
+                       "flash_attention": res["layers"] * LM_TAU}
+        flash_worst = max(e[1] for _, _, e in res["flash_calls"])
+        slack = 0.01 * res["want_placed_bytes"] + 512 * res["placed_tensors"]
+        checks = {
+            "finite": res["finite"],
+            "vs whole-model": res["vs_whole_excess_err"] <= 0,
+            "launches": res["launches"] == want_launch,
+            "flash calls": (len(res["flash_calls"])
+                            == res["layers"] * LM_TAU
+                            and flash_worst <= 1.0),
+            "tp collectives": (res["tp_count"], res["tp_bytes"])
+            == tuple(res["want_tp"]),
+            "no sharded gather": res["largest_other_gather"]
+            < res["smallest_block_bytes"],
+            "shard shapes": res["leaves_of_shard_shape"],
+            "placed bytes": abs(res["placed_bytes"]
+                                - res["want_placed_bytes"]) <= slack,
+        }
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(
+                f"{what} rank {r}: {bad}: " + json.dumps({
+                    key: res[key] for key in (
+                        "vs_whole_excess_err", "vs_whole_worst", "launches",
+                        "tp_count", "tp_bytes", "want_tp",
+                        "largest_other_gather", "smallest_block_bytes",
+                        "placed_bytes", "want_placed_bytes")},
+                    default=str) + f" flash worst {flash_worst}")
+    return {"ranks": len(results), "ranks_bit_equal": True,
+            "round_ms_per_rank": [r["round_ms"] for r in results],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in results],
+            "placed_bytes_per_rank": [r["placed_bytes"] for r in results],
+            "want_placed_bytes": r0["want_placed_bytes"],
+            "collective_bytes_rank0": r0["collective_bytes"],
+            "tp_collectives": [r0["tp_count"], r0["tp_bytes"]],
+            "vs_whole_excess_err": max(r["vs_whole_excess_err"]
+                                       for r in results),
+            "flash_local_shapes": sorted({str(c[:2])
+                                          for c in r0["flash_calls"]}),
+            "flash_max_abs_err": max(c[2][0] for c in r0["flash_calls"]),
+            "launches_per_rank": r0["launches"]}
+
+
+def check_tp_launch(results: list) -> dict:
+    """The ranks' gathered shas equal, 2 finite rounds on the
+    flat_sharded round; at the smoke width the resumed run bit for bit
+    the uninterrupted one."""
+    r0 = results[0]
+    for r, res in enumerate(results):
+        ok = (res["params_sha256"] == r0["params_sha256"]
+              and res["engine"] == "flat_sharded" and res["K"] == 1
+              and len(res["losses"]) == 2
+              and all(np.isfinite(res["losses"]))
+              and res["resumed_start"] == 2
+              and res["resumed_sha"] == res["smoke_sha"]
+              and res["half_losses"] == res["whole_losses"][:2]
+              and res["resumed_losses"] == res["whole_losses"][2:])
+        if not ok:
+            raise AssertionError(f"tp launch rank {r}: {res}")
+    return {"round_seconds_per_rank": [r["round_seconds"] for r in results],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in results],
+            "losses": r0["losses"], "params_sha256": r0["params_sha256"],
+            "smoke_resume_bit_equal": True}
+
+
+def phase_tp(smi: str) -> dict:
+    """Tensor-parallel execution: the 100m LM on (1, 2) and (2, 2) gloo
+    worlds on this card (`tp_lm`), NCCL across cards where two or more
+    are visible, then the launcher on a (1, 2) world for gemma-2b at full
+    width (`tp_launch`). Returns rank 0's launches on (1, 2)."""
+    t0 = time.perf_counter()
+    out = {"phase": "tp", "card": smi, "note": MESH2D_CARD_NOTE,
+           "model": f"{LM_PRESET} f32 flash, K = {LM_K}, tau = {LM_TAU}, "
+                    f"B = {LM_B}, T = {LM_T}"}
+    launches = None
+    for name, shape in TP_LM_MESHES.items():
+        t1 = time.perf_counter()
+        res = check_tp_lm(run_mesh2d("tp", "gloo", shape),
+                          f"tp gloo {name}")
+        out[f"lm_gloo_{name}_one_card"] = {
+            **res, "seconds": time.perf_counter() - t1}
+        launches = launches or res["launches_per_rank"]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out["lm_nccl_1x2"] = check_tp_lm(run_mesh2d("tp", "nccl", (1, 2)),
+                                         "tp nccl (1, 2)")
+    else:
+        print(f"tp: NCCL across cards not run: {cards} card visible",
+              flush=True)
+    t1 = time.perf_counter()
+    out["launch_gemma_gloo_1x2_one_card"] = {
+        **check_tp_launch(run_mesh2d("launch", "gloo", (1, 2))),
+        "seconds": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return launches
 
 
 # ---- the dense-LM serving path and kernels/ops.py ----
@@ -3926,6 +4239,7 @@ def main() -> int:
     phase_algorithm(dev, nodes, test)
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     mesh2d = phase_mesh2d(wa, rs, tq, dev, smi)
+    tp_launches = phase_tp(smi)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     family_launches, family_flash_errs = phase_families(fa, dev)
@@ -3966,6 +4280,13 @@ def main() -> int:
     lm_table["flash_attention_f32"]["launches_lm_train"] = \
         lm_out["launches"]["flash_attention"]
     lm_table["flash_attention_f32_train"] = lm_out["row"]
+    # and the tensor-parallel 100m round, per rank of the (1, 2) world:
+    # the aggregation and statistics at the (K, N / 2) tile, flash over
+    # the rank's 6 of 12 heads
+    table["weighted_agg"]["launches_tp"] = tp_launches["weighted_agg"]
+    table["round_stats"]["launches_tp"] = tp_launches["round_stats"]
+    for name in ("flash_attention_f32", "flash_attention_f32_train"):
+        lm_table[name]["launches_tp"] = tp_launches["flash_attention"]
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

@@ -52,13 +52,21 @@ parallel round (mode="parallel", aggregation="sync"):
   wire): the tree engine then trains every client on every rank and
   quantizes every model block locally, which gives the reference's
   blocked roundtrip bit for bit, since each row's int8 / int4 chunks
-  depend only on its own model block. Second, the port runs each
-  client's model whole on every rank (tensor-parallel execution is
-  ROADMAP item 13c): the ranks of one model group train the same K_loc
-  clients and get the same deltas, each cuts and ravels only its own
-  block, and after the region the round all-gathers each model-sharded
-  leaf of g and of the delta over "model" (never inside the region),
-  so every rank's params and state stay whole.
+  depend only on its own model block. Second, where the reference's
+  partitioner decides from the params' shardings, the port takes one
+  explicit signal: `make_round_fn(..., param_specs=)`, the spec tree
+  of the global params. With it the state's params and `prev_delta` are
+  this rank's blocks (`models.sharding.shard_params`), each client
+  trains tensor-parallel over "model" (`models/tp.py`, entered around
+  client training), the delta blocks go straight to the region, and the
+  region's blocks land on the param blocks: no param-sized leaf is
+  gathered on the round path. The tree engine does the same with every
+  client on every model group, summing the model-sharded leaves' partial
+  dots and squared norms over "model". Without it the ranks of one
+  model group train whole models and get the same deltas, each cuts and
+  ravels only its own block, and after the region the round all-gathers
+  each model-sharded leaf of g and of the delta over "model", so every
+  rank's params stay whole: the oracle of the sharded state.
 
 mode="sequential" trains one client at a time, twice (or once against
 the previous round's delta with `stale_angles`), with each client's
@@ -81,6 +89,8 @@ deltas are correlated directly.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -706,7 +716,7 @@ def _weight_entropy(w: torch.Tensor) -> torch.Tensor:
 def _telemetry_metrics(fl: FLConfig, params: Tree, node_ids: torch.Tensor,
                        w: torch.Tensor,
                        occupied: Optional[torch.Tensor] = None,
-                       down_split=None) -> dict:
+                       down_split=None, n: Optional[int] = None) -> dict:
     """The `FLConfig(telemetry="node")` metrics, one helper for every
     round kind so the tel/* keys cannot fork: `node_ids` attributes
     this round's theta/weights rows to population slots (sel_idx for a
@@ -716,9 +726,11 @@ def _telemetry_metrics(fl: FLConfig, params: Tree, node_ids: torch.Tensor,
     downlink_delta, where the round passes `down_split` = (delta bytes,
     full bytes) of this round's actual pulls: they replace
     tel/bytes_down and ride as tel/bytes_down_delta / _full. Every value
-    is made on the device, without a host sync."""
+    is made on the device, without a host sync. `n` is the model's
+    parameter count where `params` are a rank's blocks."""
     dev = w.device
-    rb = transport.round_bytes(fl.clients_per_round, param_count(params),
+    rb = transport.round_bytes(fl.clients_per_round,
+                               param_count(params) if n is None else n,
                                fl.transport, fl.downlink,
                                group_size=fl.group_size)
     ids = node_ids.to(torch.int64)
@@ -767,7 +779,8 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                   delta_constraint: Optional[Callable] = None,
                   angle_pred: Optional[Callable] = None,
                   grad_constraint: Optional[Callable] = None,
-                  mesh=None, arrival_fn: Optional[Callable] = None) -> Callable:
+                  mesh=None, arrival_fn: Optional[Callable] = None, *,
+                  param_specs=None) -> Callable:
     """Build the round: round_fn(state, batches, sel_idx, data_sizes) ->
     (state, metrics), with the reference's parameters (by name and
     position), state contract and metrics keys.
@@ -793,6 +806,13 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     (`core.server.fixed_arrival_schedule`) overrides; the sync round
     ignores it. The round returns new tensors for every field it changes:
     the input state is left as it was.
+
+    `param_specs` (port-only, keyword): the UNSTACKED spec tree of the
+    global params (`models.sharding.param_pspecs` on `mesh`). Given with
+    a 2D mesh, the state's params and `prev_delta` are this rank's
+    blocks of those specs, and each client trains tensor-parallel over
+    the mesh's "model" axis (module docstring); the sync parallel round
+    on the flat_sharded or tree engine, with the f32 downlink, runs it.
     """
     fl.validate()
     check_mesh(mesh)
@@ -800,6 +820,8 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
         raise ValueError(
             "engine='flat_sharded' shards the (K, N) delta buffer over "
             "the mesh client axis; pass mesh= to make_round_fn")
+    if param_specs is not None:
+        _check_param_specs(fl, mesh)
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
     if fl.mode == "sequential":
@@ -813,7 +835,24 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     if fl.engine == "tree" and fl_shard_map.model_axis_size(mesh) > 1:
         round_mesh = mesh  # the 2D wire
     return _make_parallel_round(loss_fn, fl, delta_constraint, angle_pred,
-                                grad_constraint, round_mesh)
+                                grad_constraint, round_mesh, param_specs)
+
+
+def _check_param_specs(fl: FLConfig, mesh) -> None:
+    """Raise for a round that cannot keep its params in blocks."""
+    if mesh is None or fl.engine not in ("flat_sharded", "tree"):
+        raise ValueError(
+            "param_specs places the params in blocks over a mesh's model "
+            "axis: pass mesh= with engine='flat_sharded' or 'tree'")
+    for what, off in (("mode='sequential'", fl.mode == "sequential"),
+                      ("aggregation='buffered'",
+                       fl.aggregation == "buffered"),
+                      (f"downlink={fl.downlink!r}", fl.downlink != "f32")):
+        if off:
+            raise NotImplementedError(
+                f"{what} with param_specs: the round keeps its params in "
+                "blocks only in the sync parallel round with the f32 "
+                "downlink (ROADMAP Queue 1 item 13d)")
 
 
 def _clients(loss_fn: Callable, fl: FLConfig,
@@ -870,11 +909,61 @@ def _derive_param_pspecs(params: Tree, mesh) -> Tree:
     return sharding.param_pspecs(params, mesh)
 
 
+def _global_shapes(blocks: Tree, specs: Tree, msize: int) -> list:
+    """Each leaf's global shape from this rank's block of it: the dim
+    its spec puts on "model" times the axis's size."""
+    out = []
+    for x, spec in zip(treemath.tree_leaves(blocks),
+                       treemath.tree_leaves_like(blocks, specs)):
+        shape, d = list(x.shape), fl_shard_map._model_dim(spec)
+        if d >= 0:
+            shape[d] *= msize
+        out.append(tuple(shape))
+    return out
+
+
+def _tp_clients(clients: Callable, mesh) -> Callable:
+    """`clients` trained tensor-parallel over the mesh's model axis."""
+    from repro_torch.models import tp
+
+    def run(*args):
+        with tp.scope(mesh):
+            return clients(*args)
+
+    return run
+
+
+def _tree_stats_tp(deltas: Tree, g_avg: Tree, params: Tree,
+                   angle_pred: Optional[Callable], mesh, specs: Tree):
+    """`_tree_stats` on blocks: the model-sharded leaves' partial dots
+    and squared norms summed over "model" (one (2K + 1,) all-reduce),
+    the replicated leaves, whole on every rank, counted once."""
+    angle_mask = build_angle_mask(params, angle_pred) if angle_pred else None
+    d_view = angle_mask(deltas) if angle_mask else deltas
+    g_view = angle_mask(g_avg) if angle_mask else g_avg
+    parts = [[], []]  # (replicated, model-sharded) per-leaf statistics
+    for d, g, spec in zip(treemath.tree_leaves(d_view),
+                          treemath.tree_leaves(g_view),
+                          treemath.tree_leaves_like(g_avg, specs)):
+        dims = tuple(range(1, d.ndim))
+        df, gf = d.to(torch.float32), g.to(torch.float32)
+        parts[fl_shard_map._model_dim(spec) >= 0].append(torch.cat([
+            torch.sum(df * gf[None], dim=dims),
+            torch.sum(df * df, dim=dims),
+            torch.sum(gf * gf).reshape(1)]))
+    k = treemath.tree_leaves(deltas)[0].shape[0]
+    dev = treemath.tree_leaves(g_avg)[0].device
+    sums = [functools.reduce(torch.add, p) if p
+            else torch.zeros(2 * k + 1, device=dev) for p in parts]
+    total = sums[0] + mesh.all_reduce(sums[1], axes=("model",))
+    return total[:k], total[k:2 * k], total[2 * k]
+
+
 def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
                          delta_constraint: Optional[Callable],
                          angle_pred: Optional[Callable],
                          grad_constraint: Optional[Callable],
-                         mesh=None) -> Callable:
+                         mesh=None, param_specs=None) -> Callable:
     clients = _clients(loss_fn, fl, delta_constraint, grad_constraint)
     segment_mask = _segment_masks(angle_pred)
     # a "model" axis of size > 1 makes the wire the 2D blocked layout:
@@ -889,6 +978,10 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
             "tree-ravel order, but a (client x model) mesh quantizes the "
             "wire in shard-local blocked order; drop error_feedback or "
             "use a client-only mesh")
+    # the params in this rank's blocks, each client tensor-parallel
+    tp_specs = param_specs if wire_2d else None
+    if tp_specs is not None:
+        clients = _tp_clients(clients, mesh)
     sharded = mesh is not None and fl.engine == "flat_sharded"
     if sharded:
         sharded_clients = _sharded_clients(clients, mesh)
@@ -898,16 +991,28 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
                 transport=fl.transport, group_size=fl.group_size)
     regions: dict = {}  # the 2D round's region, built once a layout
 
+    def specs_of(params):
+        return (tp_specs if tp_specs is not None
+                else _derive_param_pspecs(params, mesh))
+
+    def global_template(params, kp: int):
+        """A (kp, *global shape) meta tree of the params' leaves."""
+        leaves, treedef = treemath.tree_flatten(params)
+        shapes = ([tuple(p.shape) for p in leaves] if tp_specs is None
+                  else _global_shapes(params, tp_specs,
+                                      fl_shard_map.model_axis_size(mesh)))
+        return treemath.tree_unflatten(treedef, [
+            torch.empty((kp,) + s, dtype=p.dtype, device="meta")
+            for p, s in zip(leaves, shapes)])
+
     def region_2d(params, kp: int):
         """(make_round_ops_2d's op, the param specs) for a round of kp
         padded rows."""
         key = (kp, tuple(tuple(p.shape) for p in
                          treemath.tree_leaves(params)))
         if key not in regions:
-            pspecs = _derive_param_pspecs(params, mesh)
-            template = treemath.tree_map(lambda p: torch.empty(
-                (kp,) + tuple(p.shape), dtype=p.dtype, device="meta"),
-                params)
+            pspecs = specs_of(params)
+            template = global_template(params, kp)
             keep = (angle_keep_list(params, angle_pred) if angle_pred
                     else None)
             regions[key] = (fl_shard_map.make_round_ops_2d(
@@ -918,23 +1023,28 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
 
     def sharded_uplink_2d(state, params, batches, sel, data_sizes,
                           psi_avg, lr):
-        """The flat_sharded engine on a 2D mesh: the rank's clients train
-        whole models, the rank's model blocks of their deltas go through
-        the 2D region, and the aggregates' model-sharded leaves are
-        gathered after it, so every rank ends with whole params. Returns
-        what `sharded_uplink` does (no EF: refused on a 2D wire)."""
+        """The flat_sharded engine on a 2D mesh. With param_specs the
+        rank's clients train tensor-parallel on its param blocks, their
+        delta blocks go through the 2D region, and its block outputs are
+        the round's. Without, the rank's clients train whole models, the
+        rank's model blocks of their deltas go through the region, and
+        the aggregates' model-sharded leaves are gathered after it, so
+        every rank ends with whole params. Returns what `sharded_uplink`
+        does (no EF: refused on a 2D wire)."""
         k = sel.shape[0]
         kp = fl_shard_map.padded_k(k, fl_shard_map.client_axis_size(mesh))
         deltas, losses, _ = sharded_clients(params, batches, lr, k)
         round_op, pspecs = region_2d(params, kp)
         pad = fl_shard_map.pad_rows
+        if tp_specs is None:
+            deltas = fl_shard_map.local_blocks(mesh, deltas, pspecs)
         # padding rows: zero deltas and zero data size, so zero weight
-        g_loc, dots, sqs, sqg, delta_loc, theta, _, w = round_op(
-            fl_shard_map.local_blocks(mesh, deltas, pspecs),
-            pad(psi_avg, kp), pad(state.angle.smoothed[sel], kp),
+        g_avg, dots, sqs, sqg, delta, theta, _, w = round_op(
+            deltas, pad(psi_avg, kp), pad(state.angle.smoothed[sel], kp),
             pad(state.angle.count[sel], kp), pad(data_sizes, kp))
-        g_avg, delta = fl_shard_map.gather_model_sharded(
-            mesh, [g_loc, delta_loc], pspecs)
+        if tp_specs is None:
+            g_avg, delta = fl_shard_map.gather_model_sharded(
+                mesh, [g_avg, delta], pspecs)
         # f32 in the region, ONE cast to the param dtype after it
         delta = treemath.tree_map(lambda d, p: d.to(p.dtype), delta, params)
         return (fl_shard_map.replicate_rows(mesh, losses, k), state.ef,
@@ -982,10 +1092,13 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         if wire_2d and fl.transport != "f32":
             # the tree engine on a 2D mesh reads the blocked wire: each
             # model block quantized on its own, as flat_sharded's region
-            # does
+            # does (with param_specs this rank's block only)
             deltas = fl_shard_map.make_blocked_roundtrip(
-                mesh, deltas, _derive_param_pspecs(params, mesh),
-                transport=fl.transport, group_size=fl.group_size)(deltas)
+                mesh, global_template(
+                    params, treemath.tree_leaves(deltas)[0].shape[0]),
+                specs_of(params), transport=fl.transport,
+                group_size=fl.group_size,
+                local=tp_specs is not None)(deltas)
         elif fl.engine == "flat" or fl.transport != "f32":
             flat, unravel = treemath.tree_ravel_stacked(deltas)
             if fl.error_feedback:
@@ -1011,7 +1124,12 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         else:
             g_avg = treemath.tree_weighted_sum(deltas, psi_avg,
                                                torch.float32)
-            dots, sqs, sqg = _tree_stats(deltas, g_avg, params, angle_pred)
+            if tp_specs is not None:
+                dots, sqs, sqg = _tree_stats_tp(deltas, g_avg, params,
+                                                angle_pred, mesh, tp_specs)
+            else:
+                dots, sqs, sqg = _tree_stats(deltas, g_avg, params,
+                                             angle_pred)
         theta = weighting.instantaneous_angle(dots, sqs, sqg)
 
         # Eq. 9 scatter, one copy for both engines
@@ -1074,8 +1192,12 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
         metrics = _metrics(losses, theta, theta_sm, w, div, lr,
                            data_sizes.device)
         if fl.telemetry:
-            metrics.update(_telemetry_metrics(fl, params, sel_idx, w,
-                                              down_split=down_split))
+            metrics.update(_telemetry_metrics(
+                fl, params, sel_idx, w, down_split=down_split,
+                n=None if tp_specs is None else sum(
+                    math.prod(s) for s in _global_shapes(
+                        params, tp_specs,
+                        fl_shard_map.model_axis_size(mesh)))))
         return state._replace(params=new_params, angle=new_angle,
                               prev_delta=g_avg, ef=new_ef, dl_ef=new_dl,
                               bcast=new_bcast,

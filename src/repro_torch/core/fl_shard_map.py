@@ -38,9 +38,13 @@ engine's 2D wire, `make_buffered_flush_ops` the buffered flush's (on a
 2D mesh over column tiles of the report buffer), and `fedadp_aggregate`
 the standalone per-leaf ("tree") and flat API. `local_blocks` cuts a
 rank's model blocks from whole leaves and `gather_model_sharded`
-re-joins them: the port runs each client's model whole on every rank
-(tensor-parallel execution is ROADMAP item 13c), so `core.fl` cuts the
-blocks before the region and gathers the sharded leaves after it.
+re-joins them. A round given `param_specs` (`core.fl.make_round_fn`)
+trains tensor-parallel and hands the region its delta blocks as they
+are, so neither runs on its path; without them the ranks train whole
+models, and `core.fl` cuts the blocks before the region and gathers the
+sharded leaves after it. `models.sharding.shard_params` /
+`gather_params` use the two to place params and to gather them for a
+checkpoint.
 """
 from __future__ import annotations
 
@@ -159,8 +163,9 @@ def gather_model_sharded(mesh, trees: list, pspecs: Tree) -> list:
     f32 trees as `make_round_ops_2d` returns them): one all_gather over
     "model" of every model-sharded leaf's block of every tree, joined on
     its sharded dim; replicated leaves as they are. Not part of any
-    region: the port's ranks each hold the whole model (tensor-parallel
-    execution is ROADMAP item 13c)."""
+    region: it runs after the region of a round whose ranks hold whole
+    models, and for a checkpoint of blocks (`models.sharding.
+    gather_params`); a round given `param_specs` never runs it."""
     msize = model_axis_size(mesh)
     flat = [treemath.tree_flatten(t) for t in trees]
     dims = [_model_dim(s)
@@ -403,7 +408,8 @@ def make_round_ops_2d(mesh, template_stacked: Tree, pspecs: Tree, *,
 
 
 def make_blocked_roundtrip(mesh, template_stacked: Tree, pspecs: Tree, *,
-                           transport: str, group_size: int = 0):
+                           transport: str, group_size: int = 0,
+                           local: bool = False):
     """The shard-local wire roundtrip of the TREE engine on a 2D mesh.
 
     On a (client x model) mesh the uplink is quantized per (client,
@@ -418,7 +424,14 @@ def make_blocked_roundtrip(mesh, template_stacked: Tree, pspecs: Tree, *,
     runs its per-leaf reductions on it (it never reads the wire).
 
     Returns roundtrip(deltas_stacked) -> the stacked f32 tree, shaped
-    like its input (the whole stacked tree, the same on every rank)."""
+    like its input (the whole stacked tree, the same on every rank).
+
+    With `local` the input is this rank's blocks (a model-sharded leaf's
+    block, a replicated leaf whole: the tensor-parallel round's deltas,
+    `template_stacked` still of the global shapes): the rank quantizes
+    its own block only and re-joins the replicated leaves' column slices
+    with one all_gather over "model" (their size, never a sharded
+    leaf's), as `make_round_ops_2d` does."""
     msize = model_axis_size(mesh)
     layout = treemath.blocked_layout(template_stacked, pspecs, msize,
                                      MODEL_AXIS)
@@ -426,6 +439,14 @@ def make_blocked_roundtrip(mesh, template_stacked: Tree, pspecs: Tree, *,
         group_size = group_size or transport_mod.GROUP_SIZE
         transport_mod.validate_group_size(group_size)
     gs = group_size or transport_mod.GROUP_SIZE
+
+    def roundtrip_local(deltas):
+        leaves, treedef = treemath.tree_flatten(deltas)
+        block = treemath.blocked_ravel_local(leaves, layout, mesh.model_index)
+        return treemath.tree_unflatten(treedef, _blocked_unstack_local(
+            transport_mod.dequantize(transport_mod.quantize(
+                block, transport, group_size=gs)),
+            layout, dtypes=torch.float32, mesh=mesh))
 
     def roundtrip(deltas):
         leaves, treedef = treemath.tree_flatten(deltas)
@@ -453,7 +474,7 @@ def make_blocked_roundtrip(mesh, template_stacked: Tree, pspecs: Tree, *,
                            .reshape((k,) + shape))
         return treemath.tree_unflatten(treedef, out)
 
-    return roundtrip
+    return roundtrip_local if local else roundtrip
 
 
 def make_buffered_flush_ops(mesh, *, alpha: float, method: str = "fedadp",

@@ -21,13 +21,13 @@ holds the reference's keys, with these meanings:
     on meta: temp is the trace's peak of live allocated bytes less the
     outputs' (XLA's sense: scratch beside the outputs);
   * flops, bytes_accessed, memory.temp_bytes — the global figures over
-    the device count, "partition": "ideal": the port has no partitioner
-    yet (ROADMAP Queue 1 items 13c and 17), so no per-device program
-    exists to measure;
+    the device count, "partition": "ideal": the dry run traces the whole
+    step as one program; one rank's tensor-parallel program on meta is
+    ROADMAP Queue 1 item 17;
   * fits — per device, arguments + outputs + temp - alias (the
     reference's live bytes a device) within one card's memory;
-  * collectives — {} with the reason: without a partitioner nothing
-    issues them;
+  * collectives — {} with the reason: the whole-step trace issues none
+    (item 17 traces a rank's);
   * build_s — the builder plus the traced run (the reference's compile_s).
 
 It exits 1 if any combo failed; a combo that runs past `--budget-s` is
@@ -49,8 +49,9 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import optrace, steps
 from repro_torch.launch.mesh import HBM_BYTES, make_production_mesh
 
-NO_COLLECTIVES = ("no partitioner yet (ROADMAP Queue 1 item 13c): the "
-                  "step runs as one program, and nothing issues them")
+NO_COLLECTIVES = ("the step is traced as one program, which issues none; "
+                  "one rank's tensor-parallel program on meta with its "
+                  "collectives is ROADMAP Queue 1 item 17")
 
 
 def mesh_name(multi_pod: bool) -> str:

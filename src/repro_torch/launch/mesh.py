@@ -161,14 +161,18 @@ class ClientMesh:
         finally:
             self._log["scope"] = outer
 
-    def all_reduce(self, t: torch.Tensor, axes=("data",)) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axes=("data",),
+                   op: str = "sum") -> torch.Tensor:
         """Sum `t` over the ranks of `axes`, in place (the reference's
-        psum over those axes); returns it. The default is the client
-        axis, which on a client-only mesh is every rank."""
+        psum over those axes), or with op="max" their elementwise
+        maximum (pmax); returns it. The default is the client axis,
+        which on a client-only mesh is every rank."""
         group, n = self._group(axes)
         if n > 1:
             self._record("all_reduce", axes, t)
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                                   "max": dist.ReduceOp.MAX}[op],
+                            group=group)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int,

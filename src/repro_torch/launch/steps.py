@@ -11,12 +11,20 @@ of the tree covers every leaf below it. The train step's `RoundState`
 carries its generator and its round as host values, which have no spec
 (None in `in_specs`).
 
-The port has no partitioner yet (ROADMAP Queue 1 item 13c), so the specs
-say where each tensor would live and nothing moves it; the reference's
-`delta_constraint` and `grad_constraint` are identities here, passed to
-`make_round_fn` where the reference passes its constraints. The
-builders take the reference's model path: the tree engine and
-`attention_impl` as the config has it ("xla" in the registry).
+The builders take the reference's model path: `attention_impl` as the
+config has it ("xla" in the registry), and on an abstract mesh (the dry
+run's) or the host mesh the tree engine, where the specs say where each
+tensor lives and the step runs as one program. Given a
+`launch.mesh.ClientMesh` with a model axis, `build_train_step` builds
+what the reference's partitioner makes of its step: the round with
+`engine="flat_sharded"` over the mesh (the clients split over "data",
+as GSPMD splits the reference's tree round) and `param_specs`, so each
+client trains tensor-parallel over "model"; its `fn` then takes and
+returns a state whose params and `prev_delta` are this rank's blocks
+(`models.sharding.shard_params`), while `args` keep the global shapes.
+The reference's `delta_constraint` and `grad_constraint` are identities
+here, passed to `make_round_fn` where the reference passes its
+constraints: the activations need none (`models/tp.py`).
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from repro_torch.configs.registry import get as get_arch
 from repro_torch.core import fl as fl_mod
 from repro_torch.core import treemath
 from repro_torch.core.weighting import AngleState
-from repro_torch.models import sharding, transformer
+from repro_torch.launch.mesh import ClientMesh
+from repro_torch.models import sharding, tp, transformer
 from repro_torch.models.config import ModelConfig
 
 SEQUENTIAL_THRESHOLD = 40e9  # params; larger models use the sequential engine
@@ -86,6 +95,9 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
             cfg, moe=dataclasses.replace(cfg.moe, combine_dtype="bfloat16"))
     rep_extra = _replicate_extra(cfg, mesh, mqa_replicate_kv)
     fl_mode = fl_mode or fl_mode_for(cfg)
+    # a process group's mesh with a model axis: the tensor-parallel round
+    tensor_parallel = (isinstance(mesh, ClientMesh)
+                       and mesh.model_size > 1)
     K = sharding.batch_total(mesh) if fl_mode == "parallel" else 16
     B = max(shape.global_batch // K, 1)
     tau = local_steps
@@ -98,6 +110,7 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     flcfg = fl_mod.FLConfig(
         num_clients=K, clients_per_round=K, local_steps=tau, method=method,
         mode=fl_mode, stale_angles=stale, telemetry=telemetry,
+        engine="flat_sharded" if tensor_parallel else "tree",
     )
 
     p_sds = params_sds(cfg)
@@ -122,8 +135,16 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
         if (angle_filter == "dense_only" and cfg.moe is not None)
         else None
     )
-    round_fn = fl_mod.make_round_fn(loss, flcfg, delta_constraint, angle_pred,
-                                    grad_constraint)
+    if tensor_parallel:
+        with tp.scope(mesh):  # the families it covers, or item 13d
+            tp.check_supported(cfg)
+        round_fn = fl_mod.make_round_fn(
+            loss, flcfg, delta_constraint, angle_pred, grad_constraint,
+            mesh=mesh, param_specs=sharding.param_pspecs(
+                p_sds, mesh, replicate_extra=rep_extra))
+    else:
+        round_fn = fl_mod.make_round_fn(loss, flcfg, delta_constraint,
+                                        angle_pred, grad_constraint)
     if fl_mode == "parallel":
         b_shard = sharding.shard_batch_dim(mesh, batch_sds, default_dim=0)
     else:

@@ -2,15 +2,22 @@
 `repro/launch/train.py`, with the reference's flags plus `--device`.
 
 It runs the round `launch.steps.build_train_step` builds (the step the
-dry run traces), on CUDA unless `--device cpu` is given. Only the host
-mesh runs today: training on the production mesh runs each client's
-forward and backward tensor-parallel over the mesh's model axis, which
-the port does not do yet (ROADMAP Queue 1 item 13c); without
-`--host-mesh` the launcher raises NotImplementedError rather than fall
-back to one card.
+dry run traces), on CUDA unless `--device cpu` is given. With
+`--host-mesh` it is one process on one device. Without, it runs on a
+`torch.distributed` world, one rank a card: under torchrun it starts the
+process group itself (NCCL on CUDA, gloo with `--device cpu`), and a
+caller that started one already has it used. The mesh is
+`make_client_mesh(model=min(8, world))`: one HGX node's NVLink cards on
+"model", the nodes on "data" (world 256 is `make_production_mesh()`'s
+(32, 8); `--multi-pod` names no other mesh here, the pods' nodes all
+sit on "data"). Each client then trains tensor-parallel over "model"
+and the state stays in blocks (`models/tp.py`); a family that cannot
+raises NotImplementedError (ROADMAP Queue 1 item 13d).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --host-mesh --smoke --rounds 5
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch gemma-2b \\
+      --seq 1024 --global-batch 4 --rounds 5
   # preemptible runs: --ckpt DIR [--ckpt-every N] snapshots the FULL
   # RoundState (params, angles, EF, generator, round); --resume continues
   # bit-exactly from the latest snapshot:
@@ -21,7 +28,9 @@ The batches are round-seeded (`data.synthetic.lm_token_batches(seed=r)`),
 so a resumed run sees at round r the stream of the uninterrupted run.
 The last line is `params_sha256 <hex>` over the params' bytes in the
 tree's leaf order; `main` also returns it with the losses and the
-seconds of each round.
+seconds of each round. Off the host mesh the hash and a checkpoint read
+the gathered params, leaf by leaf: rank 0 writes the host mesh's file
+format, and a resumed rank loads it and keeps its blocks.
 """
 from __future__ import annotations
 
@@ -34,15 +43,50 @@ import time
 import torch
 
 
-def params_sha256(params) -> str:
-    """SHA-256 of the params' bytes, leaf by leaf in tree order."""
+def params_sha256(params, mesh=None, specs=None) -> str:
+    """SHA-256 of the params' bytes, leaf by leaf in tree order. Given
+    the mesh and the spec tree of params held in blocks, of the whole
+    params: each leaf gathered to the host before it is hashed."""
     from repro_torch.core import treemath
+    from repro_torch.models import sharding
 
     h = hashlib.sha256()
-    for leaf in treemath.tree_leaves(params):
+    leaves = treemath.tree_leaves(params)
+    for i, leaf in enumerate(leaves):
+        if specs is not None:
+            leaf = sharding.gather_params(
+                leaf, mesh, treemath.tree_leaves_like(params, specs)[i],
+                device="cpu")
         h.update(leaf.detach().cpu().contiguous().view(torch.uint8)
                  .numpy().tobytes())
     return h.hexdigest()
+
+
+WORLD_MODEL_AXIS = 8  # ranks on "model": one HGX node's NVLink cards
+
+
+def world_mesh(dev):
+    """The launcher's mesh off the host mesh: the process group's world
+    as (world / M, M) with M = min(8, world). Starts the group under
+    torchrun (NCCL on CUDA, gloo on the CPU) unless the caller has."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_client_mesh
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "the launcher off the host mesh runs one rank a device on "
+                "a torch.distributed world: start it under torchrun (or "
+                "call torch.distributed.init_process_group first), or pass "
+                "--host-mesh for one device")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world = dist.get_world_size()
+    model = min(WORLD_MODEL_AXIS, world)
+    if world % model:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"({world // model}, {model}) (data, model)")
+    return make_client_mesh(device=dev, model=model)
 
 
 def main(argv=None) -> dict:
@@ -83,12 +127,6 @@ def main(argv=None) -> dict:
         ap.error("--resume needs --ckpt (the directory to resume from)")
     if args.telemetry_every < 1:
         ap.error("--telemetry-every must be >= 1")
-    if not args.host_mesh:
-        raise NotImplementedError(
-            "training on the production mesh runs each client's forward "
-            "and backward tensor-parallel over its model axis, which the "
-            "port does not do yet (ROADMAP Queue 1 item 13c: tensor-"
-            "parallel model execution); run with --host-mesh")
 
     import repro_torch
     from repro_torch.checkpoint import io as ckpt_io
@@ -96,16 +134,21 @@ def main(argv=None) -> dict:
     from repro_torch.data import synthetic
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer
+    from repro_torch.models import sharding, transformer
     from repro_torch.telemetry import report as tel_report
     from repro_torch.telemetry import sinks as tel_sinks
     from repro_torch.telemetry import spans as tel_spans
 
-    dev = (repro_torch.default_device() if args.device is None
-           else torch.device(args.device))
+    if args.device is not None:
+        dev = torch.device(args.device)
+    elif args.host_mesh:
+        dev = repro_torch.default_device()
+    else:  # a card a rank
+        repro_torch.default_device()
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     name = args.arch + ("-smoke" if args.smoke else "")
     cfg = registry.get(name)
-    mesh = make_host_mesh(dev)
+    mesh = make_host_mesh(dev) if args.host_mesh else world_mesh(dev)
     shape = shapes_mod.SHAPES["train_4k"]
     if args.seq or args.global_batch:
         shape = dataclasses.replace(
@@ -124,7 +167,7 @@ def main(argv=None) -> dict:
 
     sink = None
     spans = tel_spans.SpanTimer()
-    if args.telemetry:
+    if args.telemetry and mesh.rank == 0:  # one stream a run
         sink = tel_sinks.JSONLSink(os.path.join(args.telemetry,
                                                 "telemetry.jsonl"))
         spans = tel_spans.SpanTimer(sink)
@@ -132,6 +175,21 @@ def main(argv=None) -> dict:
     # the exact config build_train_step built the round with: the
     # RoundState's fields are a function of it
     flcfg = repro_torch.FLConfig(**meta["flcfg"])
+    # the state's params and prev_delta in this rank's blocks where the
+    # mesh has a model axis (None: whole)
+    specs = (sharding.param_pspecs(sds[0].params, mesh)
+             if mesh.model_size > 1 else None)
+
+    def placed(tree):
+        if specs is None:
+            return tree
+        return sharding.shard_params(tree, mesh, specs)
+
+    def whole(tree, device=None):
+        if specs is None:
+            return tree
+        return sharding.gather_params(tree, mesh, specs, device=device)
+
     start = 0
     if args.resume:
         loaded = ckpt_io.load_latest(args.ckpt)
@@ -139,12 +197,15 @@ def main(argv=None) -> dict:
             raise SystemExit(f"--resume: no checkpoint in {args.ckpt}")
         step_no, tree = loaded
         state = repro_torch.state_from_tree(flcfg, tree, dev)
+        del tree
+        state = state._replace(params=placed(state.params),
+                               prev_delta=placed(state.prev_delta))
         start = int(state.round)
         print(f"resumed {args.ckpt} @ round {start} (ckpt_{step_no:08d})")
     else:
-        params = transformer.init_params(
-            torch.Generator(device=dev).manual_seed(0), cfg)
-        state = repro_torch.init_round_state(flcfg, params)
+        state = repro_torch.init_round_state(flcfg, placed(
+            transformer.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg)))
     sel = torch.arange(K, dtype=torch.int32, device=dev)
     sizes = torch.ones((K,), device=dev)
     if sink is not None:
@@ -155,8 +216,16 @@ def main(argv=None) -> dict:
 
     def checkpoint(round_no: int) -> None:
         with spans.span("checkpoint", round=round_no):
-            ckpt_io.save_checkpoint(args.ckpt, round_no,
-                                    repro_torch.state_to_tree(state))
+            # the host mesh's format: whole leaves, gathered one by one to
+            # the host, written by one rank
+            host = "cpu" if specs is not None else None
+            tree = repro_torch.state_to_tree(state._replace(
+                params=whole(state.params, host),
+                prev_delta=whole(state.prev_delta, host)))
+            if mesh.rank == 0:
+                ckpt_io.save_checkpoint(args.ckpt, round_no, tree)
+            del tree
+            mesh.barrier()
         print(f"checkpoint -> {args.ckpt} @ round {round_no}")
 
     losses, seconds = [], []
@@ -188,7 +257,7 @@ def main(argv=None) -> dict:
             checkpoint(r + 1)
     if args.ckpt:
         checkpoint(int(state.round))
-    digest = params_sha256(state.params)
+    digest = params_sha256(state.params, mesh, specs)
     print("params_sha256", digest)
     if sink is not None:
         tel_sinks.emit_summary(sink, rounds=args.rounds - start)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attn
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 NEG_INF = -1e30
 
@@ -95,12 +95,20 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
     """
     b, t, _ = x.shape
     hd = cfg.hd
-    q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
-    k = _split_heads(x @ p["wk"], cfg.num_kv_heads, hd)
-    v = _split_heads(x @ p["wv"], cfg.num_kv_heads, hd)
-    if cos is not None:
-        q = layers.rope_apply(q, cos, sin)
-        k = layers.rope_apply(k, cos, sin)
+    if tp.active() is not None:
+        if return_cache:
+            raise NotImplementedError(f"prefill: {tp.UNSUPPORTED}")
+        q, k, v, out_proj = _tp_qkv(p, cfg, x, cos, sin)
+    else:
+        q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
+        k = _split_heads(x @ p["wk"], cfg.num_kv_heads, hd)
+        v = _split_heads(x @ p["wv"], cfg.num_kv_heads, hd)
+        if cos is not None:
+            q = layers.rope_apply(q, cos, sin)
+            k = layers.rope_apply(k, cos, sin)
+
+        def out_proj(out):
+            return out @ p["wo"]
     scale = _scale(hd)
     q_chunk = getattr(cfg, "q_chunk", 0)
     use_flash = (getattr(cfg, "attention_impl", "xla") == "flash"
@@ -110,15 +118,15 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
         blk = 128 if t % 128 == 0 else 64
         out = flash_attn.gqa_flash(q, k, v, causal=True, blk_q=blk,
                                    blk_k=blk)
-        y = out.reshape(b, t, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
+        y = out_proj(out.reshape(b, t, q.shape[2] * hd).to(x.dtype))
     elif q_chunk and t > q_chunk and t % q_chunk == 0:
         out = _chunked_attention(q, k, v, scale, causal, window, q_chunk)
-        y = out.to(x.dtype) @ p["wo"]
+        y = out_proj(out.to(x.dtype))
     else:
         scores = _gqa_scores(q, k, scale)
         mask = full_mask(t, t, causal, window, device=x.device)
         probs = _masked_softmax(scores, mask)
-        y = _gqa_out(probs, v).to(x.dtype) @ p["wo"]
+        y = out_proj(_gqa_out(probs, v).to(x.dtype))
 
     cache = None
     if return_cache:
@@ -139,6 +147,81 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
             cv[:, :n] = v[:, -n:]
         cache = {"k": ck, "v": cv}
     return y, cache
+
+
+def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
+    """q, k, v and the output projection of tensor-parallel attention
+    (inside a `tp.scope`), each projection's split read from its width.
+
+    Where the q blocks hold whole heads (H % M == 0), attention runs on
+    this rank's H/M heads: `wq` column-parallel; `wk` / `wv` too where
+    their blocks hold whole KV heads (G % M == 0), else (gemma's one KV
+    head, whose head_dim the rules split over M = 2) their output is
+    gathered over "model" (or computed whole from a replicated leaf) and
+    this rank's q heads read the KV heads they group with; `wo`
+    row-parallel, its partial product summed over "model". Where the q
+    blocks do not hold whole heads (H = 12 on M = 8), every projection's
+    output is gathered (GSPMD pays a collective there too), attention
+    runs on all heads on every rank, and `wo` reads this rank's rows of
+    its output. RoPE acts on whole
+    heads: it rotates after a gather. A replicated tensor that feeds a
+    rank's own blocks passes `tp.copy_to_model`, so its cotangent is
+    summed over the ranks."""
+    hd, nh, ng = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    m, j = tp.model_size(), tp.model_index()
+    xc = tp.copy_to_model(x)
+
+    def whole(w, n):
+        """The projection's output over all n heads, replicated."""
+        if tp.split(w.shape[-1], n * hd) == 1:
+            return _split_heads(x @ w, n, hd)
+        return _split_heads(tp.gather_from_model(xc @ w, -1), n, hd)
+
+    def rope(z):
+        return z if cos is None else layers.rope_apply(z, cos, sin)
+
+    local_q = tp.split(p["wq"].shape[-1], nh * hd) > 1 and nh % m == 0
+    if local_q:
+        hq = nh // m
+        q = rope(_split_heads(xc @ p["wq"], hq, hd))
+        if tp.split(p["wk"].shape[-1], ng * hd) > 1 and ng % m == 0:
+            k = rope(_split_heads(xc @ p["wk"], ng // m, hd))
+            v = _split_heads(xc @ p["wv"], ng // m, hd)
+        else:
+            k, v = (tp.copy_to_model(z) for z in (
+                rope(whole(p["wk"], ng)), whole(p["wv"], ng)))
+            k, v = (_kv_for_heads(z, j * hq, hq, nh // ng) for z in (k, v))
+    else:
+        q, k, v = (rope(whole(p["wq"], nh)), rope(whole(p["wk"], ng)),
+                   whole(p["wv"], ng))
+    wo = p["wo"]
+    rows = wo.shape[0]
+    if tp.split(rows, nh * hd) == 1:
+        def out_proj(out):
+            if local_q:
+                out = tp.gather_from_model(out, -1)
+            return out @ wo
+    else:
+        def out_proj(out):
+            if not local_q:
+                out = tp.copy_to_model(out).narrow(-1, j * rows, rows)
+            return tp.reduce_from_model(out @ wo)
+    return q, k, v, out_proj
+
+
+def _kv_for_heads(z: torch.Tensor, first: int, count: int,
+                  group: int) -> torch.Tensor:
+    """The KV heads of z (B, T, G, hd) that q heads first .. first +
+    count - 1 read (q head h reads KV head h // group), laid out so that
+    the GQA kernels' own grouping pairs them: the span of KV heads when
+    each holds the same number of those q heads, else one KV head per q
+    head."""
+    idx = [(first + i) // group for i in range(count)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if count % n == 0 and idx == [lo + i // (count // n)
+                                  for i in range(count)]:
+        return z[:, :, lo:lo + n]
+    return z[:, :, idx]
 
 
 def attn_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
+
 
 class Init(NamedTuple):
     """A param leaf still to be made: its shape and dtype, and
@@ -165,7 +167,15 @@ def mlp_init(d: int, d_ff: int, kind: str, dtype) -> dict:
     raise ValueError(kind)
 
 
-def mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, kind: str,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The FFN. Given the config's `d_ff`, leaves that hold a block of
+    it (inside a `tp.scope`) run tensor-parallel: `w_gate` / `w_up`
+    column-parallel, `w_down` row-parallel, its partial product summed
+    over "model"."""
+    sharded = d_ff is not None and tp.split(p["w_up"].shape[-1], d_ff) > 1
+    if sharded:
+        x = tp.copy_to_model(x)
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif kind == "geglu":
@@ -176,7 +186,8 @@ def mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["w_up"]))
     else:
         raise ValueError(kind)
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return tp.reduce_from_model(y) if sharded else y
 
 
 # ----------------------------------------------------------------- RoPE
@@ -223,22 +234,39 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor,
 # ----------------------------------------------------------------- loss
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """Mean token cross-entropy, f32. logits (..., V), labels (...) int.
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_start: Optional[int] = None) -> torch.Tensor:
+    """Each token's -log p(label), f32: logits (..., V), labels (...).
 
     The label pick is the reference's select + reduce (a masked sum over
-    the vocab), not a gather; with `mask` the mean is weighted by it over
-    max(sum(mask), 1)."""
+    the vocab), not a gather. With `vocab_start` the logits are this
+    rank's vocab block from that id (inside a `tp.scope`): the log-sum-exp
+    takes the detached max over "model", then sums the shifted exps over
+    it, and the pick is summed over it (each label lies in one block)."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    iota = torch.arange(logits.shape[-1], dtype=labels.dtype,
+    start = 0 if vocab_start is None else vocab_start
+    iota = torch.arange(start, start + logits.shape[-1], dtype=labels.dtype,
                         device=logits.device)
-    picked = torch.where(iota == labels[..., None], logits,
-                         torch.zeros((), dtype=torch.float32,
-                                     device=logits.device))
-    nll = logz - torch.sum(picked, dim=-1)
+    picked = torch.sum(torch.where(iota == labels[..., None], logits,
+                                   torch.zeros((), dtype=torch.float32,
+                                               device=logits.device)),
+                       dim=-1)
+    if vocab_start is None:
+        return torch.logsumexp(logits, dim=-1) - picked
+    top = tp.max_over_model(torch.amax(logits, dim=-1))
+    sumexp = tp.reduce_from_model(
+        torch.sum(torch.exp(logits - top[..., None]), dim=-1))
+    return top + torch.log(sumexp) - tp.reduce_from_model(picked)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None, *,
+                          vocab_start: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Mean token cross-entropy, f32. logits (..., V), labels (...) int
+    (`token_nll`; `vocab_start` for vocab-parallel logits). With `mask`
+    the mean is weighted by it over max(sum(mask), 1)."""
+    nll = token_nll(logits, labels, vocab_start)
     if mask is not None:
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -14,7 +14,10 @@ plain autograd, on every device including "meta".
 
 Every tensor `fn` reads must be one of `args`: a tensor it closes over
 would enter the recompute from the wrong functorch level. Integer
-arguments (labels) get no cotangent.
+arguments (labels) get no cotangent. Under tensor-parallel execution
+(`models/tp.py`) `fn` runs collectives: the backward's rerun and its
+vjp run them again, in the same order on every rank of the model group,
+since every rank runs the same program on its own blocks.
 
 One output is kept rather than recomputed: a flash-attention kernel's
 (`kernels/flash_attn.py`), a selective checkpoint policy like

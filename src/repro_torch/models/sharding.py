@@ -17,8 +17,13 @@ The rules say where each tensor lives and what one device holds: the
 dry run reports them, and on a `launch.mesh.ClientMesh` with a model
 axis the 2D wire reads them (`core.fl._derive_param_pspecs`): a
 model-sharded leaf is raveled, quantized and aggregated a block a rank
-(`core.fl_shard_map.make_round_ops_2d`). Nothing here moves data, and
-the port runs no model tensor-parallel yet (ROADMAP Queue 1 item 13c):
+(`core.fl_shard_map.make_round_ops_2d`). Given them as `param_specs`,
+`core.fl.make_round_fn` keeps the state in this rank's blocks
+(`shard_params`) and trains each client tensor-parallel over "model"
+(`models/tp.py`: the model code reads each leaf's split from its
+width and runs the collectives itself). `gather_params` is the inverse,
+for checkpoints and hashes only. The activations need no constraint: a
+tensor is either replicated or one of this rank's explicit blocks, so
 `constrain` changes nothing.
 """
 from __future__ import annotations
@@ -195,13 +200,49 @@ def replicated(mesh, tree: PyTree):
 
 def set_constraint_mesh(mesh) -> None:
     """The reference registers the mesh of its in-model `constrain`
-    calls here. The port's `constrain` changes nothing on any mesh, so
-    the mesh is accepted for the reference's callers and not kept."""
+    calls here. The port's model code finds its tensor-parallel mesh
+    through `models.tp.scope`, which the round enters around client
+    training, and `constrain` changes nothing, so the mesh is accepted
+    for the reference's callers and not kept."""
 
 
 def constrain(x, *axes):
     """The reference's soft in-model activation constraint: `axes` gives
-    one entry per dim (None, a mesh axis name, or "batch"). The port has
-    no partitioner, so on every mesh this returns `x` unchanged; model
-    code may call it unconditionally."""
+    one entry per dim (None, a mesh axis name, or "batch"). Under the
+    port's tensor-parallel execution (`models/tp.py`) an activation is
+    replicated or an explicit block, moved only by its collectives, so
+    on every mesh this returns `x` unchanged; model code may call it
+    unconditionally."""
     return x
+
+
+def shard_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
+    """This rank's blocks of whole `params` under the UNSTACKED spec tree
+    `specs` (`param_pspecs`): each model-sharded leaf cut on its "model"
+    dim to the block at the rank's model index, of
+    `NamedSpec(mesh, spec).shard_shape`; a replicated leaf as it is.
+    Each block is a copy, so the whole leaf can be freed."""
+    from repro_torch.core import fl_shard_map
+
+    blocks = fl_shard_map.local_blocks(
+        mesh, treemath.tree_map(lambda x: x[None], params), specs)
+    return treemath.tree_map(
+        lambda b, x: b[0] if b[0].shape == x.shape else b[0].clone(),
+        blocks, params)
+
+
+def gather_params(blocks: PyTree, mesh, specs: PyTree,
+                  device=None) -> PyTree:
+    """Whole leaves from this rank's `blocks` (the inverse of
+    `shard_params`): one all_gather over "model" a model-sharded leaf,
+    leaf by leaf, each whole leaf moved to `device` (default: the
+    blocks') before the next is gathered. For checkpoints and
+    `params_sha256`; never on the round path."""
+    from repro_torch.core import fl_shard_map
+
+    leaves, treedef = treemath.tree_flatten(blocks)
+    out = []
+    for x, spec in zip(leaves, treemath.tree_leaves_like(blocks, specs)):
+        x, = fl_shard_map.gather_model_sharded(mesh, [x], spec)
+        out.append(x if device is None else x.to(device))
+    return treemath.tree_unflatten(treedef, out)

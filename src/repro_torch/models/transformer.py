@@ -55,6 +55,7 @@ from repro_torch.models import (
     moe,
     recompute,
     rwkv6,
+    tp,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -238,7 +239,7 @@ def _block(bp, cfg, kind, is_moe, x, ctx, cache, mode):
     if is_moe:
         yf, aux = moe.moe_apply(bp["ffn"], cfg, hf)
     else:
-        yf = layers.mlp_apply(bp["ffn"], hf, cfg.mlp)
+        yf = layers.mlp_apply(bp["ffn"], hf, cfg.mlp, cfg.d_ff)
     return x + yf, new_cache, aux
 
 
@@ -326,11 +327,30 @@ def _index(tree, i: int):
 # ================================================================ public
 
 
+def _embed(table, cfg, tokens):
+    """The rows of `tokens` in the embedding. Inside a `tp.scope` a table
+    split on the vocab is looked up vocab-parallel (ids outside this
+    rank's block give zero rows, summed over "model"), one split on
+    d_model gathers its columns."""
+    vocab, width = table.shape
+    start = tp.vocab_start(vocab, cfg.vocab_size)
+    if start is not None:
+        ids = tokens - start
+        inside = (ids >= 0) & (ids < vocab)
+        rows = table[torch.where(inside, ids, 0)]
+        return tp.reduce_from_model(torch.where(
+            inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                 device=rows.device)))
+    if tp.split(width, cfg.d_model) > 1:
+        return tp.gather_from_model(table[tokens], -1)
+    return table[tokens]
+
+
 def embed_inputs(params, cfg, batch):
     """Token embedding and the stub multimodal prefix: the (B, P, d)
     `batch["vision_embeds"]` go before the text. Returns (x,
     text_offset): the loss applies from text_offset onward."""
-    x = params["embed"][batch["tokens"]]
+    x = _embed(params["embed"], cfg, batch["tokens"])
     offset = 0
     if cfg.vision_prefix:
         v = batch["vision_embeds"].to(x.dtype)  # (B, P, d) stub patches
@@ -342,6 +362,7 @@ def embed_inputs(params, cfg, batch):
 def _prologue(params, cfg, batch):
     """The embedded inputs with their positions, and the encoder's
     output for enc-dec models. Returns (x, text_offset, ctx)."""
+    tp.check_supported(cfg)
     x, text_offset = embed_inputs(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, batch, b, t, device=x.device)
@@ -364,6 +385,8 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
     """Full-sequence forward. mode: "train" | "prefill"."""
     if mode not in ("train", "prefill"):
         raise ValueError(mode)
+    if mode == "prefill" and tp.active() is not None:
+        raise NotImplementedError(f"prefill: {tp.UNSUPPORTED}")
     x, text_offset, ctx = _prologue(params, cfg, batch)
     ctx["max_len"] = max(max_len, x.shape[1])
     x, aux, cache = _run_stack(params["blocks"], cfg, x, ctx, mode)
@@ -378,6 +401,28 @@ def unembed(params, cfg, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+def _head(params, cfg):
+    """The unembedding as a (d, V) matrix view and the dims of it this
+    rank holds a block of: (w, vocab block start or None, d split)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (w, tp.vocab_start(w.shape[1], cfg.vocab_size),
+            tp.split(w.shape[0], cfg.d_model) > 1)
+
+
+def _head_logits(w, vocab_start, d_split, x):
+    """x @ w in training. Inside a `tp.scope`, with w split on the vocab
+    this rank's block of the logits (x read through `copy_to_model`); split
+    on d_model the partial products over this rank's rows, summed over
+    "model". Whole, the whole logits."""
+    if vocab_start is not None:
+        return tp.copy_to_model(x) @ w
+    if d_split:
+        rows = w.shape[0]
+        part = tp.copy_to_model(x).narrow(-1, tp.block_start(rows), rows)
+        return tp.reduce_from_model(part @ w)
+    return x @ w
 
 
 def hidden_forward(params, cfg: ModelConfig, batch):
@@ -406,18 +451,12 @@ def _chunked_ce(params, cfg, x_pred, labels):
         x_pred = torch.cat([x_pred, x_pred.new_zeros((b, pad, d))], 1)
         labels = torch.cat([labels, labels.new_zeros((b, pad))], 1)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    _, start, d_split = _head(params, cfg)
 
     def chunk(w, xc, yc, mc):
-        logits = (xc @ w.T if cfg.tie_embeddings else xc @ w).to(
-            torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        iota = torch.arange(logits.shape[-1], dtype=yc.dtype,
-                            device=logits.device)
-        ll = torch.sum(torch.where(iota == yc[..., None], logits,
-                                   torch.zeros((), dtype=torch.float32,
-                                               device=logits.device)),
-                       dim=-1)
-        return (torch.sum((logz - ll) * mc),)
+        logits = _head_logits(w.T if cfg.tie_embeddings else w, start,
+                              d_split, xc)
+        return (torch.sum(layers.token_nll(logits, yc, start) * mc),)
 
     total = torch.zeros((), dtype=torch.float32, device=x_pred.device)
     for i in range(0, t + pad, size):
@@ -433,14 +472,18 @@ def loss_fn(params, cfg: ModelConfig, batch):
     tokens (not with `cfg.loss_chunk`, as in the reference). Returns a
     scalar f32."""
     tokens = batch["tokens"]
+    x, aux, off = hidden_forward(params, cfg, batch)
     if cfg.loss_chunk:
-        x, aux, off = hidden_forward(params, cfg, batch)
         x_pred = x[:, off:-1] if off else x[:, :-1]
         return _chunked_ce(params, cfg, x_pred, tokens[:, 1:]) + aux
-    logits, aux, off = forward(params, cfg, batch, mode="train")
+    # inside a tp.scope the logits of this rank's vocab block (or the
+    # whole logits of a head split on d_model)
+    w, start, d_split = _head(params, cfg)
+    logits = _head_logits(w, start, d_split, x)
     pred = logits[:, off:-1] if off else logits[:, :-1]
     ce = layers.softmax_cross_entropy(pred, tokens[:, 1:],
-                                      batch.get("loss_mask"))
+                                      batch.get("loss_mask"),
+                                      vocab_start=start)
     return ce + aux
 
 
@@ -452,6 +495,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     Returns (logits (B,1,V), cache): the token's keys and values (or
     latents, or recurrent state) are written into `cache` in place."""
     pos = int(pos)
+    if tp.active() is not None:
+        raise NotImplementedError(f"decode: {tp.UNSUPPORTED}")
     x = params["embed"][token]
     if cfg.rope_style == "none":
         x = x + _sinusoid(torch.arange(pos, pos + 1, device=x.device),

@@ -18,10 +18,11 @@
 (c) The launcher on the CPU: 3 rounds, then 2 rounds with a checkpoint
     and `python -m repro_torch.launch.train ... --resume` to 3 with
     `--telemetry`: the resumed `params_sha256` equals the
-    uninterrupted one and the stream validates. Without `--host-mesh` it
-    raises NotImplementedError naming ROADMAP item 13c. Torch runs on one
-    intra-op thread: several CPU threads sum in an order that changes
-    from process to process.
+    uninterrupted one and the stream validates. Without `--host-mesh` and
+    without a process group (no torchrun) it raises RuntimeError saying
+    so; on a world it runs tensor-parallel (tests/test_torch_tp.py).
+    Torch runs on one intra-op thread: several CPU threads sum in an
+    order that changes from process to process.
 """
 import os
 import subprocess
@@ -241,6 +242,10 @@ def test_launcher_resumes_bit_exactly(tmp_path):
     assert counts.get("round") == 1 and counts.get("node") == 1
 
 
-def test_launcher_without_host_mesh_names_item_13b():
-    with pytest.raises(NotImplementedError, match="item 13c"):
+def test_launcher_without_host_mesh_names_item_13b(monkeypatch):
+    """Off the host mesh the launcher runs on a torch.distributed world:
+    with no process group and no torchrun it says how to start one."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="under torchrun"):
         train.main(["--arch", "gemma-2b", "--device", "cpu"])

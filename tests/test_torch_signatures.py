@@ -16,7 +16,10 @@ every argument to the same parameter in the port.
     refuses anything else with TypeError, by position and by name.
 (d) Each shared public callable's parameter list equals the JAX
     package's after the port's recorded renames (`RENAMES`, `DROPPED`,
-    `ADDED`): names, order and kinds. The launch layer's renames: the
+    `ADDED`): names, order and kinds. Port-only trailing keywords: `device`
+    (`FedServer`, `make_host_mesh`), `param_specs` (`make_round_fn`: the
+    spec tree of params held in blocks) and `local`
+    (`make_blocked_roundtrip`: the roundtrip of a rank's blocks). The launch layer's renames: the
     module `launch/hlo_scoped.py` is `launch/optrace.py`, whose
     `analyze` reads a recorded op trace where the reference reads HLO
     text (`text` -> `trace`); a dry-run record's `compile_s` is
@@ -252,7 +255,14 @@ DROPPED = {"interpret", "min_kernel_elems"}  # kernel-wrapper knobs: the
 ADDED = {"FedServer": [inspect.Parameter(
     "device", inspect.Parameter.KEYWORD_ONLY, default=None)],
     "make_host_mesh": [inspect.Parameter(
-        "device", inspect.Parameter.POSITIONAL_OR_KEYWORD, default=None)]}
+        "device", inspect.Parameter.POSITIONAL_OR_KEYWORD, default=None)],
+    # the spec tree of params held in blocks: the reference's partitioner
+    # reads the params' shardings instead (tensor-parallel execution)
+    "make_round_fn": [inspect.Parameter(
+        "param_specs", inspect.Parameter.KEYWORD_ONLY, default=None)],
+    # the tensor-parallel tree engine's roundtrip of this rank's blocks
+    "fl_shard_map.make_blocked_roundtrip": [inspect.Parameter(
+        "local", inspect.Parameter.KEYWORD_ONLY, default=False)]}
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
