@@ -116,7 +116,25 @@ gloo world (`--mesh2d-child launch`): gemma-2b at full width and depth,
 bf16, K = 1, B = 4, T = 1024, 2 rounds, ms a round and the peak a rank,
 the gathered params_sha256 equal on both ranks, and at the smoke width a
 resumed run bit for bit the uninterrupted one; the kernel table's
-`launches_tp`), lm_train
+`launches_tp`), tp_serve (tensor-parallel serving and the DeepSeek
+family over the model axis: the whole models' results in this process,
+each model freed before one (1, 2) gloo world on this card
+(`--mesh2d-child tp_serve`) initialises its blocks leaf by leaf and
+serves gemma-2b at full width and depth, bf16, flash, B = 4, prompt
+1024, 32 steps (18 flash launches a prefill, each on the rank's 4 of 8
+heads; the "tp" collectives of a prefill and a decode step equal to
+those of the shapes; prefill and decode ms and the peak a rank; the
+logit gap and the greedy ids against the whole model) and
+deepseek-v2-lite-16b at full width and depth, bf16, B = 4, prompt 512,
+16 steps (the peak after init at most the blocks + 1 GB; the routing
+bit for bit across ranks; the dropped share; the last logits against
+the whole model); holds four reduced f32 configs' prefill and decode
+through the step builders to the whole model at 2e-4; trains
+deepseek-v2-lite at full width cut to 2 layers, f32, one round through
+the launcher, == the host mesh's round at 2e-4 with 2 + 1 FL launches
+a rank; and runs the serving launcher (gemma-2b, decode_32k, B = 4,
+cache 4096): its ms/token; NCCL across two cards where there are two;
+the kernel table's `launches_tp_serve`), lm_train
 (grads through gqa_flash under vmap(grad) on the card, f32 and bf16,
 equal the plain version's at the forward's tolerance, and the forward
 runs the dtype's kernel; the 100m preset, f32, K = 4, tau = 2, B = 4,
@@ -166,6 +184,7 @@ f32 accuracy).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -2040,17 +2059,25 @@ def sharded_world1(wa, rs, dev, nodes, test) -> tuple[dict, dict]:
     return out, launches
 
 
-def run_world(backend: str, world: int, argv=None) -> list:
+def run_world(backend: str, world: int, argv=None,
+              timeout: float = SHARD_TIMEOUT) -> list:
     """`world` child processes of this script, one rank each, joined with
-    SHARD_TIMEOUT; returns each rank's result. `argv` is the children's
-    arguments with "{rank}", "{port}" and "{out}" filled in per rank
-    (default: `--sharded-child`'s). A child that fails or outlives the
-    timeout raises."""
+    `timeout` seconds; returns each rank's result. `argv` is the
+    children's arguments with "{rank}", "{port}" and "{out}" filled in
+    per rank (default: `--sharded-child`'s). A child that fails or
+    outlives the timeout raises."""
     import tempfile
 
     port = free_port()
     argv = argv or ["--sharded-child", backend, "{rank}", str(world),
                     "{port}", "{out}"]
+    # the children share the card: hand them what this process's
+    # allocator keeps cached and no longer uses
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(f"world of {world}: this process held {reserved} B reserved, "
+          f"{torch.cuda.memory_allocated()} B allocated; now "
+          f"{torch.cuda.memory_reserved()} B reserved", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
         procs = [subprocess.Popen(
@@ -2058,7 +2085,7 @@ def run_world(backend: str, world: int, argv=None) -> list:
             + [a.format(rank=r, port=port, out=outs[r]) for a in argv],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
-        deadline = time.monotonic() + SHARD_TIMEOUT
+        deadline = time.monotonic() + timeout
         logs = []
         try:
             for p in procs:
@@ -2462,8 +2489,9 @@ def mesh2d_lm(mesh, dev, rank: int) -> dict:
 def mesh2d_child(task: str, backend: str, rank: int, world: int,
                  model: int, port: int, out_path: str) -> int:
     """One rank of a 2D world: `task` "cnn", "lm", "tp" (the 100m LM
-    tensor-parallel) or "launch" (the launcher) on a (world / model,
-    model) mesh over `backend`."""
+    tensor-parallel), "launch" (the launcher) or "tp_serve"
+    (tensor-parallel serving and the DeepSeek family) on a (world /
+    model, model) mesh over `backend`."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2482,8 +2510,8 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
         if task == "launch":  # the launcher makes its own mesh
             res = tp_launch(mesh, dev, rank, out_path)
         else:
-            res = {"cnn": mesh2d_cnn, "lm": mesh2d_lm,
-                   "tp": tp_lm}[task](mesh, dev, rank)
+            res = {"cnn": mesh2d_cnn, "lm": mesh2d_lm, "tp": tp_lm,
+                   "tp_serve": tp_serve}[task](mesh, dev, rank)
         res["coords"] = (mesh.client_index, mesh.model_index)
         torch.save(res, out_path)
     finally:
@@ -2491,13 +2519,14 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
     return 0
 
 
-def run_mesh2d(task: str, backend: str, shape: tuple) -> list:
+def run_mesh2d(task: str, backend: str, shape: tuple,
+               timeout: float = SHARD_TIMEOUT) -> list:
     """A world of child processes of this script (`--mesh2d-child`), one
     rank each on a `shape` (data, model) mesh; each rank's result."""
     return run_world(backend, shape[0] * shape[1],
                      ["--mesh2d-child", task, backend, "{rank}",
                       str(shape[0] * shape[1]), str(shape[1]), "{port}",
-                      "{out}"])
+                      "{out}"], timeout)
 
 
 def check_mesh2d_cnn(results: list, what: str) -> dict:
@@ -2922,6 +2951,616 @@ def phase_tp(smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return launches
+
+
+# ---- tensor-parallel serving and the DeepSeek family over "model" ----
+
+TPS_SHAPE = (1, 2)  # a gloo world of two ranks on this card
+TPS_TIMEOUT = 600  # seconds the world may take
+TPS_GEMMA = (4, 1024, 32)  # B, prompt, greedy steps: bf16, flash
+TPS_DEEPSEEK = (4, 512, 16)  # bf16; MLA runs no flash
+TPS_DIRECT_STEPS = 8  # gemma decode steps timed alone, as the CLI times
+# the configs held tensor-parallel == whole at PARITY_TOL, in f32: the
+# reduced ones, and deepseek-v2-lite at full width cut to 2 layers (its
+# 64 experts split on E, 16 MLA heads a whole 8 a rank)
+TPS_PARITY = (("gemma-2b", "gemma-2b", {}, False),
+              ("minitron-4b-flash", "minitron-4b", {"attention_impl": "flash"},
+               False),
+              ("deepseek-v2-lite-16b", "deepseek-v2-lite-16b", {}, False),
+              ("deepseek-v2-lite-16b-q32", "deepseek-v2-lite-16b",
+               {"mla": {"q_lora_rank": 32}}, False),
+              ("deepseek-v2-lite-16b-full-2l", "deepseek-v2-lite-16b",
+               {"num_layers": 2, "dtype": "float32"}, True))
+TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS = 2, 64, 4
+# one round through launch.train: deepseek-v2-lite at full width, cut
+TPS_ROUND_CUT = {"num_layers": 2, "dtype": "float32"}
+TPS_ROUND_ARGV = ["--arch", "deepseek-v2-lite-16b", "--seq", "128",
+                  "--global-batch", "2", "--rounds", "1"]
+TPS_SERVE_ARGV = ["--arch", "gemma-2b", "--shape", "decode_32k", "--batch",
+                  "4", "--seq", "4096", "--steps", "8"]
+TPS_REFS = "CHIP_SMOKE_TP_SERVE_REFS"  # env: the whole-model results' dir
+
+
+def tps_tokens(vocab: int, b: int, t: int, seed: int) -> torch.Tensor:
+    """(b, t) token ids from a CPU generator: the same on every process."""
+    return torch.randint(0, vocab, (b, t),
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def tps_init(cfg, dev, mesh=None):
+    """The params of `cfg` from seed 0 on `dev`: whole, or this rank's
+    blocks of the same draws (`init_params(..., mesh=, specs=)`)."""
+    from repro_torch.models import sharding, transformer
+
+    specs = None
+    if mesh is not None:
+        specs = sharding.param_pspecs(
+            transformer.init_params(None, cfg, device="meta"), mesh)
+    return transformer.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, mesh=mesh, specs=specs)
+
+
+def tps_gemma_cfg():
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get("gemma-2b"),
+                               attention_impl="flash")
+
+
+def tps_last_logits(params, cfg, tokens) -> torch.Tensor:
+    """The prefill's last-position logits (B, V), whole: inside a
+    tp.scope its vocab blocks gathered."""
+    from repro_torch.models import tp, transformer
+
+    with torch.no_grad():
+        logits, _, _ = transformer.forward(params, cfg, {"tokens": tokens},
+                                           mode="prefill")
+        return tp.gather_logits(logits[:, -1], cfg.vocab_size)
+
+
+def tps_round(dev, extra: list) -> dict:
+    """One round of deepseek-v2-lite cut to TPS_ROUND_CUT through
+    `launch.train.main` (its registry lookup pointed at the cut), and
+    the round's params (this rank's blocks off the host mesh) with their
+    spec tree (None on the host mesh), as the launcher hands them to its
+    `params_sha256` at the end."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models.config import with_changes
+
+    real_get, real_sha = registry.get, train.params_sha256
+    seen = {}
+
+    def get(name):
+        cfg = real_get(name)
+        return with_changes(cfg, TPS_ROUND_CUT) \
+            if name == "deepseek-v2-lite-16b" else cfg
+
+    def sha(params, mesh=None, specs=None):
+        seen.update(params=params, specs=specs)
+        return real_sha(params, mesh, specs)
+
+    registry.get, train.params_sha256 = get, sha
+    try:
+        res = train.main(TPS_ROUND_ARGV + extra + ["--device", str(dev)])
+    finally:
+        registry.get, train.params_sha256 = real_get, real_sha
+    return {**res, **seen}
+
+
+def tps_parity_run(cfg, params, prefill, decode, i: int, dev):
+    """The f32 parity case i: the prefill step's last logits, then
+    TPS_PARITY_STEPS decode steps on seeded tokens, (B, 1 + steps, V)."""
+    b, t, steps = TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS
+    tokens = tps_tokens(cfg.vocab_size, b, t, 20 + i).to(dev)
+    dec = tps_tokens(cfg.vocab_size, b, steps, 30 + i).to(dev)
+    with torch.no_grad():
+        logits, cache = prefill(params, {"tokens": tokens})
+        out = [logits]
+        for s_ in range(steps):
+            logits, cache = decode(params, dec[:, s_:s_ + 1], cache, t + s_)
+            out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def tps_parity_cfg(name: str, changes: dict, full: bool):
+    """A parity case's config: the registry's full config or its reduced
+    one, with `changes`; f32 either way."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import with_changes
+
+    cfg = with_changes(registry.get(name) if full else registry.smoke(name),
+                       changes)
+    assert cfg.dtype == "float32", cfg.dtype
+    return cfg
+
+
+def tps_parity_steps(cfg, mesh):
+    """build_prefill_step's and build_decode_step's fns for a parity
+    case on `mesh` (a host mesh: the whole model)."""
+    from repro_torch.configs import shapes
+    from repro_torch.launch import steps
+
+    b, t, n = TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS
+    prefill = steps.build_prefill_step(
+        cfg, mesh, shapes.InputShape("prefill", t + n, b, "prefill"))[0]
+    decode = steps.build_decode_step(
+        cfg, mesh, shapes.InputShape("decode", t + n, b, "decode"))[0]
+    return prefill, decode
+
+
+def tp_serve_refs(dev, out_dir: str) -> dict:
+    """The whole-model results the tensor-parallel world is held to,
+    each model made, run and freed in turn in this process before the
+    world starts: gemma-2b's last prefill logits and greedy ids, the
+    same of deepseek-v2-lite-16b, the f32 parity cases through the step
+    builders on the host mesh, and the cut deepseek round on the host
+    mesh (its params written to `out_dir`). Returns the seconds."""
+    from repro_torch.configs import registry
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    for name, cfg, (b, t, n) in (
+            ("gemma", tps_gemma_cfg(), TPS_GEMMA),
+            ("deepseek", registry.get("deepseek-v2-lite-16b"),
+             TPS_DEEPSEEK)):
+        params = tps_init(cfg, dev)
+        tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+        with moe.record_routing() as routing:
+            last = tps_last_logits(params, cfg, tokens)
+        ids = serve.generate(params, cfg, tokens, n)
+        torch.save({"last": last.float().cpu(), "ids": ids.cpu(),
+                    "experts": [c["experts"].cpu() for c in routing]},
+                   os.path.join(out_dir, f"{name}.pt"))
+        del params, last, ids
+        torch.cuda.empty_cache()
+    host = make_host_mesh(dev)
+    parity = {}
+    for i, (_, name, changes, full) in enumerate(TPS_PARITY):
+        cfg = tps_parity_cfg(name, changes, full)
+        params = tps_init(cfg, dev)
+        parity[i] = tps_parity_run(cfg, params, *tps_parity_steps(cfg, host),
+                                   i, dev).cpu()
+        del params
+        torch.cuda.empty_cache()
+    torch.save(parity, os.path.join(out_dir, "parity.pt"))
+    res = tps_round(dev, ["--host-mesh"])
+    params = res.pop("params")
+    torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
+        treemath.tree_paths(params), treemath.tree_leaves(params))},
+        os.path.join(out_dir, "round.pt"))
+    torch.save({"losses": res["losses"]},
+               os.path.join(out_dir, "round_losses.pt"))
+    del params, res
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0}
+
+
+def tps_collectives_from_shapes(cfg, b: int, t: int) -> tuple[int, int]:
+    """(count, bytes) of the "tp" collectives of one gemma prefill step of
+    b rows of t tokens (a decode step: t = 1) on a model axis of 2 whose
+    q blocks hold whole heads and whose one KV head's head_dim is split:
+    the vocab-parallel embedding's all-reduce; per layer the all_gathers
+    of k and v (this rank's half of the head_dim) and the all-reduces
+    after wo and w_down; the last position's logits gathered."""
+    act = b * t * cfg.d_model * cfg.tdtype.itemsize
+    kv = b * t * cfg.num_kv_heads * cfg.hd // 2 * cfg.tdtype.itemsize
+    logits = b * cfg.vocab_size // 2 * cfg.tdtype.itemsize
+    layers_ = cfg.num_layers
+    return (2 + 4 * layers_,
+            act + layers_ * (2 * kv + 2 * act) + logits)
+
+
+def tps_flash_spy(fa, calls: list, tol: float):
+    """A stand-in for `fa._forward` that runs the kernel and holds each
+    call's output against `gqa_plain` on the same q, k, v at `tol`,
+    listing (q heads, (max |d|, excess)) in `calls`."""
+    real = fa._forward
+
+    def spy(q, k, v, causal):
+        o = real(q, k, v, causal)
+        calls.append((q.shape[2], allclose_err(o, gqa_plain(fa, q, k, v),
+                                               tol)))
+        return o
+
+    return spy
+
+
+def tps_flash_worst(calls: list) -> list:
+    """[calls, worst max |d|, worst excess] of a spy's list."""
+    return [len(calls), max((c[1][0] for c in calls), default=0.0),
+            max((c[1][1] for c in calls), default=0.0)]
+
+
+def tps_gemma(mesh, dev) -> dict:
+    """(a): gemma-2b at full width and depth, bf16, flash, in this rank's
+    blocks: generate under a scope (prefill ms, decode ms a step, the
+    peak), the flash launches and heads of a prefill, each flash call of
+    the warm-up at its local shape against its plain version, the "tp"
+    collectives of one prefill and one decode step through the step
+    builders, and the last logits and greedy ids against the whole
+    model's."""
+    from repro_torch.configs import shapes
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import tp
+
+    cfg = tps_gemma_cfg()
+    b, t, n = TPS_GEMMA
+    ref = torch.load(os.path.join(os.environ[TPS_REFS], "gemma.pt"))
+    params = tps_init(cfg, dev, mesh)
+    tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+    calls, real = [], fa._forward
+    with tp.scope(mesh, rows_over_data=True):
+        fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["bfloat16"])
+        try:
+            serve.generate(params, cfg, tokens, 2)  # warm-up, heads seen
+        finally:
+            fa._forward = real
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(steps_):
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            ids_ = serve.generate(params, cfg, tokens, steps_)
+            torch.cuda.synchronize()
+            return ids_, (time.perf_counter() - t0) * 1e3, \
+                fa.flash_attention.launches
+
+        ids, total_ms, launches = run(n)  # the main path, counted
+        peak = torch.cuda.max_memory_allocated()
+        pre = [run(1) for _ in range(3)]
+        last = tps_last_logits(params, cfg, tokens).float().cpu()
+    prefill_ms = float(np.median([p[1] for p in pre]))
+    s_ = t + 2 + TPS_DIRECT_STEPS
+    prefill, _, _, _, _ = steps.build_prefill_step(
+        cfg, mesh, shapes.InputShape("prefill", s_, b, "prefill"))
+    decode, _, _, _, _ = steps.build_decode_step(
+        cfg, mesh, shapes.InputShape("decode", s_, b, "decode"))
+    tok = ids[:, :1]
+    with torch.no_grad():
+        with mesh.recording() as plog:
+            _, cache = prefill(params, {"tokens": tokens})
+        with mesh.recording() as dlog:
+            decode(params, tok, cache, t)
+        # decode steps alone through the step builder's fn, as the
+        # serving CLI times them, then one profiled step and prefill
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TPS_DIRECT_STEPS):
+            decode(params, tok, cache, t + 1 + i)
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t0) * 1e3 / TPS_DIRECT_STEPS
+        prof_decode = brief(profile_device(lambda: decode(
+            params, tok, cache, t + 1 + TPS_DIRECT_STEPS)))
+        del cache
+        prof_prefill = brief(profile_device(lambda: prefill(
+            params, {"tokens": tokens})))
+    ids = ids.cpu()
+    out = {
+        "prefill_ms": prefill_ms,
+        "prefill_ms_runs": [p[1] for p in pre],
+        "decode_ms_per_step": (total_ms - prefill_ms) / (n - 1),
+        "decode_ms_per_step_direct": direct_ms,
+        "profile_decode_step": prof_decode,
+        "profile_prefill_step": prof_prefill,
+        "generate_ms": total_ms, "peak_bytes": peak,
+        "flash_launches": launches,
+        "flash_launches_prefill_alone": [p[2] for p in pre],
+        "flash_heads": sorted(set(c[0] for c in calls)),
+        "flash_calls_warmup": len(calls),
+        "flash_vs_plain": tps_flash_worst(calls),
+        "tp_prefill": [sum(c.scope == "tp" for c in plog),
+                       sum(c.nbytes for c in plog if c.scope == "tp")],
+        "tp_decode": [sum(c.scope == "tp" for c in dlog),
+                      sum(c.nbytes for c in dlog if c.scope == "tp")],
+        "want_tp_prefill": tps_collectives_from_shapes(cfg, b, t),
+        "want_tp_decode": tps_collectives_from_shapes(cfg, b, 1),
+        "other_collectives": sum(c.scope != "tp" for c in plog + dlog),
+        "logit_gap": float((last - ref["last"]).abs().max()),
+        "logit_scale": float(ref["last"].abs().max()),
+        "ids_equal_share": float((ids == ref["ids"]).float().mean()),
+        "ids": ids, "finite": bool(torch.isfinite(last).all()),
+        "layers": cfg.num_layers, "heads_per_rank":
+            cfg.num_heads // mesh.model_size}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tps_deepseek(mesh, dev) -> dict:
+    """(b): deepseek-v2-lite-16b at full width and depth, bf16, in this
+    rank's blocks: the block bytes, the peak after init (held to those +
+    INIT_SLACK), prefill ms, decode ms a step, the routing of one prefill
+    (its digest, held equal across ranks, and the dropped share), and
+    the last prefill logits against the whole model's."""
+    from repro_torch.configs import registry
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, tp
+
+    cfg = registry.get("deepseek-v2-lite-16b")
+    b, t, n = TPS_DEEPSEEK
+    ref = torch.load(os.path.join(os.environ[TPS_REFS], "deepseek.pt"))
+    t0 = time.perf_counter()
+    params = tps_init(cfg, dev, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    blocks = sum(x.numel() * x.element_size()
+                 for x in treemath.tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+    with tp.scope(mesh, rows_over_data=True):
+        serve.generate(params, cfg, tokens, 2)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = serve.generate(params, cfg, tokens, n)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        pre = []
+        for _ in range(3):
+            with moe.record_routing() as routing:
+                t0 = time.perf_counter()
+                serve.generate(params, cfg, tokens, 1)
+                torch.cuda.synchronize()
+                pre.append((time.perf_counter() - t0) * 1e3)
+        last = tps_last_logits(params, cfg, tokens).float().cpu()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = float(np.median(pre))
+    keep = torch.cat([c["keep"].reshape(-1) for c in routing])
+    # the assignments whose expert set differs from the whole model's
+    # (each token's top-k sorted), layer by layer
+    k_ = cfg.moe.top_k
+    flips = [int((torch.sort(c["experts"].cpu().reshape(-1, k_))[0]
+                  != torch.sort(w.reshape(-1, k_))[0]).sum())
+             for c, w in zip(routing, ref["experts"])]
+    digest_ = hashlib.sha256()
+    for call in routing:
+        for key in sorted(call):
+            digest_.update(call[key].contiguous().view(torch.uint8).cpu()
+                           .numpy().tobytes())
+    out = {"init_s": init_s, "block_bytes": blocks, "peak_after_init": peak,
+           "prefill_ms": prefill_ms, "prefill_ms_runs": pre,
+           "decode_ms_per_step": (total_ms - prefill_ms) / (n - 1),
+           "generate_ms": total_ms, "routing_calls": len(routing),
+           "routing_sha256": digest_.hexdigest(),
+           "dropped_share": float(1.0 - keep.float().mean()),
+           "routing_vs_whole_differing": flips,
+           "routing_vs_whole_assignments": int(keep.numel()),
+           "logit_gap": float((last - ref["last"]).abs().max()),
+           "logit_scale": float(ref["last"].abs().max()),
+           "last_argmax_equal_share": float(
+               (last.argmax(-1) == ref["last"].argmax(-1)).float().mean()),
+           "ids_equal_share": float((ids.cpu() == ref["ids"]).float()
+                                    .mean()),
+           "finite": bool(torch.isfinite(last).all()),
+           "layers": cfg.num_layers}
+    del params, ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def tps_parity(mesh, dev) -> dict:
+    """(c): each f32 parity case through the step builders' fns on this
+    rank's blocks against the whole model's, at PARITY_TOL; the flash
+    launches of each case's counted run, each call held against its
+    plain version at its local shape."""
+    from repro_torch.kernels import flash_attn as fa
+
+    refs = torch.load(os.path.join(os.environ[TPS_REFS], "parity.pt"))
+    out, real = {}, fa._forward
+    for i, (label, name, changes, full) in enumerate(TPS_PARITY):
+        cfg = tps_parity_cfg(name, changes, full)
+        params = tps_init(cfg, dev, mesh)
+        fa.flash_attention.launches, calls = 0, []
+        fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["float32"])
+        try:
+            got = tps_parity_run(cfg, params, *tps_parity_steps(cfg, mesh),
+                                 i, dev).cpu()
+        finally:
+            fa._forward = real
+        err, excess = allclose_err(got, refs[i], PARITY_TOL)
+        out[label] = {
+            "max_abs": err, "excess": excess,
+            "flash_launches": fa.flash_attention.launches,
+            "flash_vs_plain": tps_flash_worst(calls)}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tps_round_child(mesh, dev) -> dict:
+    """(d): the cut deepseek round through launch.train on this world:
+    its FL launches, and its params (this rank's blocks) and loss
+    against the host mesh's round at PARITY_TOL."""
+    from repro_torch.core import treemath
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models import sharding
+
+    refs = os.environ[TPS_REFS]
+    wa.weighted_agg.launches = rs.round_stats.launches = 0
+    res = tps_round(dev, [])
+    launches = {"weighted_agg": wa.weighted_agg.launches,
+                "round_stats": rs.round_stats.launches}
+    params, specs = res.pop("params"), res["specs"]
+    whole = torch.load(os.path.join(refs, "round.pt"), mmap=True)
+    worst, where, max_abs = -math.inf, "", 0.0
+    for path, x, spec in zip(treemath.tree_paths(params),
+                             treemath.tree_leaves(params),
+                             treemath.tree_leaves_like(params, specs)):
+        key = "/".join(path)
+        want = sharding.block(whole[key], mesh, spec).to(dev)
+        e, w = excess_err({key: (x, want)}, PARITY_TOL, PARITY_TOL)
+        max_abs = max(max_abs, float((x.double() - want.double()).abs()
+                                     .max()))
+        if e > worst:
+            worst, where = e, w
+        del want
+    want = torch.load(os.path.join(refs, "round_losses.pt"))["losses"]
+    loss_err = allclose_err(torch.tensor(res["losses"]), torch.tensor(want),
+                            PARITY_TOL)
+    del params, res, whole
+    torch.cuda.empty_cache()
+    return {"launches": launches, "excess": worst, "worst_leaf": where,
+            "max_abs": max_abs, "specs_given": specs is not None,
+            "loss_whole": want, "loss_max_abs": loss_err[0],
+            "loss_excess": loss_err[1]}
+
+
+def tps_serve_cli(dev) -> dict:
+    """(e): `python -m repro_torch.launch.serve TPS_SERVE_ARGV` on this
+    world: its ms a token and tokens."""
+    from repro_torch.launch import serve
+
+    res = serve.main(TPS_SERVE_ARGV + ["--device", str(dev)])
+    out = {"ms_per_token": res["ms_per_token"],
+           "tokens": res["tokens"]}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(mesh, dev, rank: int) -> dict:
+    """One rank of the tensor-parallel serving world: (b) deepseek-v2-lite
+    first (the largest blocks), then (a) gemma-2b, (c) the f32 parity
+    cases, (d) the cut deepseek round and (e) the serving CLI."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = {"deepseek": tps_deepseek(mesh, dev),
+           "gemma": tps_gemma(mesh, dev),
+           "parity": tps_parity(mesh, dev),
+           "round": tps_round_child(mesh, dev),
+           "serve_cli": tps_serve_cli(dev)}
+    return out
+
+
+def check_tp_serve(results: list) -> dict:
+    """The ranks' greedy ids, routing and CLI tokens equal; (a) 18 flash
+    launches a prefill, each on the rank's heads, the "tp" collectives
+    of the shapes; (b) the peak after init within the block bytes +
+    INIT_SLACK; (c) every parity case within PARITY_TOL; (d) 2 + 1 FL
+    launches and the round within PARITY_TOL. Returns the line's part."""
+    r0 = results[0]
+    g0, d0 = r0["gemma"], r0["deepseek"]
+    bad = []
+    for r, res in enumerate(results):
+        g, d, rd = res["gemma"], res["deepseek"], res["round"]
+        checks = {
+            "gemma ids equal across ranks": torch.equal(g["ids"], g0["ids"]),
+            "gemma finite": g["finite"],
+            "gemma flash launches": g["flash_launches"] == g["layers"]
+            and all(x == g["layers"]
+                    for x in g["flash_launches_prefill_alone"]),
+            "gemma flash on the rank's heads":
+                g["flash_heads"] == [g["heads_per_rank"]],
+            "gemma flash vs plain": g["flash_vs_plain"][0] == g["layers"]
+            and g["flash_vs_plain"][2] <= 1.0,
+            "gemma tp prefill collectives":
+                tuple(g["tp_prefill"]) == tuple(g["want_tp_prefill"]),
+            "gemma tp decode collectives":
+                tuple(g["tp_decode"]) == tuple(g["want_tp_decode"]),
+            "gemma no other collective": g["other_collectives"] == 0,
+            "deepseek routing equal across ranks":
+                d["routing_sha256"] == d0["routing_sha256"]
+                and d["routing_calls"] == d["layers"],
+            "deepseek peak": d["peak_after_init"]
+            <= d["block_bytes"] + INIT_SLACK,
+            "deepseek finite": d["finite"],
+            "parity": all(c["excess"] <= 1.0
+                          for c in res["parity"].values()),
+            "parity flash vs plain": all(
+                c["flash_vs_plain"][0] == c["flash_launches"]
+                and c["flash_vs_plain"][2] <= 1.0
+                for c in res["parity"].values())
+            and res["parity"]["minitron-4b-flash"]["flash_launches"] > 0,
+            "round launches": rd["launches"] == {"weighted_agg": 2,
+                                                 "round_stats": 1},
+            "round vs whole": rd["excess"] <= 0 and rd["specs_given"]
+            and rd["loss_excess"] <= 1.0,
+            "serve cli tokens": torch.equal(
+                res["serve_cli"]["tokens"], r0["serve_cli"]["tokens"])
+            and math.isfinite(res["serve_cli"]["ms_per_token"]),
+        }
+        bad += [f"rank {r}: {name}" for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tp_serve: {bad}: " + json.dumps(
+            {k: v for k, v in r0.items()}, default=str)[:6000])
+    return {
+        "ranks": len(results),
+        "gemma": {**{k: v for k, v in g0.items() if k != "ids"},
+                  "prefill_ms_per_rank": [r["gemma"]["prefill_ms"]
+                                          for r in results],
+                  "decode_ms_per_step_per_rank": [
+                      r["gemma"]["decode_ms_per_step"] for r in results],
+                  "decode_ms_per_step_direct_per_rank": [
+                      r["gemma"]["decode_ms_per_step_direct"]
+                      for r in results],
+                  "peak_bytes_per_rank": [r["gemma"]["peak_bytes"]
+                                          for r in results],
+                  "sample_ids": g0["ids"][0, :12].tolist()},
+        "deepseek": {**d0,
+                     "prefill_ms_per_rank": [r["deepseek"]["prefill_ms"]
+                                             for r in results],
+                     "decode_ms_per_step_per_rank": [
+                         r["deepseek"]["decode_ms_per_step"]
+                         for r in results],
+                     "peak_after_init_per_rank": [
+                         r["deepseek"]["peak_after_init"] for r in results],
+                     "routing_bit_equal": True},
+        "parity": r0["parity"],
+        "round": {**r0["round"],
+                  "excess_per_rank": [r["round"]["excess"]
+                                      for r in results]},
+        "serve_cli": {"argv": " ".join(TPS_SERVE_ARGV),
+                      "ms_per_token_per_rank": [
+                          r["serve_cli"]["ms_per_token"] for r in results],
+                      "tokens_rank0": r0["serve_cli"]["tokens"][0].tolist()},
+    }
+
+
+def phase_tp_serve(smi: str) -> dict:
+    """Tensor-parallel serving and the DeepSeek family over "model": the
+    whole-model references in this process (each freed before the world
+    starts), then one (1, 2) gloo world on this card runs (a)-(e)
+    (`tp_serve`), and a (1, 2) NCCL world across two cards where two or
+    more are visible. Returns rank 0's launches of the slice's kernels
+    on the gloo world."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"phase": "tp_serve", "card": smi, "note": MESH2D_CARD_NOTE,
+           "mesh": list(TPS_SHAPE)}
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as refs:
+        out["whole_model_refs"] = tp_serve_refs(dev, refs)
+        torch.cuda.empty_cache()
+        os.environ[TPS_REFS] = refs
+        t1 = time.perf_counter()
+        try:
+            results = run_mesh2d("tp_serve", "gloo", TPS_SHAPE, TPS_TIMEOUT)
+            out["world_seconds"] = time.perf_counter() - t1
+            if cards >= 2:  # one rank a card
+                out["nccl_1x2"] = check_tp_serve(run_mesh2d(
+                    "tp_serve", "nccl", TPS_SHAPE, TPS_TIMEOUT))
+            else:
+                print(f"tp_serve: NCCL across cards not run: {cards} card "
+                      "visible", flush=True)
+        finally:
+            os.environ.pop(TPS_REFS, None)
+    out.update(check_tp_serve(results))
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    r0 = results[0]
+    return {"flash_attention": r0["gemma"]["flash_launches"],
+            "flash_attention_f32":
+                r0["parity"]["minitron-4b-flash"]["flash_launches"],
+            **r0["round"]["launches"]}
 
 
 # ---- the dense-LM serving path and kernels/ops.py ----
@@ -4240,6 +4879,7 @@ def main() -> int:
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     mesh2d = phase_mesh2d(wa, rs, tq, dev, smi)
     tp_launches = phase_tp(smi)
+    tp_serve_launches = phase_tp_serve(smi)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     family_launches, family_flash_errs = phase_families(fa, dev)
@@ -4287,6 +4927,17 @@ def main() -> int:
     table["round_stats"]["launches_tp"] = tp_launches["round_stats"]
     for name in ("flash_attention_f32", "flash_attention_f32_train"):
         lm_table[name]["launches_tp"] = tp_launches["flash_attention"]
+    # and tensor-parallel serving per rank of the (1, 2) world: gemma-2b's
+    # bf16 prefill on the rank's 4 of 8 heads, the f32 minitron parity
+    # case's prefill, and the cut deepseek round's aggregation/statistics
+    lm_table["flash_attention"]["launches_tp_serve"] = \
+        tp_serve_launches["flash_attention"]
+    lm_table["flash_attention_f32"]["launches_tp_serve"] = \
+        tp_serve_launches["flash_attention_f32"]
+    table["weighted_agg"]["launches_tp_serve"] = \
+        tp_serve_launches["weighted_agg"]
+    table["round_stats"]["launches_tp_serve"] = \
+        tp_serve_launches["round_stats"]
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

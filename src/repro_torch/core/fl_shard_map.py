@@ -42,9 +42,7 @@ re-joins them. A round given `param_specs` (`core.fl.make_round_fn`)
 trains tensor-parallel and hands the region its delta blocks as they
 are, so neither runs on its path; without them the ranks train whole
 models, and `core.fl` cuts the blocks before the region and gathers the
-sharded leaves after it. `models.sharding.shard_params` /
-`gather_params` use the two to place params and to gather them for a
-checkpoint.
+sharded leaves after it.
 """
 from __future__ import annotations
 
@@ -164,8 +162,7 @@ def gather_model_sharded(mesh, trees: list, pspecs: Tree) -> list:
     "model" of every model-sharded leaf's block of every tree, joined on
     its sharded dim; replicated leaves as they are. Not part of any
     region: it runs after the region of a round whose ranks hold whole
-    models, and for a checkpoint of blocks (`models.sharding.
-    gather_params`); a round given `param_specs` never runs it."""
+    models; a round given `param_specs` never runs it."""
     msize = model_axis_size(mesh)
     flat = [treemath.tree_flatten(t) for t in trees]
     dims = [_model_dim(s)

@@ -300,6 +300,42 @@ def make_host_mesh(device=None) -> ClientMesh:
     return ClientMesh(group=None, rank=0, size=1, device=device)
 
 
+WORLD_MODEL_AXIS = 8  # ranks on "model": one HGX node's NVLink cards
+
+
+def launcher_device(device, host_mesh: bool) -> torch.device:
+    """The launchers' device: `device` when given; else CUDA on the host
+    mesh, and off it this rank's card (`LOCAL_RANK`); CUDA raises
+    without a GPU."""
+    if device is not None:
+        return torch.device(device)
+    dev = repro_torch.default_device()
+    if host_mesh:
+        return dev
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def world_mesh(dev) -> ClientMesh:
+    """The launchers' mesh off the host mesh: the process group's world
+    as (world / M, M) with M = min(8, world), on `dev`. Starts the group
+    under torchrun (NCCL on CUDA, gloo on the CPU) unless the caller
+    has."""
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "the launcher off the host mesh runs one rank a device on "
+                "a torch.distributed world: start it under torchrun (or "
+                "call torch.distributed.init_process_group first), or pass "
+                "--host-mesh for one device")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world = dist.get_world_size()
+    model = min(WORLD_MODEL_AXIS, world)
+    if world % model:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"({world // model}, {model}) (data, model)")
+    return make_client_mesh(device=dev, model=model)
+
+
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:
     """Axis names and sizes with no devices and no process group: what

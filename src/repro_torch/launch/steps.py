@@ -25,12 +25,22 @@ returns a state whose params and `prev_delta` are this rank's blocks
 The reference's `delta_constraint` and `grad_constraint` are identities
 here, passed to `make_round_fn` where the reference passes its
 constraints: the activations need none (`models/tp.py`).
+
+Given such a mesh, `build_prefill_step` and `build_decode_step` build
+the serving steps the reference's partitioner makes: their `fn` runs in
+`tp.scope(mesh, rows_over_data=True)` on this rank's params
+(`sharding.param_pspecs`, e.g. from `transformer.init_params(...,
+mesh=, specs=)`), this data index's batch rows and its cache blocks
+(`sharding.cache_pspecs`, e.g. `transformer.init_cache(..., mesh=)`),
+and returns the rows' logits whole (gathered over "model" at the one
+position read) and the cache blocks. `args` keep the global shapes.
+FSDP serving and a batch that does not split over "data" (which puts
+the cache's sequence on "data") raise NotImplementedError naming
+ROADMAP Queue 1 item 13d.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
-
 import torch
 
 from repro_torch.configs import shapes as shapes_mod
@@ -63,6 +73,40 @@ def params_sds(cfg: ModelConfig):
 
 def _identity(tree):
     return tree
+
+
+def _tensor_parallel(mesh) -> bool:
+    """Whether `mesh` is a process group's mesh with a model axis: the
+    builders then build the steps that run on this rank's blocks."""
+    return isinstance(mesh, ClientMesh) and mesh.model_size > 1
+
+
+def _check_family(cfg: ModelConfig, use: str) -> None:
+    """Raise NotImplementedError (naming item 13d) for a family that
+    tensor-parallel execution does not cover (`tp.covers`)."""
+    if not tp.covers(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel {use}: {tp.UNSUPPORTED}")
+
+
+def _check_serving(cfg: ModelConfig, mesh, fsdp: bool, batch: int) -> None:
+    """Raise NotImplementedError (naming item 13d) for tensor-parallel
+    serving the port does not cover: the family (`_check_family`),
+    FSDP params, and a batch that does not split over "data" (the cache
+    rules would put its sequence there)."""
+    _check_family(cfg, "serving")
+    if fsdp:
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP serving (params over 'data', > "
+            f"{SEQUENTIAL_THRESHOLD:.0e} params): ROADMAP Queue 1 item "
+            "13d; the tensor-parallel steps hold the params on 'model' "
+            "only")
+    data = sharding.batch_total(mesh)
+    if batch % data:
+        raise NotImplementedError(
+            f"{cfg.name}: a batch of {batch} does not split over "
+            f"{data} data ranks, so the cache's sequence would go on "
+            "'data': ROADMAP Queue 1 item 13d")
 
 
 # ------------------------------------------------------------- train
@@ -136,8 +180,7 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
         else None
     )
     if tensor_parallel:
-        with tp.scope(mesh):  # the families it covers, or item 13d
-            tp.check_supported(cfg)
+        _check_family(cfg, "training")
         round_fn = fl_mod.make_round_fn(
             loss, flcfg, delta_constraint, angle_pred, grad_constraint,
             mesh=mesh, param_specs=sharding.param_pspecs(
@@ -173,12 +216,17 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     B, T = shape.global_batch, shape.seq_len
     if fsdp is None:
         fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
+    tensor_parallel = _tensor_parallel(mesh)
+    if tensor_parallel:
+        _check_serving(cfg, mesh, fsdp, B)
 
     def prefill_step(params, batch):
-        logits, aux, cache = transformer.forward(
-            params, cfg, batch, mode="prefill", max_len=T
-        )
-        return logits[:, -1:], cache
+        with tp.scope(mesh if tensor_parallel else None,
+                      rows_over_data=True):
+            logits, aux, cache = transformer.forward(
+                params, cfg, batch, mode="prefill", max_len=T
+            )
+            return tp.gather_logits(logits[:, -1:], cfg.vocab_size), cache
 
     p_sds = params_sds(cfg)
     batch_sds = shapes_mod.token_batch_specs(cfg, B, T)
@@ -211,35 +259,12 @@ def _pos_shard(mesh, x, dim):
 
 
 def _cache_shardings(cfg, mesh, cache_sds):
-    """Decode-cache rules: batch dim over (pod,data); if B is unshardable
-    (long_500k B=1) the sequence dim of attention caches goes on "data";
-    SSM inner dims follow their params onto "model"."""
-    total = sharding.batch_total(mesh)
-    msize = mesh.shape.get("model", 1)
-    baxes = sharding.batch_spec_entry(mesh)
-
-    def leaf(keys, x):
-        name = keys[-1]
-        nd = len(x.shape)
-        spec: list[Any] = [None] * nd
-        # dim0 = scan group axis (never sharded); dim1 = batch
-        if nd >= 2 and x.shape[1] % total == 0 and x.shape[1] >= total:
-            spec[1] = baxes
-        elif name in ("k", "v", "ckv", "krope", "cross_k", "cross_v") and nd >= 3:
-            if x.shape[2] % mesh.shape.get("data", 1) == 0:
-                spec[2] = "data"
-        if name in ("k", "v", "cross_k", "cross_v") and nd >= 4:
-            if x.shape[3] % msize == 0 and x.shape[3] >= msize:
-                spec[3] = "model"
-        if name == "h" and nd >= 3 and x.shape[2] % msize == 0:
-            spec[2] = "model"
-        if name == "conv" and nd >= 4 and x.shape[3] % msize == 0:
-            spec[3] = "model"
-        if name == "S" and nd >= 3 and x.shape[2] % msize == 0:
-            spec[2] = "model"  # rwkv heads
-        return sharding.NamedSpec(mesh, tuple(spec))
-
-    return sharding.map_leaves(leaf, cache_sds)
+    """The decode cache's `NamedSpec` tree (`sharding.cache_pspecs`)."""
+    specs = sharding.cache_pspecs(cache_sds, mesh)
+    return sharding.map_leaves(
+        lambda keys, x: sharding.NamedSpec(mesh,
+                                           sharding.spec_at(specs, keys)),
+        cache_sds)
 
 
 def build_decode_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
@@ -248,13 +273,20 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     B, S = shape.global_batch, shape.seq_len
     if fsdp is None:
         fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
+    tensor_parallel = _tensor_parallel(mesh)
+    if tensor_parallel:
+        _check_serving(cfg, mesh, fsdp, B)
 
     def serve_step(params, token, cache, pos):
         # a meta position has no value; a decode step's shapes and work
         # do not depend on it, so the dry run decodes at position 0
-        return transformer.decode_step(
-            params, cfg, token, cache,
-            0 if pos.device.type == "meta" else int(pos))
+        pos = 0 if getattr(pos, "device", None) == shapes_mod.META \
+            else int(pos)
+        with tp.scope(mesh if tensor_parallel else None,
+                      rows_over_data=True):
+            logits, cache = transformer.decode_step(params, cfg, token,
+                                                    cache, pos)
+            return tp.gather_logits(logits, cfg.vocab_size), cache
 
     p_sds = params_sds(cfg)
     d = shapes_mod.decode_specs(cfg, B, S)

@@ -7,17 +7,21 @@ dry run traces), on CUDA unless `--device cpu` is given. With
 `torch.distributed` world, one rank a card: under torchrun it starts the
 process group itself (NCCL on CUDA, gloo with `--device cpu`), and a
 caller that started one already has it used. The mesh is
-`make_client_mesh(model=min(8, world))`: one HGX node's NVLink cards on
-"model", the nodes on "data" (world 256 is `make_production_mesh()`'s
-(32, 8); `--multi-pod` names no other mesh here, the pods' nodes all
-sit on "data"). Each client then trains tensor-parallel over "model"
-and the state stays in blocks (`models/tp.py`); a family that cannot
-raises NotImplementedError (ROADMAP Queue 1 item 13d).
+`launch.mesh.world_mesh`, `make_client_mesh(model=min(8, world))`: one
+HGX node's NVLink cards on "model", the nodes on "data" (world 256 is
+`make_production_mesh()`'s (32, 8); `--multi-pod` names no other mesh
+here, the pods' nodes all sit on "data"). Each client then trains
+tensor-parallel over "model" and the state stays in blocks
+(`models/tp.py`), initialised straight into them leaf by leaf; a family
+that cannot raises NotImplementedError (ROADMAP Queue 1 item 13d). The
+DeepSeek family (MLA + MoE) trains so too.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --host-mesh --smoke --rounds 5
   torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch gemma-2b \\
       --seq 1024 --global-batch 4 --rounds 5
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch deepseek-v2-lite-16b --seq 512 --global-batch 4 --rounds 2
   # preemptible runs: --ckpt DIR [--ckpt-every N] snapshots the FULL
   # RoundState (params, angles, EF, generator, round); --resume continues
   # bit-exactly from the latest snapshot:
@@ -60,33 +64,6 @@ def params_sha256(params, mesh=None, specs=None) -> str:
         h.update(leaf.detach().cpu().contiguous().view(torch.uint8)
                  .numpy().tobytes())
     return h.hexdigest()
-
-
-WORLD_MODEL_AXIS = 8  # ranks on "model": one HGX node's NVLink cards
-
-
-def world_mesh(dev):
-    """The launcher's mesh off the host mesh: the process group's world
-    as (world / M, M) with M = min(8, world). Starts the group under
-    torchrun (NCCL on CUDA, gloo on the CPU) unless the caller has."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_client_mesh
-
-    if not dist.is_initialized():
-        if "WORLD_SIZE" not in os.environ:
-            raise RuntimeError(
-                "the launcher off the host mesh runs one rank a device on "
-                "a torch.distributed world: start it under torchrun (or "
-                "call torch.distributed.init_process_group first), or pass "
-                "--host-mesh for one device")
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    world = dist.get_world_size()
-    model = min(WORLD_MODEL_AXIS, world)
-    if world % model:
-        raise ValueError(f"a world of {world} ranks does not split into "
-                         f"({world // model}, {model}) (data, model)")
-    return make_client_mesh(device=dev, model=model)
 
 
 def main(argv=None) -> dict:
@@ -133,19 +110,14 @@ def main(argv=None) -> dict:
     from repro_torch.configs import registry, shapes as shapes_mod
     from repro_torch.data import synthetic
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import (launcher_device, make_host_mesh,
+                                         world_mesh)
     from repro_torch.models import sharding, transformer
     from repro_torch.telemetry import report as tel_report
     from repro_torch.telemetry import sinks as tel_sinks
     from repro_torch.telemetry import spans as tel_spans
 
-    if args.device is not None:
-        dev = torch.device(args.device)
-    elif args.host_mesh:
-        dev = repro_torch.default_device()
-    else:  # a card a rank
-        repro_torch.default_device()
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    dev = launcher_device(args.device, args.host_mesh)
     name = args.arch + ("-smoke" if args.smoke else "")
     cfg = registry.get(name)
     mesh = make_host_mesh(dev) if args.host_mesh else world_mesh(dev)
@@ -202,10 +174,10 @@ def main(argv=None) -> dict:
                                prev_delta=placed(state.prev_delta))
         start = int(state.round)
         print(f"resumed {args.ckpt} @ round {start} (ckpt_{step_no:08d})")
-    else:
-        state = repro_torch.init_round_state(flcfg, placed(
-            transformer.init_params(
-                torch.Generator(device=dev).manual_seed(0), cfg)))
+    else:  # straight into this rank's blocks: no whole model here
+        state = repro_torch.init_round_state(flcfg, transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            mesh=None if specs is None else mesh, specs=specs))
     sel = torch.arange(K, dtype=torch.int32, device=dev)
     sizes = torch.ones((K,), device=dev)
     if sink is not None:

@@ -12,6 +12,9 @@ sliding window, `cfg.attention_impl == "flash"` and T % 64 == 0. That is
 dispatch by config, not a fallback: on CUDA tensors the kernel runs or
 raises. `attn_decode` writes the new key and value into the cache in
 place (the reference returns an updated copy) and returns that cache.
+Inside a `tp.scope` train, prefill and decode run on this rank's heads
+(`_tp_qkv`), and the cache holds this rank's KV heads where they divide
+over "model", all of them where they do not.
 """
 from __future__ import annotations
 
@@ -96,9 +99,9 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
     b, t, _ = x.shape
     hd = cfg.hd
     if tp.active() is not None:
-        if return_cache:
-            raise NotImplementedError(f"prefill: {tp.UNSUPPORTED}")
-        q, k, v, out_proj = _tp_qkv(p, cfg, x, cos, sin)
+        # k, v hold the heads the cache holds; `pick` gives the q heads'
+        q, ck, cv, out_proj, pick = _tp_qkv(p, cfg, x, cos, sin)
+        k, v = pick(ck), pick(cv)
     else:
         q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
         k = _split_heads(x @ p["wk"], cfg.num_kv_heads, hd)
@@ -106,6 +109,7 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
         if cos is not None:
             q = layers.rope_apply(q, cos, sin)
             k = layers.rope_apply(k, cos, sin)
+        ck, cv = k, v
 
         def out_proj(out):
             return out @ p["wo"]
@@ -130,28 +134,32 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
 
     cache = None
     if return_cache:
+        # the KV heads the cache holds: every one, or inside a tp.scope
+        # this rank's block of them where they divide over "model"
         s = min(window, max_len) if window else max_len
         assert s > 0
         if window and t > s:
             # the ring keeps the trailing `window` positions, rotated so
             # that slot = pos % S matches decode-time writes
             shift = t % s
-            ck = torch.roll(k[:, -s:], shift, dims=1)
-            cv = torch.roll(v[:, -s:], shift, dims=1)
+            kc = torch.roll(ck[:, -s:], shift, dims=1)
+            vc = torch.roll(cv[:, -s:], shift, dims=1)
         else:
-            ck = torch.zeros((b, s, cfg.num_kv_heads, hd), dtype=k.dtype,
-                             device=k.device)
-            cv = torch.zeros_like(ck, dtype=v.dtype)
+            kc = torch.zeros((b, s) + tuple(ck.shape[2:]), dtype=ck.dtype,
+                             device=ck.device)
+            vc = torch.zeros_like(kc, dtype=cv.dtype)
             n = min(t, s)
-            ck[:, :n] = k[:, -n:]
-            cv[:, :n] = v[:, -n:]
-        cache = {"k": ck, "v": cv}
+            kc[:, :n] = ck[:, -n:]
+            vc[:, :n] = cv[:, -n:]
+        cache = {"k": kc, "v": vc}
     return y, cache
 
 
 def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
-    """q, k, v and the output projection of tensor-parallel attention
-    (inside a `tp.scope`), each projection's split read from its width.
+    """q, the k and v of the KV heads this rank's cache holds, the output
+    projection, and `pick`, which maps those k or v to the KV heads this
+    rank's q heads read: tensor-parallel attention (inside a
+    `tp.scope`), each projection's split read from its width.
 
     Where the q blocks hold whole heads (H % M == 0), attention runs on
     this rank's H/M heads: `wq` column-parallel; `wk` / `wv` too where
@@ -163,10 +171,13 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
     blocks do not hold whole heads (H = 12 on M = 8), every projection's
     output is gathered (GSPMD pays a collective there too), attention
     runs on all heads on every rank, and `wo` reads this rank's rows of
-    its output. RoPE acts on whole
-    heads: it rotates after a gather. A replicated tensor that feeds a
-    rank's own blocks passes `tp.copy_to_model`, so its cotangent is
-    summed over the ranks."""
+    its output. RoPE acts on whole heads: it rotates after a gather. A
+    replicated tensor that feeds a rank's own blocks passes
+    `tp.copy_to_model`, so its cotangent is summed over the ranks.
+
+    The cache holds the KV heads the reference's cache rules give the
+    rank (`sharding.cache_pspecs`): its G/M heads where G % M == 0, else
+    all G."""
     hd, nh, ng = cfg.hd, cfg.num_heads, cfg.num_kv_heads
     m, j = tp.model_size(), tp.model_index()
     xc = tp.copy_to_model(x)
@@ -180,7 +191,11 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
     def rope(z):
         return z if cos is None else layers.rope_apply(z, cos, sin)
 
+    def same(z):
+        return z
+
     local_q = tp.split(p["wq"].shape[-1], nh * hd) > 1 and nh % m == 0
+    pick = same
     if local_q:
         hq = nh // m
         q = rope(_split_heads(xc @ p["wq"], hq, hd))
@@ -190,7 +205,11 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
         else:
             k, v = (tp.copy_to_model(z) for z in (
                 rope(whole(p["wk"], ng)), whole(p["wv"], ng)))
-            k, v = (_kv_for_heads(z, j * hq, hq, nh // ng) for z in (k, v))
+            if ng % m == 0:  # a replicated leaf: the rank's KV heads
+                k, v = (z.narrow(2, j * (ng // m), ng // m) for z in (k, v))
+            else:
+                def pick(z):
+                    return _kv_for_heads(z, j * hq, hq, nh // ng)
     else:
         q, k, v = (rope(whole(p["wq"], nh)), rope(whole(p["wk"], ng)),
                    whole(p["wv"], ng))
@@ -206,7 +225,7 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
             if not local_q:
                 out = tp.copy_to_model(out).narrow(-1, j * rows, rows)
             return tp.reduce_from_model(out @ wo)
-    return q, k, v, out_proj
+    return q, k, v, out_proj, pick
 
 
 def _kv_for_heads(z: torch.Tensor, first: int, count: int,
@@ -232,26 +251,36 @@ def attn_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     (y, cache)."""
     hd = cfg.hd
     s = cache["k"].shape[1]
-    q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
-    k = _split_heads(x @ p["wk"], cfg.num_kv_heads, hd)
-    v = _split_heads(x @ p["wv"], cfg.num_kv_heads, hd)
-    if cos is not None:
-        q = layers.rope_apply(q, cos, sin)
-        k = layers.rope_apply(k, cos, sin)
+    if tp.active() is not None:
+        # the cache holds the KV heads of `_tp_qkv`'s k and v
+        q, k, v, out_proj, pick = _tp_qkv(p, cfg, x, cos, sin)
+    else:
+        q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
+        k = _split_heads(x @ p["wk"], cfg.num_kv_heads, hd)
+        v = _split_heads(x @ p["wv"], cfg.num_kv_heads, hd)
+        if cos is not None:
+            q = layers.rope_apply(q, cos, sin)
+            k = layers.rope_apply(k, cos, sin)
+
+        def out_proj(out):
+            return out @ p["wo"]
+
+        def pick(z):
+            return z
     # the reference's dynamic_update_slice clamps the start into range
     slot = min(pos % s if window else pos, s - 1)
     ck, cv = cache["k"], cache["v"]
     ck[:, slot:slot + 1] = k
     cv[:, slot:slot + 1] = v
 
-    scores = _gqa_scores(q, ck, _scale(hd))  # (B,G,Hg,1,S)
+    scores = _gqa_scores(q, pick(ck), _scale(hd))  # (B,G,Hg,1,S)
     idx = torch.arange(s, device=x.device)
     if window:
         valid = idx < min(pos + 1, s)  # ring: all that is written is in
     else:
         valid = idx <= pos
     probs = _masked_softmax(scores, valid[None, None, None, None, :])
-    y = _gqa_out(probs, cv).to(x.dtype) @ p["wo"]
+    y = out_proj(_gqa_out(probs, pick(cv)).to(x.dtype))
     return y, cache
 
 

@@ -92,17 +92,22 @@ def stacked(n: int, tree):
     return Init((n,) + tree.shape, tree.dtype, fill)
 
 
-def make(tree, gen: Optional[torch.Generator], device):
+def make(tree, gen: Optional[torch.Generator], device,
+         cut: Optional[Callable] = None, _keys: tuple = ()):
     """The tensors of a tree of `Init`s on `device`: each leaf allocated
     once and filled in place from `gen`, so that the only transient is
-    one draw. On the "meta" device nothing is allocated or drawn."""
+    one draw. On the "meta" device nothing is allocated or drawn. With
+    `cut`, each leaf is replaced by `cut(keys, leaf)` (its dict path)
+    as soon as it is filled, before the next leaf is made: the draws
+    are those of the whole tree, and one whole leaf is the transient."""
     device = torch.device(device)
     if isinstance(tree, dict):
-        return {k: make(v, gen, device) for k, v in tree.items()}
+        return {k: make(v, gen, device, cut, _keys + (k,))
+                for k, v in tree.items()}
     out = torch.empty(tree.shape, dtype=tree.dtype, device=device)
     if device.type != "meta":
         tree.fill(gen, out)
-    return out
+    return out if cut is None else cut(_keys, out)
 
 
 def dense_init(d_in: int, d_out: int, dtype) -> Init:
@@ -168,12 +173,13 @@ def mlp_init(d: int, d_ff: int, kind: str, dtype) -> dict:
 
 
 def mlp_apply(p: dict, x: torch.Tensor, kind: str,
-              d_ff: Optional[int] = None) -> torch.Tensor:
+              d_ff: Optional[int] = None, *,
+              reduce: bool = True) -> torch.Tensor:
     """The FFN. Given the config's `d_ff`, leaves that hold a block of
     it (inside a `tp.scope`) run tensor-parallel: `w_gate` / `w_up`
     column-parallel, `w_down` row-parallel, its partial product summed
-    over "model"."""
-    sharded = d_ff is not None and tp.split(p["w_up"].shape[-1], d_ff) > 1
+    over "model" (left to the caller with `reduce=False`)."""
+    sharded = d_ff is not None and mlp_sharded(p, d_ff)
     if sharded:
         x = tp.copy_to_model(x)
     if kind == "swiglu":
@@ -187,7 +193,13 @@ def mlp_apply(p: dict, x: torch.Tensor, kind: str,
     else:
         raise ValueError(kind)
     y = h @ p["w_down"]
-    return tp.reduce_from_model(y) if sharded else y
+    return tp.reduce_from_model(y) if sharded and reduce else y
+
+
+def mlp_sharded(p: dict, d_ff: int) -> bool:
+    """Whether the FFN's leaves hold a block of its `d_ff` (a
+    tensor-parallel partial product, inside a `tp.scope`)."""
+    return tp.split(p["w_up"].shape[-1], d_ff) > 1
 
 
 # ----------------------------------------------------------------- RoPE

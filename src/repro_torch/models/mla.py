@@ -9,13 +9,26 @@ W_uk folds into the query and W_uv into the output. RoPE runs at
 NEG_INF = -1e30, as in the reference, whose sharding constraints
 (`act_constrain`) have no counterpart here. `mla_decode` writes the
 token's latents into the cache in place and returns that cache.
+
+Inside a `tp.scope` MLA runs head-parallel, each leaf's split read from
+its width (`_layout`): `wq` / `wq_b`, `wk_b` and `wv_b` are column
+blocks of whole heads where H % M == 0, `wo` a row block whose partial
+product is summed over "model"; `wkv_a`, `kv_norm`, `wq_a` and `q_norm`
+are replicated, and so are the latents they make, which pass
+`tp.copy_to_model` where they feed the rank's heads. The latent cache
+has no head dim: every rank holds it whole. The absorbed decode reads
+`wk_b` / `wv_b` as the rank's H/M heads. Where the blocks do not hold
+whole heads (H = 4 on M = 8) the projections' outputs are gathered, as
+in `attention._tp_qkv`, attention runs on all heads on every rank, and
+`wo` reads the rank's rows of its input; the absorbed decode then
+gathers `wk_b` and `wv_b` themselves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 NEG_INF = -1e30
 
@@ -48,15 +61,52 @@ def _scale(m) -> float:
         m.nope_head_dim + m.rope_head_dim)))
 
 
-def _queries(p, cfg, x, cos, sin):
+def _layout(p, cfg) -> tuple[bool, int]:
+    """(local, heads): whether this rank attends over its own H/M heads
+    (inside a `tp.scope`, every head projection a block of whole heads),
+    and how many heads it attends over."""
+    m, H = cfg.mla, cfg.num_heads
+    size = tp.model_size()
+    q_w = p["wq_b"] if m.q_lora_rank else p["wq"]
+    widths = ((q_w, m.nope_head_dim + m.rope_head_dim),
+              (p["wk_b"], m.nope_head_dim), (p["wv_b"], m.v_head_dim))
+    local = H % size == 0 and all(tp.split(w.shape[-1], H * width) > 1
+                                  for w, width in widths)
+    return local, H // size if local else H
+
+
+def _proj(z, w, width: int, cfg, local: bool):
+    """z @ w for a projection onto the heads (`width` columns a head):
+    this rank's heads where `local`, else all heads (its output gathered
+    where w is a block)."""
+    if tp.split(w.shape[-1], cfg.num_heads * width) == 1:
+        return z @ w
+    y = tp.copy_to_model(z) @ w
+    return y if local else tp.gather_from_model(y, -1)
+
+
+def _out(out, wo, cfg, local: bool):
+    """out (B, T, heads * v) @ wo: row-parallel and summed over "model"
+    where wo is a block (on all heads, over the rank's rows of out)."""
+    rows = wo.shape[0]
+    if tp.split(rows, cfg.num_heads * cfg.mla.v_head_dim) == 1:
+        if local:
+            out = tp.gather_from_model(out, -1)
+        return out @ wo
+    if not local:
+        out = tp.copy_to_model(out).narrow(-1, tp.block_start(rows), rows)
+    return tp.reduce_from_model(out @ wo)
+
+
+def _queries(p, cfg, x, cos, sin, local: bool, heads: int):
     m = cfg.mla
-    H = cfg.num_heads
+    width = m.nope_head_dim + m.rope_head_dim
     if m.q_lora_rank:
-        q = layers.norm_apply(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+        q = _proj(layers.norm_apply(p["q_norm"], x @ p["wq_a"]), p["wq_b"],
+                  width, cfg, local)
     else:
-        q = x @ p["wq"]
-    q = q.reshape(x.shape[0], x.shape[1], H,
-                  m.nope_head_dim + m.rope_head_dim)
+        q = _proj(x, p["wq"], width, cfg, local)
+    q = q.reshape(x.shape[0], x.shape[1], heads, width)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, layers.rope_apply(q_rope, cos, sin)
 
@@ -77,21 +127,27 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
     positions."""
     m = cfg.mla
     b, t, _ = x.shape
-    H = cfg.num_heads
+    local, H = _layout(p, cfg)
     f32 = torch.float32
-    q_nope, q_rope = _queries(p, cfg, x, cos, sin)
+    q_nope, q_rope = _queries(p, cfg, x, cos, sin, local, H)
     c_kv, k_rope = _latents(p, cfg, x, cos, sin)
-    k_nope = (c_kv @ p["wk_b"]).reshape(b, t, H, m.nope_head_dim)
-    v = (c_kv @ p["wv_b"]).reshape(b, t, H, m.v_head_dim)
+    k_nope = _proj(c_kv, p["wk_b"], m.nope_head_dim, cfg, local).reshape(
+        b, t, H, m.nope_head_dim)
+    v = _proj(c_kv, p["wv_b"], m.v_head_dim, cfg, local).reshape(
+        b, t, H, m.v_head_dim)
+    # the shared rope key feeds this rank's heads only where `local`
+    k_rope_h = tp.copy_to_model(k_rope) if local else k_rope
 
     s = torch.einsum("bthe,bshe->bhts", q_nope.to(f32), k_nope.to(f32))
-    s = s + torch.einsum("bthe,bse->bhts", q_rope.to(f32), k_rope.to(f32))
+    s = s + torch.einsum("bthe,bse->bhts", q_rope.to(f32),
+                         k_rope_h.to(f32))
     mask = (torch.arange(t, device=x.device)[None, :]
             <= torch.arange(t, device=x.device)[:, None])
     probs = torch.softmax(torch.where(mask, s * _scale(m),
                                       torch.full_like(s, NEG_INF)), dim=-1)
     out = torch.einsum("bhts,bshe->bthe", probs, v.to(f32))
-    y = out.reshape(b, t, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+    y = _out(out.reshape(b, t, H * m.v_head_dim).to(x.dtype), p["wo"], cfg,
+             local)
 
     cache = None
     if return_cache:
@@ -110,9 +166,9 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     pos the absolute position (int). Returns (y, cache)."""
     m = cfg.mla
     b = x.shape[0]
-    H = cfg.num_heads
+    local, H = _layout(p, cfg)
     f32 = torch.float32
-    q_nope, q_rope = _queries(p, cfg, x, cos, sin)  # (B,1,H,*)
+    q_nope, q_rope = _queries(p, cfg, x, cos, sin, local, H)  # (B,1,H,*)
     c_kv, k_rope = _latents(p, cfg, x, cos, sin)  # (B,1,r), (B,1,rd)
     ckv, krope = cache["ckv"], cache["krope"]
     # the reference's dynamic_update_slice clamps the start into range
@@ -120,8 +176,14 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     ckv[:, slot:slot + 1] = c_kv
     krope[:, slot:slot + 1] = k_rope
 
-    # absorb W_uk into the query: q_lat (B,1,H,r)
-    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.nope_head_dim)
+    # absorb W_uk into the query: q_lat (B,1,H,r), over the rank's heads
+    # where `local`, else over all (a block of part heads gathered)
+    wk_b, wv_b = p["wk_b"], p["wv_b"]
+    if not local:
+        wk_b, wv_b = (tp.gather_from_model(w, -1) if tp.split(
+            w.shape[-1], H * width) > 1 else w for w, width in (
+                (wk_b, m.nope_head_dim), (wv_b, m.v_head_dim)))
+    wk_b = wk_b.reshape(m.kv_lora_rank, H, m.nope_head_dim)
     q_lat = torch.einsum("bthe,rhe->bthr", q_nope.to(f32), wk_b.to(f32))
     s = torch.einsum("bthr,bsr->bhts", q_lat, ckv.to(f32))
     s = s + torch.einsum("bthe,bse->bhts", q_rope.to(f32), krope.to(f32))
@@ -130,7 +192,8 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
                                       s * _scale(m),
                                       torch.full_like(s, NEG_INF)), dim=-1)
     out_lat = torch.einsum("bhts,bsr->bthr", probs, ckv.to(f32))
-    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    wv_b = wv_b.reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bthr,rhe->bthe", out_lat, wv_b.to(f32))
-    y = out.reshape(b, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+    y = _out(out.reshape(b, 1, H * m.v_head_dim).to(x.dtype), p["wo"], cfg,
+             local)
     return y, cache

@@ -14,13 +14,34 @@ The scatters are out of place (`index_put`, `index_add`), so the
 function is differentiable under autograd and `torch.func.grad`, and
 none waits for the device (`torch.bincount` would: its output size is
 read back to the host).
+
+Inside a `tp.scope` the routing runs replicated on every model rank (the
+router in f32, the capacity C of the whole batch), bit for bit the
+same, and the experts run parallel, each leaf's split read from its
+width. Where the rules split the stacked experts on E (E % M == 0: expert
+parallelism), each rank packs and runs only the slots of its E/M
+experts; the shared experts are Megatron-split like the dense FFN; the
+routed and shared partial outputs are summed in one
+`tp.reduce_from_model`. Where they put "model" on each expert's last dim
+instead (`f` of `w_gate` / `w_up`, `d` of `w_down`), every rank runs
+every expert on its block of `f`, and the hidden and the output are
+gathered over "model". The dispatched tokens and the gates feed the
+rank's own experts, so both pass `tp.copy_to_model`; the aux loss stays
+on the replicated path and is added once. A serving step whose rows are
+split over "data" routes the rows of every data index together
+(`tp.gather_rows`), as the reference routes its whole batch.
+`record_routing()` lists each call's routing, for checks.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
+
+_ROUTING: list = []  # the lists of the open `record_routing` blocks
 
 
 def moe_init(cfg) -> dict:
@@ -70,32 +91,82 @@ def _route(p: dict, cfg, xf: torch.Tensor):
     return probs, flat_e, stok, sgate, slot, keep, C
 
 
+@contextlib.contextmanager
+def record_routing():
+    """A list of each MoE call's routing inside the block: dicts of the
+    assignments' experts (token-major), the expert-sorted slots, keep
+    flags and gates (detached)."""
+    log: list = []
+    _ROUTING.append(log)
+    try:
+        yield log
+    finally:
+        _ROUTING.remove(log)
+
+
+def _f_split(p: dict) -> bool:
+    """Whether `w_gate` / `w_up` hold a block of each expert's `f` (the
+    rules' fallback where E does not divide over "model")."""
+    return p["w_gate"].shape[-1] != p["w_down"].shape[-2]
+
+
+def _experts(p: dict, h: torch.Tensor, d: int) -> torch.Tensor:
+    """The grouped swiglu of the stacked experts over h (E_loc, C, d):
+    (E_loc * C, d). Where the blocks hold a slice of every expert's `f`
+    (and of `d` in `w_down`), the hidden and the output are gathered."""
+    g = F.silu(h @ p["w_gate"])
+    hid = g * (h @ p["w_up"])
+    if _f_split(p):  # the whole hidden
+        hid = tp.gather_from_model(hid, -1)
+    if p["w_down"].shape[-1] != d:  # a block of d: the whole output
+        ye = tp.gather_from_model(tp.copy_to_model(hid) @ p["w_down"], -1)
+    else:
+        ye = hid @ p["w_down"]
+    return ye.reshape(-1, d)
+
+
 def moe_apply(p: dict, cfg, x: torch.Tensor):
     """x (B, T, d) -> (y, aux_loss). Decode runs (B, 1, d) through the
     same function."""
     m = cfg.moe
     b, t, d = x.shape
-    n = b * t
-    xf = x.reshape(n, d)
+    xf = tp.gather_rows(x.reshape(b * t, d))  # every data index's rows
+    n = xf.shape[0]
     probs, flat_e, stok, sgate, slot, keep, C = _route(p, cfg, xf)
+    for log in _ROUTING:
+        log.append({"experts": flat_e.detach(), "slots": slot.detach(),
+                    "keep": keep.detach(), "gates": sgate.detach()})
     E = m.num_experts
-
-    buf = torch.index_put(xf.new_zeros((E * C + 1, d)), (slot,), xf[stok])
-    h = buf[:E * C].reshape(E, C, d)
-    # grouped swiglu over the stacked experts
-    g = F.silu(h @ p["w_gate"])
-    u = h @ p["w_up"]
-    ye = ((g * u) @ p["w_down"]).reshape(E * C, d)
-    ye = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
-
-    contrib = ye[slot] * (sgate * keep).to(ye.dtype)[:, None]
+    e_loc = p["w_gate"].shape[-3]
+    shared_f = m.num_shared * m.d_ff_expert
     acc_dt = getattr(torch, m.combine_dtype)
-    y = torch.zeros((n, d), dtype=acc_dt, device=x.device).index_add(
-        0, stok, contrib.to(acc_dt))
-    y = y.to(x.dtype)
 
-    if "shared" in p:
-        y = y + layers.mlp_apply(p["shared"], xf, "swiglu")
+    # expert parallelism: this rank's E/M experts, their slots from lo;
+    # otherwise every expert (whole, or a block of each expert's f), and
+    # the dropped assignments already point at the padding row E*C
+    ep = tp.split(e_loc, E) > 1
+    lo = tp.block_start(e_loc) * C if ep else 0
+    mine = keep & (slot >= lo) & (slot < lo + e_loc * C)
+    lslot = torch.where(mine, slot - lo, torch.full_like(slot, e_loc * C))
+    xs = tp.copy_to_model(xf) if ep or _f_split(p) else xf
+    gates = tp.copy_to_model(sgate) if ep else sgate
+    buf = torch.index_put(xs.new_zeros((e_loc * C + 1, d)), (lslot,),
+                          xs[stok])
+    ye = _experts(p, buf[:e_loc * C].reshape(e_loc, C, d), d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
+    contrib = ye[lslot] * (gates * mine).to(ye.dtype)[:, None]
+    y = torch.zeros((n, d), dtype=acc_dt, device=x.device).index_add(
+        0, stok, contrib.to(acc_dt)).to(x.dtype)
+    # the routed and a Megatron-split shared partial: one reduce
+    fused = ep and "shared" in p and layers.mlp_sharded(p["shared"],
+                                                        shared_f)
+    if fused:
+        y = y + layers.mlp_apply(p["shared"], xf, "swiglu", shared_f,
+                                 reduce=False)
+    if ep:
+        y = tp.reduce_from_model(y)
+    if "shared" in p and not fused:
+        y = y + layers.mlp_apply(p["shared"], xf, "swiglu", shared_f)
 
     # switch-style load-balance loss over all k assignments
     f_e = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add(
@@ -103,4 +174,4 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
         n * m.top_k)
     p_e = torch.mean(probs, dim=0)
     aux = m.aux_loss_weight * E * torch.sum(f_e * p_e)
-    return y.reshape(b, t, d), aux
+    return tp.own_rows(y, b * t).reshape(b, t, d), aux

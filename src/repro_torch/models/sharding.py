@@ -22,9 +22,17 @@ model-sharded leaf is raveled, quantized and aggregated a block a rank
 (`shard_params`) and trains each client tensor-parallel over "model"
 (`models/tp.py`: the model code reads each leaf's split from its
 width and runs the collectives itself). `gather_params` is the inverse,
-for checkpoints and hashes only. The activations need no constraint: a
-tensor is either replicated or one of this rank's explicit blocks, so
-`constrain` changes nothing.
+for checkpoints and hashes only. `transformer.init_params(...,
+mesh=, specs=)` makes the blocks straight from the init, leaf by leaf
+(`block`), so that no process holds the whole model. The activations
+need no constraint: a tensor is either replicated or one of this rank's
+explicit blocks, so `constrain` changes nothing.
+
+The decode cache has rules of its own (`cache_pspecs`, the reference's
+`launch/steps.py::_cache_shardings`): its batch rows over the batch
+axes, its KV heads over "model" where they divide. `shard_params` and
+`gather_params` move a cache tree between whole and this rank's blocks
+as they move the params.
 """
 from __future__ import annotations
 
@@ -216,33 +224,100 @@ def constrain(x, *axes):
     return x
 
 
-def shard_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
-    """This rank's blocks of whole `params` under the UNSTACKED spec tree
-    `specs` (`param_pspecs`): each model-sharded leaf cut on its "model"
-    dim to the block at the rank's model index, of
-    `NamedSpec(mesh, spec).shard_shape`; a replicated leaf as it is.
-    Each block is a copy, so the whole leaf can be freed."""
-    from repro_torch.core import fl_shard_map
-
-    blocks = fl_shard_map.local_blocks(
-        mesh, treemath.tree_map(lambda x: x[None], params), specs)
-    return treemath.tree_map(
-        lambda b, x: b[0] if b[0].shape == x.shape else b[0].clone(),
-        blocks, params)
+def shard_params(tree: PyTree, mesh, specs: PyTree) -> PyTree:
+    """This rank's blocks of a whole tree under its UNSTACKED spec tree
+    (`param_pspecs`, or `cache_pspecs` for a decode cache): each leaf
+    cut by `block` to `NamedSpec(mesh, spec).shard_shape`; a leaf that
+    is not cut as it is. Each block is a copy, so the whole leaf can be
+    freed."""
+    leaves, treedef = treemath.tree_flatten(tree)
+    return treemath.tree_unflatten(treedef, [
+        block(x, mesh, s) for x, s in zip(
+            leaves, treemath.tree_leaves_like(tree, specs))])
 
 
 def gather_params(blocks: PyTree, mesh, specs: PyTree,
                   device=None) -> PyTree:
-    """Whole leaves from this rank's `blocks` (the inverse of
-    `shard_params`): one all_gather over "model" a model-sharded leaf,
-    leaf by leaf, each whole leaf moved to `device` (default: the
-    blocks') before the next is gathered. For checkpoints and
-    `params_sha256`; never on the round path."""
-    from repro_torch.core import fl_shard_map
-
+    """Whole leaves from every rank's `blocks` (the inverse of
+    `shard_params`, for params and caches alike): one all_gather a
+    sharded axis of a leaf, leaf by leaf, each whole leaf moved to
+    `device` (default: the blocks') before the next is gathered. For
+    checkpoints, hashes and checks; never on the round or serving
+    path."""
     leaves, treedef = treemath.tree_flatten(blocks)
     out = []
     for x, spec in zip(leaves, treemath.tree_leaves_like(blocks, specs)):
-        x, = fl_shard_map.gather_model_sharded(mesh, [x], spec)
+        for dim, entry in enumerate(spec):
+            for axis in _names(entry):
+                if _axis_size(mesh, axis) > 1:
+                    x = mesh.all_gather(x, axes=(axis,), dim=dim)
         out.append(x if device is None else x.to(device))
     return treemath.tree_unflatten(treedef, out)
+
+
+def _axis_index(mesh, axis: str) -> int:
+    """This rank's index on `axis` of a `launch.mesh.ClientMesh`."""
+    if axis == "model":
+        return mesh.model_index
+    if axis == "data":
+        return mesh.client_index
+    raise ValueError(f"a ClientMesh has no axis {axis!r}")
+
+
+def block(x, mesh, spec: tuple):
+    """This rank's block of the whole leaf `x` under `spec` on a
+    `ClientMesh`: each sharded dim cut to the rank's index on its axis,
+    of `NamedSpec(mesh, spec).shard_shape`. A copy where it is cut, so
+    the whole leaf can be freed; `x` itself where nothing is."""
+    out = x
+    for dim, entry in enumerate(spec):
+        for axis in _names(entry):
+            n = _axis_size(mesh, axis)
+            if n > 1:
+                step = out.shape[dim] // n
+                out = out.narrow(dim, _axis_index(mesh, axis) * step, step)
+    NamedSpec(mesh, spec).shard_shape(tuple(x.shape))  # raises off blocks
+    return x if out is x else out.clone()
+
+
+def spec_at(specs: PyTree, keys: tuple) -> tuple:
+    """The spec of the leaf at dict path `keys` of a spec tree."""
+    for k in keys:
+        specs = specs[k]
+    return specs
+
+
+def cache_pspecs(cache_or_shapes: PyTree, mesh) -> PyTree:
+    """Decode-cache rules, the reference's `_cache_shardings`: batch dim
+    over (pod, data); if B is unshardable (long_500k B = 1) the sequence
+    dim of attention caches goes on "data"; the K / V heads on "model"
+    where they divide; SSM inner dims follow their params onto "model".
+    The MLA latents have no head dim and stay whole on "model"."""
+    total = batch_total(mesh)
+    msize = _axis_size(mesh, "model")
+    baxes = batch_spec_entry(mesh)
+
+    def leaf(keys, x):
+        name = keys[-1]
+        shape = tuple(x.shape)
+        nd = len(shape)
+        spec: list = [None] * nd
+        # dim0 = scan group axis (never sharded); dim1 = batch
+        if nd >= 2 and shape[1] % total == 0 and shape[1] >= total:
+            spec[1] = baxes
+        elif name in ("k", "v", "ckv", "krope", "cross_k", "cross_v") \
+                and nd >= 3:
+            if shape[2] % _axis_size(mesh, "data") == 0:
+                spec[2] = "data"
+        if name in ("k", "v", "cross_k", "cross_v") and nd >= 4:
+            if shape[3] % msize == 0 and shape[3] >= msize:
+                spec[3] = "model"
+        if name == "h" and nd >= 3 and shape[2] % msize == 0:
+            spec[2] = "model"
+        if name == "conv" and nd >= 4 and shape[3] % msize == 0:
+            spec[3] = "model"
+        if name == "S" and nd >= 3 and shape[2] % msize == 0:
+            spec[2] = "model"  # rwkv heads
+        return tuple(spec)
+
+    return map_leaves(leaf, cache_or_shapes)

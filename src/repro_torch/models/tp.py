@@ -39,6 +39,14 @@ A leaf's split is read from its local width against the config: the
 model code compares each leaf's shape with the global one and runs the
 sharded form only where the leaf is a block. Families whose blocks the
 port cannot split raise `NotImplementedError` (`check_supported`).
+
+Training and serving run in the same scope. In serving the logits stay
+vocab-parallel through the model, and a step gathers only the positions
+it reads (`gather_logits`). A serving step also splits its batch rows
+over "data" (`scope(mesh, rows_over_data=True)`); the MoE block then
+routes the rows of every data index together (`rows_over_data`), as the
+reference routes its global batch. In training "data" is the client
+axis, and each client routes its own batch.
 """
 from __future__ import annotations
 
@@ -50,30 +58,40 @@ import torch
 MODEL_AXES = ("model",)
 SCOPE = "tp"
 UNSUPPORTED = ("ROADMAP Queue 1 item 13d: tensor-parallel execution of "
-               "this family (expert parallelism for MoE, MLA, Mamba, "
-               "RWKV-6, Whisper's encoder and cross-attention, Qwen2-VL's "
-               "prefix) and of serving")
+               "this family (Mamba, RWKV-6, Whisper's encoder and "
+               "cross-attention, Qwen2-VL's vision prefix and M-RoPE)")
 
-_MESHES: list = []  # the meshes of the scopes entered, innermost last
+_SCOPES: list = []  # (mesh, rows_over_data) of the scopes entered
 
 
 @contextlib.contextmanager
-def scope(mesh):
+def scope(mesh, *, rows_over_data: bool = False):
     """Run model code inside with its model-sharded leaves as this
-    rank's blocks over `mesh`'s "model" axis."""
-    _MESHES.append(mesh)
+    rank's blocks over `mesh`'s "model" axis. With `rows_over_data` the
+    batch rows are split over "data" (serving), and the blocks that mix
+    rows (the MoE's routing) see every data index's rows."""
+    _SCOPES.append((mesh, rows_over_data))
     try:
         yield mesh
     finally:
-        _MESHES.pop()
+        _SCOPES.pop()
 
 
 def active():
     """The mesh of the innermost scope when its model axis has more than
     one rank, else None (every operator is then the identity)."""
-    if _MESHES and _MESHES[-1] is not None \
-            and _MESHES[-1].model_size > 1:
-        return _MESHES[-1]
+    if _SCOPES and _SCOPES[-1][0] is not None \
+            and _SCOPES[-1][0].model_size > 1:
+        return _SCOPES[-1][0]
+    return None
+
+
+def rows_over_data():
+    """The mesh of the innermost scope when it splits the batch rows over
+    a "data" axis of more than one rank, else None."""
+    if _SCOPES and _SCOPES[-1][1] and _SCOPES[-1][0] is not None \
+            and _SCOPES[-1][0].client_size > 1:
+        return _SCOPES[-1][0]
     return None
 
 
@@ -99,22 +117,28 @@ def split(local: int, whole: int) -> int:
     return m
 
 
+def covers(cfg) -> bool:
+    """Whether tensor-parallel execution covers `cfg`'s family, in
+    training and in serving alike: the decoder-only configs of attention
+    blocks, GQA / MQA or MLA, each with a dense or MoE FFN."""
+    return (cfg.ssm is None and cfg.rwkv is None
+            and not cfg.encoder_layers and not cfg.vision_prefix
+            and cfg.rope_style != "mrope"
+            and all(kind == "attn" for kind, _ in cfg.layer_kinds()))
+
+
 def check_supported(cfg) -> None:
     """Raise NotImplementedError (naming item 13d) for a config whose
-    blocks tensor-parallel execution does not cover, inside a scope of
-    more than one model rank: the port never falls back to whole
-    models there."""
-    if active() is None:
+    blocks tensor-parallel execution does not cover (`covers`), inside a
+    scope of more than one model rank: the port never falls back to
+    whole models there. The step builders refuse first, naming the use,
+    and serving refuses more there (FSDP, a cache sequence on "data")."""
+    if active() is None or covers(cfg):
         return
-    dense = (cfg.moe is None and cfg.mla is None and cfg.ssm is None
-             and cfg.rwkv is None and not cfg.encoder_layers
-             and not cfg.vision_prefix and cfg.rope_style != "mrope"
-             and all(kind == "attn" and not is_moe
-                     for kind, is_moe in cfg.layer_kinds()))
-    if not dense:
-        raise NotImplementedError(
-            f"{cfg.name}: {UNSUPPORTED}; the dense decoder-only configs "
-            "run tensor-parallel")
+    raise NotImplementedError(
+        f"{cfg.name}: tensor-parallel execution: {UNSUPPORTED}; the "
+        "decoder-only configs (GQA / MQA or MLA, dense or MoE) run "
+        "tensor-parallel")
 
 
 # ---------------------------------------------------- the collectives
@@ -287,3 +311,33 @@ def vocab_start(local: int, whole: int) -> Optional[int]:
     """This rank's first vocabulary id when the vocab dim is split (its
     `local` rows of `whole`), else None."""
     return None if split(local, whole) == 1 else block_start(local)
+
+
+def gather_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Whole logits (..., vocab) from this rank's vocab block of them
+    (the model's output inside a scope); whole logits as they are. A
+    caller slices the positions it reads first: serving never gathers
+    (B, T, V)."""
+    if split(logits.shape[-1], vocab) == 1:
+        return logits
+    return gather_from_model(logits, -1)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every data index's rows of x (dim 0) in data-index order, where
+    the scope splits rows over "data"; x as it is otherwise. No
+    gradient: serving only."""
+    mesh = rows_over_data()
+    if mesh is None:
+        return x
+    with mesh.scope(SCOPE):
+        return mesh.all_gather(x.detach(), axes=("data",), dim=0)
+
+
+def own_rows(x: torch.Tensor, local: int) -> torch.Tensor:
+    """This data index's `local` rows of x (dim 0) joined by
+    `gather_rows`; x as it is where rows are not split."""
+    mesh = rows_over_data()
+    if mesh is None:
+        return x
+    return x.narrow(0, mesh.client_index * local, local)

@@ -55,6 +55,7 @@ from repro_torch.models import (
     moe,
     recompute,
     rwkv6,
+    sharding,
     tp,
 )
 from repro_torch.models.config import ModelConfig
@@ -123,13 +124,23 @@ def _param_inits(cfg: ModelConfig) -> Tree:
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
-                device=None) -> Tree:
+                device=None, *, mesh=None, specs=None) -> Tree:
     """Random params of `cfg` from `gen`, on `device` (default: the
     generator's). On the "meta" device nothing is allocated and `gen`
     may be None. The draws differ from the reference's (another RNG);
-    the layout, the dtypes and the distributions are its."""
+    the layout, the dtypes and the distributions are its.
+
+    Given a `ClientMesh` and the spec tree of the params
+    (`sharding.param_pspecs`), this rank's blocks: bit for bit
+    `sharding.shard_params(init_params(gen, cfg), mesh, specs)`, made
+    leaf by leaf (each leaf whole, cut, and freed before the next), so
+    that no process holds the whole model."""
     device = torch.device(device if device is not None else gen.device)
-    return layers.make(_param_inits(cfg), gen, device)
+    cut = None
+    if mesh is not None:
+        def cut(keys, x):
+            return sharding.block(x, mesh, sharding.spec_at(specs, keys))
+    return layers.make(_param_inits(cfg), gen, device, cut)
 
 
 # ============================================================ positions
@@ -382,16 +393,19 @@ def _prologue(params, cfg, batch):
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
             max_len: int = 0):
-    """Full-sequence forward. mode: "train" | "prefill"."""
+    """Full-sequence forward. mode: "train" | "prefill". Inside a
+    `tp.scope` the logits are this rank's vocab block where the head is
+    split on the vocab (`tp.gather_logits` joins the positions a caller
+    reads), and the prefill cache holds this rank's blocks
+    (`sharding.cache_pspecs`)."""
     if mode not in ("train", "prefill"):
         raise ValueError(mode)
-    if mode == "prefill" and tp.active() is not None:
-        raise NotImplementedError(f"prefill: {tp.UNSUPPORTED}")
     x, text_offset, ctx = _prologue(params, cfg, batch)
     ctx["max_len"] = max(max_len, x.shape[1])
     x, aux, cache = _run_stack(params["blocks"], cfg, x, ctx, mode)
     x = layers.norm_apply(params["final_norm"], x)
-    logits = unembed(params, cfg, x)
+    # inside a tp.scope this rank's vocab block of the logits
+    logits = _head_logits(*_head(params, cfg), x)
     if mode == "prefill":
         return logits, aux, cache
     return logits, aux, text_offset
@@ -493,11 +507,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     `batch_extras` may hold M-RoPE `positions` (3, B, 1).
 
     Returns (logits (B,1,V), cache): the token's keys and values (or
-    latents, or recurrent state) are written into `cache` in place."""
+    latents, or recurrent state) are written into `cache` in place.
+    Inside a `tp.scope` the cache is this rank's blocks and the logits
+    its vocab block, as `forward`'s."""
     pos = int(pos)
-    if tp.active() is not None:
-        raise NotImplementedError(f"decode: {tp.UNSUPPORTED}")
-    x = params["embed"][token]
+    tp.check_supported(cfg)
+    x = _embed(params["embed"], cfg, token)
     if cfg.rope_style == "none":
         x = x + _sinusoid(torch.arange(pos, pos + 1, device=x.device),
                           cfg.d_model).to(x.dtype)[None]
@@ -509,14 +524,24 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
            "window": cfg.sliding_window, "enc": None, "max_len": 0}
     x, _, cache = _run_stack(params["blocks"], cfg, x, ctx, "decode", cache)
     x = layers.norm_apply(params["final_norm"], x)
-    return unembed(params, cfg, x), cache
+    return _head_logits(*_head(params, cfg), x), cache
 
 
 def init_cache(cfg: ModelConfig, b: int, max_len: int,
-               device=None) -> Tree:
+               device=None, *, mesh=None) -> Tree:
     """Zero-initialised decode cache (leaves stacked over groups): K/V
     (ring of the window for SWA), MLA latents, Mamba {h, conv}, RWKV
-    {S, tm_last, cm_last}, and the cross K/V of enc-dec models."""
+    {S, tm_last, cm_last}, and the cross K/V of enc-dec models. `b` is
+    the global batch. Given a `ClientMesh`, this rank's blocks of it
+    under `sharding.cache_pspecs`, each of its shard shape."""
+    if mesh is not None:
+        shapes = init_cache(cfg, b, max_len, device="meta")
+        specs = sharding.cache_pspecs(shapes, mesh)
+        return sharding.map_leaves(
+            lambda keys, x: torch.zeros(
+                sharding.NamedSpec(mesh, sharding.spec_at(specs, keys))
+                .shard_shape(tuple(x.shape)), dtype=x.dtype,
+                device=device), shapes)
     g = cfg.num_pattern_groups
     s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
 

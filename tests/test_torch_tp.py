@@ -12,8 +12,11 @@ from the JAX init (written first, read by the world). Held:
   (K = the client axis: 2, 4, 1; T = 64, B = global batch 4 / K) for
   every supported smoke config: gemma-2b (tied, G = 1), granite-20b
   (untied, G = 1, `loss_chunk`), minitron-4b (G = 2, flash),
-  starcoder2-15b (G = 2) and the LM example's preset cut to 2 layers
-  and vocab 512 (tied, flash, `loss_chunk`), against the JAX package's
+  starcoder2-15b (G = 2), the LM example's preset cut to 2 layers
+  and vocab 512 (tied, flash, `loss_chunk`) and deepseek-v2-lite-16b
+  (MLA + MoE: E = 4 expert-parallel on M = 2 and 4, each expert's last
+  dim split on M = 8; also with `angle_filter="dense_only"` on (2, 4)),
+  against the JAX package's
   unsharded tree round jitted, over 2 rounds at 1e-5: params,
   prev_delta, the smoothed angles, loss, theta, weights, divergence.
   Together: local heads with local K/V (G % M == 0) and with gathered
@@ -36,8 +39,8 @@ from the JAX init (written first, read by the world). Held:
   large as the smallest model-sharded block; each rank's params and
   prev_delta leaves have their `NamedSpec(mesh, spec).shard_shape`.
 * **Refusals**, in this process: NotImplementedError naming item 13d
-  for a MoE smoke config (the step builder and the model), and for
-  buffered or sequential mode with `param_specs`.
+  for a family it leaves out (RWKV-6: the step builder and the model),
+  and for buffered or sequential mode with `param_specs`.
 
 The launcher off the host mesh runs on a second gloo world of 2 CPU
 ranks: its losses equal the host-mesh launcher's at 1e-5, a resumed run
@@ -75,8 +78,14 @@ ARCHS = {
     "minitron-4b": ({}, "flash"),
     "starcoder2-15b": ({}, "xla"),
     "lm": ({"loss_chunk": 24}, "flash"),
+    "deepseek-v2-lite-16b": ({}, "xla"),
 }
 STEP_CASES = [(a, m) for a in ARCHS for m in MESHES]
+# build_train_step(angle_filter="dense_only"): the angles over the
+# params outside the routed experts
+DENSE_ONLY_CASES = [("deepseek-v2-lite-16b", "2x4")]
+SEED_ORDER = sorted(a for a in ARCHS if not a.startswith("deepseek")) + [
+    "deepseek-v2-lite-16b"]
 INT8_CASES = {"gemma-2b": "2x4", "minitron-4b": "4x2"}
 INT8_K, INT8_TAU = 4, 2
 WHOLE_CASES = [("gemma-2b", "2x4"), ("starcoder2-15b", "4x2"),
@@ -100,7 +109,7 @@ def tokens(seed, r, k, tau, b, vocab):
 
 
 def case_seed(arch, mname):
-    return sorted(ARCHS).index(arch) * 10 + sorted(MESHES).index(mname)
+    return SEED_ORDER.index(arch) * 10 + sorted(MESHES).index(mname)
 
 
 def angle0(k):
@@ -188,14 +197,14 @@ def jax_main(out_dir):
         for k, v in _flat_paths(arch, tree).items()})
 
     def run(arch, k, tau, seed, rounds, mesh=None, transport="f32",
-            prefix=""):
+            prefix="", angle_pred=None):
         jcfg = _jax_cfg(arch)
         # the step builder's config; the int8 rounds at a larger lr
         fc = jfl.FLConfig(**cfg_fields(k, tau, transport=transport,
                                        base_lr=0.01 if mesh is None
                                        else 0.05))
         rf = jax.jit(jfl.make_round_fn(
-            lambda p, bt: jtr.loss_fn(p, jcfg, bt), fc, None, None,
+            lambda p, bt: jtr.loss_fn(p, jcfg, bt), fc, None, angle_pred,
             mesh=mesh))
         st = jfl.init_round_state(fc, jax.tree.map(jnp.asarray,
                                                    inits[arch]))
@@ -242,6 +251,11 @@ def jax_main(out_dir):
         res.update(run(arch, client_count(mname), TAU,
                        case_seed(arch, mname), ROUNDS,
                        prefix=f"step/{arch}/{mname}"))
+    for arch, mname in DENSE_ONLY_CASES:
+        res.update(run(arch, client_count(mname), TAU,
+                       case_seed(arch, mname) + 5, ROUNDS,
+                       prefix=f"dense_only/{arch}/{mname}",
+                       angle_pred=jfl.moe_dense_only_pred))
     for arch, mname in INT8_CASES.items():
         mesh = jax.make_mesh(MESHES[mname], ("data", "model"),
                              axis_types=(AxisType.Auto,) * 2)
@@ -286,10 +300,12 @@ def _state_of(st, mesh, specs, prefix):
             f"{prefix}/count": st.angle.count.numpy()}
 
 
-def _sharding_facts(st, mesh, specs, log, prefix):
+def _sharding_facts(st, mesh, specs, log, prefix, k):
     """Whether every state leaf has its shard shape, and the largest
-    all_gather outside "tp" against the smallest model-sharded block."""
-    from repro_torch.core import treemath
+    all_gather outside "tp" against the smallest model-sharded block and
+    against this rank's column slices of every replicated leaf for its
+    `k` clients' rows (at most what the 2D region re-joins)."""
+    from repro_torch.core import fl_shard_map, treemath
     from repro_torch.models.sharding import NamedSpec
 
     leaves = treemath.tree_leaves(st.params) + treemath.tree_leaves(
@@ -306,14 +322,23 @@ def _sharding_facts(st, mesh, specs, log, prefix):
         ok &= tuple(x.shape) == n.shard_shape(tuple(whole))
     gathers = [c.nbytes for c in log if c.op == "all_gather"
                and c.scope != "tp"]
+    # a replicated leaf's column slice: ceil(size / M) (the blocked
+    # layout), for every client's row (the tree engine holds them all)
+    rows = fl_shard_map.padded_k(k, mesh.client_size)
+    replicated = rows * 4 * sum(
+        -(-x.numel() // mesh.model_size) for x, spec in zip(
+            treemath.tree_leaves(st.params),
+            treemath.tree_leaves_like(st.params, specs))
+        if "model" not in spec)
     return {f"{prefix}/shard_shapes_ok": np.asarray(ok),
+            f"{prefix}/replicated_share": np.asarray(replicated),
             f"{prefix}/largest_gather": np.asarray(max(gathers, default=0)),
             f"{prefix}/smallest_block": np.asarray(min(blocks)),
             f"{prefix}/tp_collectives": np.asarray(
                 sum(c.scope == "tp" for c in log))}
 
 
-def _port_step(arch, mname, mesh, params_np):
+def _port_step(arch, mname, mesh, params_np, angle_filter="all"):
     """`build_train_step`'s fn on `mesh` from the JAX init, 2 rounds."""
     from repro_torch import convert
     from repro_torch.configs import shapes
@@ -323,7 +348,8 @@ def _port_step(arch, mname, mesh, params_np):
 
     cfg = port_cfg(arch)
     fn, args, _, _, meta = steps.build_train_step(
-        cfg, mesh, shapes.InputShape("train_4k", T, GLOBAL_B, "train"))
+        cfg, mesh, shapes.InputShape("train_4k", T, GLOBAL_B, "train"),
+        angle_filter=angle_filter)
     k, b = meta["K"], meta["B"]
     assert k == client_count(mname) and meta["tau"] == TAU
     fc = tfl.FLConfig(**meta["flcfg"])
@@ -335,10 +361,12 @@ def _port_step(arch, mname, mesh, params_np):
     st = st._replace(params=sharding.shard_params(st.params, mesh, specs),
                      prev_delta=sharding.shard_params(st.prev_delta, mesh,
                                                       specs))
-    prefix = f"step/{arch}/{mname}"
+    dense_only = angle_filter == "dense_only"
+    prefix = f"{'dense_only' if dense_only else 'step'}/{arch}/{mname}"
+    seed = case_seed(arch, mname) + (5 if dense_only else 0)
     res = {}
     for r in range(ROUNDS):
-        toks = tokens(case_seed(arch, mname), r, k, TAU, b, cfg.vocab_size)
+        toks = tokens(seed, r, k, TAU, b, cfg.vocab_size)
         with mesh.recording() as log:
             st, m = fn(st, {"tokens": torch.from_numpy(toks)},
                        torch.arange(k, dtype=torch.int32),
@@ -346,7 +374,8 @@ def _port_step(arch, mname, mesh, params_np):
         res.update(_state_of(st, mesh, specs, f"{prefix}/r{r}"))
         res.update({f"{prefix}/r{r}/m/{key}": m[key].detach().numpy()
                     for key in METRIC_KEYS})
-        res.update(_sharding_facts(st, mesh, specs, log, f"{prefix}/r{r}"))
+        res.update(_sharding_facts(st, mesh, specs, log, f"{prefix}/r{r}",
+                                   k))
     return res
 
 
@@ -450,7 +479,7 @@ def _port_whole(arch, mname, mesh, params_np):
             res.update({f"{prefix}/tp/m/{key}": tm[key].detach().numpy()
                         for key in METRIC_KEYS})
             res.update(_sharding_facts(tp_st, mesh, specs, log,
-                                       f"{prefix}/tp"))
+                                       f"{prefix}/tp", k))
     return res
 
 
@@ -468,6 +497,9 @@ def _port_worker(rank, init_file, out_dir):
         for arch, mname in STEP_CASES:
             res.update(_port_step(arch, mname, meshes[mname],
                                   _nested(inits, arch)))
+        for arch, mname in DENSE_ONLY_CASES:
+            res.update(_port_step(arch, mname, meshes[mname],
+                                  _nested(inits, arch), "dense_only"))
         for arch, mname in WHOLE_CASES:
             res.update(_port_whole(arch, mname, meshes[mname],
                                    _nested(inits, arch)))
@@ -536,12 +568,14 @@ def _close(got, want, msg, allow=0.0):
 # -------------------------------------------------------------- the tests
 
 
-@pytest.mark.parametrize("arch,mname", STEP_CASES)
-def test_tp_train_step_matches_the_jax_round(worlds, arch, mname):
+@pytest.mark.parametrize("kind,arch,mname", [
+    ("step", a, m) for a, m in STEP_CASES] + [
+    ("dense_only", a, m) for a, m in DENSE_ONLY_CASES])
+def test_tp_train_step_matches_the_jax_round(worlds, kind, arch, mname):
     port, jx = worlds
     p = port[0]
     for r in range(ROUNDS):
-        prefix = f"step/{arch}/{mname}/r{r}"
+        prefix = f"{kind}/{arch}/{mname}/r{r}"
         for key in ("params", "prev_delta", "angle"):
             _close(p[f"{prefix}/{key}"], jx[f"{prefix}/{key}"],
                    f"{prefix} {key}")
@@ -592,6 +626,7 @@ def test_tp_round_matches_the_whole_model_round(worlds, arch, mname, wire,
 
 @pytest.mark.parametrize("group", [
     f"step/{a}/{m}" for a, m in STEP_CASES] + [
+    f"dense_only/{a}/{m}" for a, m in DENSE_ONLY_CASES] + [
     f"whole/{a}/{m}" for a, m in WHOLE_CASES] + [
     f"int8/{a}/{m}" for a, m in INT8_CASES.items()])
 def test_ranks_agree_bit_for_bit(worlds, group):
@@ -606,20 +641,29 @@ def test_ranks_agree_bit_for_bit(worlds, group):
 
 @pytest.mark.parametrize("group", [
     f"step/{a}/{m}/r{r}" for a, m in STEP_CASES for r in range(ROUNDS)] + [
+    f"dense_only/{a}/{m}/r{r}" for a, m in DENSE_ONLY_CASES
+    for r in range(ROUNDS)] + [
     f"whole/{a}/{m}/{w}/{e}/tp" for a, m in WHOLE_CASES
     for w in ("f32", "int8") for e in ("flat_sharded", "tree")])
 def test_state_stays_in_blocks(worlds, group):
     """Each rank's params and prev_delta leaves have their shard shapes;
-    the client training ran its collectives under "tp"; no other
-    all_gather is as large as the smallest model-sharded block (the
-    region re-joins only the replicated leaves' column slices)."""
+    the client training ran its collectives under "tp"; every other
+    all_gather is at most the clients' column slices of the replicated
+    leaves (the region re-joins only those), and for the dense configs,
+    whose replicated leaves are the norms, smaller than the smallest
+    model-sharded block. DeepSeek replicates `wkv_a` and the router,
+    which are larger than its smallest block."""
     port, _ = worlds
     for r, p in enumerate(port):
         assert p[f"{group}/shard_shapes_ok"], f"rank {r} {group}"
         assert p[f"{group}/tp_collectives"] > 0, group
-        assert p[f"{group}/largest_gather"] < p[f"{group}/smallest_block"], (
-            f"rank {r} {group}: an all_gather of "
-            f"{p[f'{group}/largest_gather']} B outside 'tp'")
+        largest = p[f"{group}/largest_gather"]
+        assert largest <= p[f"{group}/replicated_share"], (
+            f"rank {r} {group}: an all_gather of {largest} B outside 'tp'")
+        if "/deepseek" not in group:
+            assert largest < p[f"{group}/smallest_block"], (
+                f"rank {r} {group}: an all_gather of {largest} B outside "
+                "'tp'")
 
 
 # ------------------------------------------------ refusals, in this process
@@ -636,11 +680,14 @@ def _fake_2d_mesh():
 
 
 def test_a_moe_config_names_item_13d():
+    """A family item 13d still leaves out (RWKV-6; the MoE and MLA of
+    the DeepSeek family now train tensor-parallel): the step builder and
+    the model refuse it."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
     from repro_torch.models import tp, transformer
 
-    cfg = registry.smoke("deepseek-v2-lite-16b")
+    cfg = registry.smoke("rwkv6-3b")
     mesh = _fake_2d_mesh()
     with pytest.raises(NotImplementedError, match="item 13d"):
         steps.build_train_step(cfg, mesh,
