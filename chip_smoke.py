@@ -171,7 +171,30 @@ to 3, the params_sha256 equal; then for that train step, a prefill
 (B = 4, T = 1024) and a decode step (B = 4, S = 4096) the dry run's
 argument bytes against memory_allocated() once the inputs are placed,
 within 1% plus 512 B a tensor, and its live bytes against
-max_memory_allocated() over the step, the ratio within [0.8, 1.25]).
+max_memory_allocated() over the step, the ratio within [0.8, 1.25]),
+and last fsdp (params and the decode cache over "data": the whole
+models' results in this process, each freed before one (2, 2) gloo
+world on this card
+(`--mesh2d-child fsdp`) runs (a) the sequential round of
+deepseek-v2-lite at full width cut to one layer, f32, K = 4, tau = 1,
+B = 4, T = 256, in FSDP blocks == the whole-model round at 2e-4, with
+4 round_stats launches a rank at its (1, n_local) block, each held to
+the plain version, the "fsdp" collectives' count and bytes those of the
+shapes, ms a round and the peak against the round's trees in blocks +
+one group's backward working set + 1 GB; (b) deepseek-v2-236b at full
+width cut to one layer, bf16, fsdp=True, B = 4, prompt 512, 3 decode
+steps: prefill and decode ms, the peak against the blocks + one group
+gathered + the same prefill's activations with the params on "model"
+only + 1 GB, the routing bit for bit across ranks, the logit gap
+and the routing flips against the whole model; (c) long_500k at B = 1
+with the cache's sequence on "data": gemma-2b whole (its ring of 8,192
+slots split at 4,096, positions across that edge and the wrap) and
+deepseek-v2-lite cut to 8 layers over 524,288 latent positions
+(positions across 262,144): ms a step and the logit gap to the whole
+model; (d) three reduced f32 configs with fsdp=True at B = 2 and B = 1
+== the whole model at 2e-4, every flash call held to its plain version;
+(e) the serving launcher at long_500k on the (2, 2) world; the kernel
+table's `round_stats_fsdp` row and `launches_fsdp`).
 Then, on lines of their own: the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
 `{"ok": true, "device": {...}}`.
@@ -2489,9 +2512,10 @@ def mesh2d_lm(mesh, dev, rank: int) -> dict:
 def mesh2d_child(task: str, backend: str, rank: int, world: int,
                  model: int, port: int, out_path: str) -> int:
     """One rank of a 2D world: `task` "cnn", "lm", "tp" (the 100m LM
-    tensor-parallel), "launch" (the launcher) or "tp_serve"
-    (tensor-parallel serving and the DeepSeek family) on a (world /
-    model, model) mesh over `backend`."""
+    tensor-parallel), "launch" (the launcher), "tp_serve"
+    (tensor-parallel serving and the DeepSeek family) or "fsdp" (params
+    and the decode cache over "data") on a (world / model, model) mesh
+    over `backend`."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2511,7 +2535,8 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
             res = tp_launch(mesh, dev, rank, out_path)
         else:
             res = {"cnn": mesh2d_cnn, "lm": mesh2d_lm, "tp": tp_lm,
-                   "tp_serve": tp_serve}[task](mesh, dev, rank)
+                   "tp_serve": tp_serve, "fsdp": fsdp_child}[task](
+                       mesh, dev, rank)
         res["coords"] = (mesh.client_index, mesh.model_index)
         torch.save(res, out_path)
     finally:
@@ -3561,6 +3586,815 @@ def phase_tp_serve(smi: str) -> dict:
             "flash_attention_f32":
                 r0["parity"]["minitron-4b-flash"]["flash_launches"],
             **r0["round"]["launches"]}
+
+
+# ---- FSDP: params over "data" (the sequential round, serving) and the
+# decode cache's sequence on "data" ----
+
+FSDP_SHAPE = (2, 2)  # a gloo world of four ranks on this card
+FSDP_TIMEOUT = 900  # seconds the world may take
+# (a) the sequential (FSDP) round: deepseek-v2-lite-16b at full width,
+# cut to one layer (at two, four ranks' rounds did not fit the card)
+FSDP_ROUND_CUT = {"num_layers": 1, "dtype": "float32"}
+FSDP_ROUND = (4, 1, 4, 256)  # K, tau, B, T
+# the most param-sized f32 trees the sequential round holds at once, in
+# blocks: the params, prev_delta, g (raveled), the two online sums, and
+# in a client's step its gradient, stepped params and delta
+FSDP_ROUND_TREES = 8
+# one group's working set in a backward, in its gathered size: the
+# leaves, their cotangents and the reduce-scatter's staging copy
+FSDP_GROUP_BACKWARD = 3
+# (b) FSDP serving: deepseek-v2-236b at full width, bf16, one layer
+# (each decode step gathers every layer over gloo's host staging)
+FSDP_SERVE_CUT = {"num_layers": 1}
+# B, prompt, greedy tokens (a prefill and 3 decode steps: at ~9 s a step
+# through gloo on one card, 16 steps would take ~150 s alone)
+FSDP_SERVE = (4, 512, 4)
+# (c) long_500k, B = 1, the cache's sequence on "data": gemma-2b whole
+# (its ring of 8,192 slots split at 4,096 on (2, 2)), then
+# deepseek-v2-lite cut to 8 layers over its 524,288 latent positions
+# (split at 262,144); positions crossing those and gemma's ring wrap
+FSDP_LONG = (
+    ("gemma-2b", {}, (503806, 503807, 503808, 503809,
+                      507902, 507903, 507904, 507905)),
+    ("deepseek-v2-lite-16b", {"num_layers": 8},
+     (262142, 262143, 262144, 262145)))
+# (d) f32 reduced configs with fsdp=True: B = 2 (rows over "data"), and
+# B = 1 (the cache's sequence over "data", its block edge at position
+# 65, which the decode steps cross)
+FSDP_PARITY = (("gemma-2b", {"attention_impl": "flash"}),
+               ("minitron-4b", {"attention_impl": "flash"}),
+               ("deepseek-v2-lite-16b", {"mla": {"q_lora_rank": 32}}))
+FSDP_PARITY_T, FSDP_PARITY_STEPS = 64, 3
+FSDP_PARITY_S = {2: 68, 1: 130}  # B -> cache positions
+FSDP_SERVE_ARGV = ["--arch", "gemma-2b", "--shape", "long_500k", "--steps",
+                   "8"]
+FSDP_REFS = "CHIP_SMOKE_FSDP_REFS"  # env: the whole-model results' dir
+
+
+def fsdp_specs(cfg, mesh, fsdp: bool = True):
+    """The UNSTACKED param specs of `cfg` on `mesh`, FSDP or not."""
+    from repro_torch.models import sharding, transformer
+
+    return sharding.param_pspecs(
+        transformer.init_params(None, cfg, device="meta"), mesh, fsdp=fsdp)
+
+
+def fsdp_init(cfg, dev, mesh=None, fsdp: bool = True):
+    """The params of `cfg` from seed 0: whole, or this rank's blocks of
+    the same draws on both axes (FSDP) or on "model" only."""
+    from repro_torch.models import transformer
+
+    specs = None if mesh is None else fsdp_specs(cfg, mesh, fsdp)
+    return transformer.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, mesh=mesh, specs=specs)
+
+
+def fsdp_round_cfg():
+    from repro_torch.configs import registry
+    from repro_torch.models.config import with_changes
+
+    return with_changes(registry.get("deepseek-v2-lite-16b"), FSDP_ROUND_CUT)
+
+
+def fsdp_round_fl():
+    import repro_torch
+
+    k, tau, _, _ = FSDP_ROUND
+    return repro_torch.FLConfig(num_clients=k, clients_per_round=k,
+                                local_steps=tau, mode="sequential")
+
+
+def fsdp_round_inputs(cfg, dev):
+    k, tau, b, t = FSDP_ROUND
+    toks = tps_tokens(cfg.vocab_size, k * tau * b, t, 41).reshape(
+        k, tau, b, t).to(dev)
+    return ({"tokens": toks}, torch.arange(k, dtype=torch.int32, device=dev),
+            torch.arange(1, k + 1, dtype=torch.float32, device=dev))
+
+
+def fsdp_cache(cfg, b: int, s: int, dev, seed: int, mesh=None):
+    """A decode cache of `cfg` (b rows, s positions) filled from `seed`
+    with N(0, 1): whole, or this rank's blocks of the same draws
+    (`sharding.cache_pspecs`), each leaf cut as it is filled."""
+    from repro_torch.models import layers, sharding, transformer
+
+    shapes = transformer.init_cache(cfg, b, s, device="meta")
+
+    def inits(tree):
+        if isinstance(tree, dict):
+            return {k: inits(v) for k, v in tree.items()}
+        return layers.normal(tuple(tree.shape), 1.0, tree.dtype)
+
+    cut = None
+    if mesh is not None:
+        specs = sharding.cache_pspecs(shapes, mesh)
+
+        def cut(keys, x):
+            return sharding.block(x, mesh, sharding.spec_at(specs, keys))
+    return layers.make(inits(shapes), torch.Generator(device=dev)
+                       .manual_seed(seed), dev, cut)
+
+
+def fsdp_long_len() -> int:
+    """long_500k's cache positions."""
+    from repro_torch.configs import shapes
+
+    return shapes.SHAPES["long_500k"].seq_len
+
+
+def fsdp_long_cfg(name: str, changes: dict):
+    from repro_torch.configs import registry, shapes
+    from repro_torch.models.config import with_changes
+
+    cfg = with_changes(registry.get(name), changes)
+    return cfg, shapes.config_for_shape(cfg, shapes.SHAPES["long_500k"])
+
+
+def fsdp_parity_cfg(name: str, changes: dict):
+    from repro_torch.configs import registry
+    from repro_torch.models.config import with_changes
+
+    cfg = with_changes(registry.smoke(name), changes)
+    assert cfg.dtype == "float32", cfg.dtype
+    return cfg
+
+
+def fsdp_parity_run(cfg, params, mesh, b: int, i: int, dev):
+    """Prefill and FSDP_PARITY_STEPS decode steps through the step
+    builders' fns with fsdp=True (this data index's rows, or all where b
+    does not split over "data"): the logits (rows, 1 + steps, V)."""
+    from repro_torch.configs import shapes
+    from repro_torch.launch import steps
+
+    t, n, s = FSDP_PARITY_T, FSDP_PARITY_STEPS, FSDP_PARITY_S[b]
+    prefill = steps.build_prefill_step(
+        cfg, mesh, shapes.InputShape("prefill", s, b, "prefill"),
+        fsdp=True)[0]
+    decode = steps.build_decode_step(
+        cfg, mesh, shapes.InputShape("decode", s, b, "decode"), fsdp=True)[0]
+    rows = fsdp_rows(mesh, b)
+    tokens = tps_tokens(cfg.vocab_size, b, t, 50 + i)[rows].to(dev)
+    dec = tps_tokens(cfg.vocab_size, b, n, 60 + i)[rows].to(dev)
+    with torch.no_grad():
+        logits, cache = prefill(params, {"tokens": tokens})
+        out = [logits]
+        for s_ in range(n):
+            logits, cache = decode(params, dec[:, s_:s_ + 1], cache, t + s_)
+            out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def fsdp_rows(mesh, b: int) -> slice:
+    """This data index's rows of a global batch of b (all rows on the
+    host mesh or where b does not split over "data")."""
+    from repro_torch.launch import steps
+
+    if not steps._tensor_parallel(mesh) or not steps.rows_split(mesh, b):
+        return slice(0, b)
+    n = b // mesh.client_size
+    return slice(mesh.client_index * n, (mesh.client_index + 1) * n)
+
+
+def fsdp_long_run(cfg, cfg2, params, cache, mesh, positions, dev):
+    """Decode steps at `positions` on a B = 1 cache through the step
+    builder's fn at long_500k (the host mesh's fn is the whole model's
+    decode_step): the logits (1, steps, V) and ms a step."""
+    from repro_torch.configs import shapes
+    from repro_torch.launch import steps
+
+    decode = steps.build_decode_step(cfg, mesh, shapes.SHAPES["long_500k"],
+                                     fsdp=False)[0]
+    toks = tps_tokens(cfg2.vocab_size, 1, len(positions), 70).to(dev)
+    out = []
+    with torch.no_grad():
+        decode(params, toks[:, :1], cache, positions[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, pos in enumerate(positions):
+            logits, cache = decode(params, toks[:, i:i + 1], cache, pos)
+            out.append(logits)
+        torch.cuda.synchronize()
+    return (torch.cat(out, dim=1),
+            (time.perf_counter() - t0) * 1e3 / len(positions))
+
+
+def fsdp_refs(dev, out_dir: str) -> dict:
+    """The whole-model results the FSDP world is held to, each model
+    made, run and freed in turn in this process: (a) the sequential
+    round of the cut lite (its new params and prev_delta written leaf by
+    leaf to `out_dir`), (b) the cut 236b's last prefill logits, routing
+    and greedy ids, (c) each long_500k decode on its seeded cache, (d)
+    the f32 parity cases on the host mesh. Returns the seconds."""
+    import repro_torch
+    from repro_torch.configs import registry
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.config import with_changes
+
+    t0 = time.perf_counter()
+    host = make_host_mesh(dev)
+    # (a)
+    cfg = fsdp_round_cfg()
+    fl = fsdp_round_fl()
+    state = repro_torch.init_round_state(fl, fsdp_init(cfg, dev))
+    batch, sel, sizes = fsdp_round_inputs(cfg, dev)
+    rf = repro_torch.make_round_fn(
+        lambda p, bt: transformer.loss_fn(p, cfg, bt), fl)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    state, m = rf(state, batch, sel, sizes)
+    torch.cuda.synchronize()
+    whole_round_ms = (time.perf_counter() - t1) * 1e3
+    whole_peak = torch.cuda.max_memory_allocated()
+    for name in ("params", "prev_delta"):
+        tree = getattr(state, name)
+        torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
+            treemath.tree_paths(tree), treemath.tree_leaves(tree))},
+            os.path.join(out_dir, f"round_{name}.pt"))
+    torch.save({"metrics": {k: v.cpu() for k, v in m.items()},
+                "angle": state.angle.smoothed.cpu(),
+                "count": state.angle.count.cpu(),
+                "ms": whole_round_ms, "peak": whole_peak},
+               os.path.join(out_dir, "round_metrics.pt"))
+    del state, m, rf, batch
+    torch.cuda.empty_cache()
+    # (b)
+    cfg = with_changes(registry.get("deepseek-v2-236b"), FSDP_SERVE_CUT)
+    b, t, n = FSDP_SERVE
+    params = fsdp_init(cfg, dev)
+    tokens = tps_tokens(cfg.vocab_size, b, t, 43).to(dev)
+    with moe.record_routing() as routing:
+        last = tps_last_logits(params, cfg, tokens)
+    ids = serve.generate(params, cfg, tokens, n)
+    torch.save({"last": last.float().cpu(), "ids": ids.cpu(),
+                "experts": [c["experts"].cpu() for c in routing]},
+               os.path.join(out_dir, "serve.pt"))
+    del params, last, ids
+    torch.cuda.empty_cache()
+    # (c)
+    for j, (name, changes, positions) in enumerate(FSDP_LONG):
+        cfg, cfg2 = fsdp_long_cfg(name, changes)
+        params = fsdp_init(cfg2, dev)
+        cache = fsdp_cache(cfg2, 1, fsdp_long_len(), dev, 80 + j)
+        logits, ms = fsdp_long_run(cfg, cfg2, params, cache, host,
+                                   positions, dev)
+        torch.save({"logits": logits.float().cpu(), "ms": ms},
+                   os.path.join(out_dir, f"long{j}.pt"))
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    # (d)
+    parity = {}
+    for i, (name, changes) in enumerate(FSDP_PARITY):
+        cfg = fsdp_parity_cfg(name, changes)
+        params = fsdp_init(cfg, dev)
+        for b in FSDP_PARITY_S:
+            parity[(i, b)] = fsdp_parity_run(cfg, params, host, b, i,
+                                             dev).cpu()
+        del params
+        torch.cuda.empty_cache()
+    torch.save(parity, os.path.join(out_dir, "parity.pt"))
+    return {"seconds": time.perf_counter() - t0,
+            "whole_round_ms": whole_round_ms, "whole_round_peak": whole_peak}
+
+
+def fsdp_collectives_from_shapes(cfg, mesh, passes: int, k: int) -> dict:
+    """{op: [count, bytes]} of a rank's "fsdp" collectives in one
+    sequential round (`passes` trainings of each of `k` clients, one
+    local step each) from the shapes and the FSDP specs: per training,
+    the embedding and the head gathered once (autograd keeps them), each
+    block leaf with an FSDP dim gathered in the forward and again in its
+    group's backward rerun, then each such leaf's, the embedding's and
+    the head's cotangent reduce-scattered (this records the gathered
+    cotangent); an all-reduce of the cotangent of every leaf with no
+    FSDP dim (the norms, and a leaf whose dims do not divide); the loss's
+    token count and the loss itself (4 B each)."""
+    from repro_torch.core import treemath
+    from repro_torch.models import sharding, tp
+    from repro_torch.models.sharding import NamedSpec
+
+    shapes = transformer_meta(cfg)
+    specs = fsdp_specs(cfg, mesh)
+    out = {"all_gather": [0, 0], "reduce_scatter": [0, 0],
+           "all_reduce": [2, 8]}
+    for path, x, spec in zip(treemath.tree_paths(shapes),
+                             treemath.tree_leaves(shapes),
+                             treemath.tree_leaves_like(shapes, specs)):
+        block = math.prod(NamedSpec(mesh, spec).shard_shape(
+            tuple(x.shape))) * x.element_size()
+        if path[0] == "blocks":  # one group's slice a training, G groups
+            block //= x.shape[0]
+            times = x.shape[0]
+        else:
+            times = 1
+        if tp.data_dim(spec) < 0:
+            out["all_reduce"][0] += times
+            out["all_reduce"][1] += times * block
+            continue
+        gathers = 2 if path[0] == "blocks" else 1
+        out["all_gather"][0] += gathers * times
+        out["all_gather"][1] += gathers * times * block
+        out["reduce_scatter"][0] += times
+        out["reduce_scatter"][1] += times * block * mesh.client_size
+    del sharding
+    return {op: [c * passes * k, n * passes * k] for op, (c, n) in out.items()}
+
+
+def transformer_meta(cfg):
+    from repro_torch.models import transformer
+
+    return transformer.init_params(None, cfg, device="meta")
+
+
+def fsdp_group_bytes(cfg, mesh) -> int:
+    """The bytes of the largest group's leaves gathered over "data": each
+    leaf's block on "model" alone."""
+    from repro_torch.core import treemath
+    from repro_torch.models import sharding
+    from repro_torch.models.sharding import NamedSpec
+
+    shapes = transformer_meta(cfg)
+    model_only = sharding.param_pspecs(shapes, mesh)
+    total = 0
+    for x, spec in zip(treemath.tree_leaves(shapes["blocks"]),
+                       treemath.tree_leaves_like(shapes["blocks"],
+                                                 model_only["blocks"])):
+        total += math.prod(NamedSpec(mesh, spec).shard_shape(
+            tuple(x.shape))) * x.element_size() // x.shape[0]
+    return total
+
+
+def fsdp_round_child(mesh, dev) -> dict:
+    """(a): the sequential round of the cut lite in this rank's FSDP
+    blocks: every round_stats call held to its plain version on the same
+    block, the launches, the "fsdp" collectives, ms, the peak, and the
+    new params, prev_delta and metrics against the whole-model round."""
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.core import treemath
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.models import sharding, transformer
+
+    refs = os.environ[FSDP_REFS]
+    cfg = fsdp_round_cfg()
+    fl = fsdp_round_fl()
+    specs = fsdp_specs(cfg, mesh)
+    params = fsdp_init(cfg, dev, mesh)
+    block_bytes = sum(x.numel() * x.element_size()
+                      for x in treemath.tree_leaves(params))
+    state = repro_torch.init_round_state(fl, params)
+    del params
+    batch, sel, sizes = fsdp_round_inputs(cfg, dev)
+    batch = {k: v[:, :, fsdp_rows(mesh, v.shape[2])] for k, v in
+             batch.items()}
+    rf = repro_torch.make_round_fn(
+        lambda p, bt: transformer.loss_fn(p, cfg, bt), fl, mesh=mesh,
+        param_specs=specs, rows_over_data=True)
+    calls, peaks, real = [], [], fl_mod.round_stats
+
+    def spy(x, g, mask=None):
+        # the kernel, then its plain version on the same block; the
+        # check's own memory is kept out of the round's peak
+        out = real(x, g, mask)
+        peaks.append(torch.cuda.max_memory_allocated())
+        calls.append([list(x.shape), *chunked_stats_err(rs, out, x, g,
+                                                        mask)])
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rs.round_stats.launches = 0
+    fl_mod.round_stats = spy
+    try:
+        with mesh.recording() as log:
+            t0 = time.perf_counter()
+            state, m = rf(state, batch, sel, sizes)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fl_mod.round_stats = real
+    launches = rs.round_stats.launches
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
+    got = {}
+    for op in ("all_gather", "reduce_scatter", "all_reduce"):
+        got[op] = [sum(1 for c in log if c.scope == "fsdp" and c.op == op),
+                   sum(c.nbytes for c in log
+                       if c.scope == "fsdp" and c.op == op)]
+    shapes_ok = all(
+        tuple(x.shape) == sharding.NamedSpec(mesh, s).shard_shape(
+            tuple(w.shape))
+        for tree in (state.params, state.prev_delta)
+        for x, w, s in zip(treemath.tree_leaves(tree),
+                           treemath.tree_leaves(transformer_meta(cfg)),
+                           treemath.tree_leaves_like(tree, specs)))
+    worst, where, max_abs = -math.inf, "", 0.0
+    for name in ("params", "prev_delta"):
+        whole = torch.load(os.path.join(refs, f"round_{name}.pt"),
+                           mmap=True)
+        tree = getattr(state, name)
+        for path, x, spec in zip(treemath.tree_paths(tree),
+                                 treemath.tree_leaves(tree),
+                                 treemath.tree_leaves_like(tree, specs)):
+            key = "/".join(path)
+            want = sharding.block(whole[key], mesh, spec).to(dev)
+            e, w_ = excess_err({f"{name}/{key}": (x, want)}, PARITY_TOL,
+                               PARITY_TOL)
+            max_abs = max(max_abs, float((x.double() - want.double())
+                                         .abs().max()))
+            if e > worst:
+                worst, where = e, w_
+            del want
+        del whole
+    ref = torch.load(os.path.join(refs, "round_metrics.pt"))
+    m_worst, m_where = excess_err(
+        {**{f"metrics/{k}": (m[k].cpu(), ref["metrics"][k])
+            for k in ("loss", "theta", "weights", "divergence")},
+         "angle": (state.angle.smoothed.cpu(), ref["angle"])},
+        PARITY_TOL, PARITY_TOL)
+    out = {"ms": ms, "peak_bytes": peak, "block_bytes": block_bytes,
+           "group_bytes": fsdp_group_bytes(cfg, mesh),
+           "launches": launches, "stats_calls": calls,
+           "collectives": got,
+           "want_collectives": fsdp_collectives_from_shapes(
+               cfg, mesh, 1 if fl.stale_angles else 2, fl.clients_per_round),
+           "other_collectives": sorted({f"{c.scope}:{c.op}" for c in log
+                                        if c.scope != "fsdp"}),
+           "shard_shapes_ok": shapes_ok, "excess": worst,
+           "worst_leaf": where, "max_abs": max_abs,
+           "metrics_excess": m_worst, "metrics_worst": m_where,
+           "count_equal": bool(torch.equal(state.angle.count.cpu(),
+                                           ref["count"])),
+           "weights": m["weights"].cpu(), "loss": float(m["loss"]),
+           "whole_ms": ref["ms"], "whole_peak": ref["peak"],
+           "finite": bool(all(torch.isfinite(v).all() for v in m.values()))}
+    del state, m, rf
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_stats_err(rs, got, x, g, mask,
+                      chunk: int = 1 << 24) -> tuple[float, float]:
+    """`stats_err` of round_stats' output `got` on x (K, N) against its
+    plain version summed over column chunks, the scales in float64 chunk
+    by chunk: the check at a block whose whole temporaries would not fit
+    beside four ranks' rounds."""
+    n = x.shape[1]
+    plain, scale = None, torch.zeros(x.shape[0], dtype=torch.float64,
+                                     device=x.device)
+    for i in range(0, n, chunk):
+        cols = slice(i, min(n, i + chunk))
+        m = None if mask is None else mask[cols]
+        part = rs.round_stats_plain(x[:, cols], g[cols], m)
+        plain = part if plain is None else tuple(
+            a + b for a, b in zip(plain, part))
+        xd, gd = x[:, cols].double(), g[cols].double()
+        if m is not None:
+            xd, gd = xd * m.double()[None], gd * m.double()
+        scale += (xd.abs() * gd.abs()[None]).sum(1)
+    scales = (scale, plain[1].double().abs(), plain[2].double().abs())
+    abs_err = norm_err = 0.0
+    for a, b, s in zip(got, plain, scales):
+        d = (a.double() - b.double()).abs()
+        abs_err = max(abs_err, float(d.max()))
+        norm_err = max(norm_err, float((d / s.clamp_min(1e-30)).max()))
+    return abs_err, norm_err
+
+
+def fsdp_serve_child(mesh, dev) -> dict:
+    """(b): the cut deepseek-v2-236b in this rank's FSDP blocks, bf16:
+    prefill and decode through `generate` on this data index's rows
+    (ms; the peak beyond the blocks against one group gathered + the
+    same prefill's activations with the params on "model" only + 1 GB),
+    the routing of one prefill (its digest, held equal across ranks; its
+    assignments per layer against the whole model's) and the last
+    logits against the whole model's."""
+    from repro_torch.configs import registry
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, tp
+    from repro_torch.models.config import with_changes
+
+    cfg = with_changes(registry.get("deepseek-v2-236b"), FSDP_SERVE_CUT)
+    b, t, n = FSDP_SERVE
+    ref = torch.load(os.path.join(os.environ[FSDP_REFS], "serve.pt"))
+    rows = fsdp_rows(mesh, b)
+    tokens = tps_tokens(cfg.vocab_size, b, t, 43)[rows].to(dev)
+    # the prefill's activations without FSDP: the params on "model" only
+    params = fsdp_init(cfg, dev, mesh, fsdp=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tp.scope(mesh, rows_over_data=True):
+        tps_last_logits(params, cfg, tokens)
+    torch.cuda.synchronize()
+    activations = torch.cuda.max_memory_allocated() - base
+    del params
+    torch.cuda.empty_cache()
+    specs = fsdp_specs(cfg, mesh)
+    params = fsdp_init(cfg, dev, mesh)
+    blocks = sum(x.numel() * x.element_size()
+                 for x in treemath.tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tp.scope(mesh, rows_over_data=True, specs=specs):
+        with moe.record_routing() as routing:
+            t0 = time.perf_counter()
+            last = tps_last_logits(params, cfg, tokens).float().cpu()
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        peak_prefill = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ids = serve.generate(params, cfg, tokens, n)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    k_ = cfg.moe.top_k
+    flips = [int((torch.sort(c["experts"].cpu().reshape(-1, k_))[0]
+                  != torch.sort(w.reshape(-1, k_))[0]).sum())
+             for c, w in zip(routing, ref["experts"])]
+    digest_ = hashlib.sha256()
+    for call in routing:
+        for key in sorted(call):
+            digest_.update(call[key].contiguous().view(torch.uint8).cpu()
+                           .numpy().tobytes())
+    want_last = ref["last"][rows]
+    out = {"block_bytes": blocks, "group_bytes": fsdp_group_bytes(cfg, mesh),
+           "peak_bytes": peak, "peak_bytes_prefill": peak_prefill,
+           "activation_bytes_without_fsdp": activations,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_step": (total_ms - prefill_ms) / (n - 1),
+           "generate_ms": total_ms, "routing_calls": len(routing),
+           "routing_sha256": digest_.hexdigest(),
+           "routing_vs_whole_differing": flips,
+           "routing_assignments_per_layer": int(
+               routing[0]["experts"].numel()) if routing else 0,
+           "logit_gap": float((last - want_last).abs().max()),
+           "logit_scale": float(want_last.abs().max()),
+           "ids_equal_share": float((ids.cpu() == ref["ids"][rows]).float()
+                                    .mean()),
+           "finite": bool(torch.isfinite(last).all()),
+           "layers": cfg.num_layers}
+    del params, ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_long_child(mesh, dev) -> list:
+    """(c): each long_500k decode on this rank's block of the seeded
+    cache's positions (the params on "model" only, the reference's
+    fsdp=False): ms a step and the logit gap to the whole model."""
+    from repro_torch.core import treemath
+
+    out = []
+    for j, (name, changes, positions) in enumerate(FSDP_LONG):
+        cfg, cfg2 = fsdp_long_cfg(name, changes)
+        ref = torch.load(os.path.join(os.environ[FSDP_REFS], f"long{j}.pt"))
+        params = fsdp_init(cfg2, dev, mesh, fsdp=False)
+        cache = fsdp_cache(cfg2, 1, fsdp_long_len(), dev, 80 + j, mesh)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in treemath.tree_leaves(cache))
+        logits, ms = fsdp_long_run(cfg, cfg2, params, cache, mesh,
+                                   positions, dev)
+        logits = logits.float().cpu()
+        out.append({"arch": cfg2.name, "layers": cfg2.num_layers,
+                    "window": cfg2.sliding_window, "positions": positions,
+                    "cache_bytes": cache_bytes, "ms_per_step": ms,
+                    "whole_ms_per_step": ref["ms"],
+                    "logit_gap": float((logits - ref["logits"]).abs().max()),
+                    "logit_scale": float(ref["logits"].abs().max()),
+                    "argmax_equal_share": float(
+                        (logits.argmax(-1) == ref["logits"].argmax(-1))
+                        .float().mean()),
+                    "finite": bool(torch.isfinite(logits).all())})
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_parity_child(mesh, dev) -> dict:
+    """(d): each f32 parity case with fsdp=True against the whole model
+    at PARITY_TOL, B = 2 (rows over "data") and B = 1 (the cache's
+    sequence over "data"); every flash call held to its plain version at
+    its local shape."""
+    from repro_torch.kernels import flash_attn as fa
+
+    refs = torch.load(os.path.join(os.environ[FSDP_REFS], "parity.pt"))
+    out, real = {}, fa._forward
+    for i, (name, changes) in enumerate(FSDP_PARITY):
+        cfg = fsdp_parity_cfg(name, changes)
+        params = fsdp_init(cfg, dev, mesh)
+        for b in FSDP_PARITY_S:
+            fa.flash_attention.launches, calls = 0, []
+            fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["float32"])
+            try:
+                got = fsdp_parity_run(cfg, params, mesh, b, i, dev).cpu()
+            finally:
+                fa._forward = real
+            err, excess = allclose_err(got, refs[(i, b)][fsdp_rows(mesh, b)],
+                                       PARITY_TOL)
+            out[f"{name}/B{b}"] = {
+                "max_abs": err, "excess": excess,
+                "flash_launches": fa.flash_attention.launches,
+                "flash_vs_plain": tps_flash_worst(calls)}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_serve_cli(dev) -> dict:
+    """(e): `python -m repro_torch.launch.serve FSDP_SERVE_ARGV` on this
+    world, the launcher's world mesh made (2, 2): ms a token, tokens."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve
+
+    real = mesh_mod.WORLD_MODEL_AXIS
+    mesh_mod.WORLD_MODEL_AXIS = FSDP_SHAPE[1]
+    try:
+        res = serve.main(FSDP_SERVE_ARGV + ["--device", str(dev)])
+    finally:
+        mesh_mod.WORLD_MODEL_AXIS = real
+    out = {"ms_per_token": res["ms_per_token"], "tokens": res["tokens"]}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_child(mesh, dev, rank: int) -> dict:
+    """One rank of the FSDP world: (a)-(e) in turn, each freed before
+    the next."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = {}
+    for key, fn in (("round", fsdp_round_child), ("serve", fsdp_serve_child),
+                    ("long", fsdp_long_child),
+                    ("parity", fsdp_parity_child)):
+        t0 = time.perf_counter()
+        out[key] = fn(mesh, dev)
+        out[f"{key}_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve_cli"] = fsdp_serve_cli(dev)
+    out["serve_cli_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_fsdp(results: list) -> dict:
+    """(a) the round == whole at PARITY_TOL, K round_stats launches, each
+    call within its tolerance of the plain version, the "fsdp"
+    collectives those of the shapes, the peak within the round's trees
+    in blocks + one group gathered + 1 GB, the ranks' weights bit for
+    bit; (b) the peak within the blocks + one group gathered + the prefill's
+    activations without FSDP + 1 GB, the routing bit for bit across
+    ranks; (c) finite; (d) every case within
+    PARITY_TOL and its flash calls within FLASH_TOL; (e) the tokens
+    equal across ranks. Returns the line's part."""
+    r0 = results[0]
+    bad = []
+    k = FSDP_ROUND[0]
+    for r, res in enumerate(results):
+        a, sv = res["round"], res["serve"]
+        checks = {
+            "round vs whole": a["excess"] <= 0 and a["metrics_excess"] <= 0
+            and a["count_equal"] and a["finite"],
+            "round weights equal across ranks":
+                torch.equal(a["weights"], r0["round"]["weights"]),
+            "round_stats launches": a["launches"] == k
+            and len(a["stats_calls"]) == k,
+            "round_stats vs plain": all(c[2] <= TOL for c in a["stats_calls"]),
+            "fsdp collectives": a["collectives"] == a["want_collectives"],
+            "round shard shapes": a["shard_shapes_ok"],
+            "round peak": a["peak_bytes"] <= fsdp_round_bound(a),
+            "serve peak": sv["peak_bytes"] <= fsdp_serve_bound(sv),
+            "serve routing equal across ranks":
+                sv["routing_sha256"] == r0["serve"]["routing_sha256"]
+                and sv["routing_calls"] == sv["layers"],
+            "serve finite": sv["finite"],
+            "long finite": all(c["finite"] for c in res["long"]),
+            "parity": all(c["excess"] <= 1.0
+                          for c in res["parity"].values()),
+            "parity flash vs plain": all(
+                c["flash_vs_plain"][0] == c["flash_launches"]
+                and c["flash_vs_plain"][2] <= 1.0
+                for c in res["parity"].values())
+            and res["parity"]["gemma-2b/B2"]["flash_launches"] > 0,
+            "serve cli tokens": torch.equal(
+                res["serve_cli"]["tokens"], r0["serve_cli"]["tokens"])
+            and math.isfinite(res["serve_cli"]["ms_per_token"]),
+        }
+        bad += [f"rank {r}: {name}" for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"fsdp: {bad}: " + json.dumps(
+            {key: v for key, v in r0.items()}, default=str)[:8000])
+    a0 = r0["round"]
+    return {
+        "ranks": len(results),
+        "round": {**{key: v for key, v in a0.items()
+                     if key not in ("stats_calls", "weights")},
+                  "stats_max_err": max(c[1] for c in a0["stats_calls"]),
+                  "stats_shape": a0["stats_calls"][0][0],
+                  "ms_per_rank": [r["round"]["ms"] for r in results],
+                  "peak_bytes_per_rank": [r["round"]["peak_bytes"]
+                                          for r in results],
+                  "peak_bound": fsdp_round_bound(a0)},
+        "serve": {**r0["serve"],
+                  "prefill_ms_per_rank": [r["serve"]["prefill_ms"]
+                                          for r in results],
+                  "decode_ms_per_step_per_rank": [
+                      r["serve"]["decode_ms_per_step"] for r in results],
+                  "peak_bytes_per_rank": [r["serve"]["peak_bytes"]
+                                          for r in results],
+                  "logit_gap_per_rank": [r["serve"]["logit_gap"]
+                                         for r in results],
+                  "peak_bound": fsdp_serve_bound(r0["serve"])},
+        "long": [{**c, "ms_per_step_per_rank": [
+            r["long"][j]["ms_per_step"] for r in results],
+            "logit_gap_per_rank": [r["long"][j]["logit_gap"]
+                                   for r in results]}
+            for j, c in enumerate(r0["long"])],
+        "parity": r0["parity"],
+        "serve_cli": {"argv": " ".join(FSDP_SERVE_ARGV),
+                      "mesh": list(FSDP_SHAPE),
+                      "ms_per_token_per_rank": [
+                          r["serve_cli"]["ms_per_token"] for r in results],
+                      "tokens_rank0": r0["serve_cli"]["tokens"][0].tolist()},
+        "seconds_rank0": {key: r0[key] for key in r0
+                          if key.endswith("_seconds")},
+    }
+
+
+def fsdp_round_bound(a: dict) -> int:
+    """The peak a rank's FSDP round may reach: its param-sized trees in
+    blocks, one group's backward working set, and INIT_SLACK."""
+    return (FSDP_ROUND_TREES * a["block_bytes"]
+            + FSDP_GROUP_BACKWARD * a["group_bytes"] + INIT_SLACK)
+
+
+def fsdp_serve_bound(sv: dict) -> int:
+    """The peak a rank's FSDP serving may reach: its blocks, one group
+    gathered, the activations the same prefill has without FSDP, and
+    INIT_SLACK."""
+    return (sv["block_bytes"] + sv["group_bytes"]
+            + sv["activation_bytes_without_fsdp"] + INIT_SLACK)
+
+
+def phase_fsdp(smi: str) -> dict:
+    """FSDP over the mesh's "data" axis: the whole-model references in
+    this process (each freed before the world starts), then one (2, 2)
+    gloo world of four processes on this card runs (a)-(e)
+    (`fsdp_child`). Returns rank 0's launches of the slice's kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"phase": "fsdp", "card": smi, "note": MESH2D_CARD_NOTE,
+           "mesh": list(FSDP_SHAPE)}
+    with tempfile.TemporaryDirectory() as refs:
+        out["whole_model_refs"] = fsdp_refs(dev, refs)
+        torch.cuda.empty_cache()
+        os.environ[FSDP_REFS] = refs
+        t1 = time.perf_counter()
+        try:
+            results = run_mesh2d("fsdp", "gloo", FSDP_SHAPE, FSDP_TIMEOUT)
+        finally:
+            os.environ.pop(FSDP_REFS, None)
+        out["world_seconds"] = time.perf_counter() - t1
+    out.update(check_fsdp(results))
+    r0 = results[0]
+    out["round_stats_row"] = row = fsdp_stats_row(
+        r0["round"]["block_bytes"] // 4,
+        max(c[1] for c in r0["round"]["stats_calls"]), dev)
+    row["launches"] = r0["round"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return {"round_stats_fsdp": row,
+            "flash_attention_f32": sum(
+                c["flash_launches"] for c in r0["parity"].values())}
+
+
+def fsdp_stats_row(n: int, max_abs_err: float, dev) -> dict:
+    """round_stats' row at the FSDP round's (1, n_local) block with the
+    statistics' mask (the ownership mask times the angle filter's),
+    timed against its plain version and its bound; `max_abs_err` is the
+    worst of the round's calls against the plain version."""
+    from repro_torch.kernels import round_stats as rs
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, n, device=dev, generator=gen)
+    g = torch.randn(n, device=dev, generator=gen)
+    mask = (torch.rand(n, device=dev, generator=gen) > 0.25).float()
+    flush = torch.zeros(64 << 20, device=dev)
+    row = timing_entry(
+        "round_stats_fsdp", "round_stats.cu",
+        "src/repro/kernels/round_stats.py:157",
+        lambda: rs.round_stats(x, g, mask),
+        lambda: rs.round_stats_plain(x, g, mask), None, 4 * 3 * n + 12,
+        6 * n, flush, max_abs_err, TOL, (1, n))
+    row["wire"] = "f32"
+    del x, g, mask, flush
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---- the dense-LM serving path and kernels/ops.py ----
@@ -4885,6 +5719,10 @@ def main() -> int:
     family_launches, family_flash_errs = phase_families(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
     phase_launch(dev)
+    # last: its whole-model references launch many kernels in this
+    # process, after which the profiles of the phases above have lost
+    # every kernel between their ends (device_kernels)
+    fsdp_out = phase_fsdp(smi)
 
     for name, row in table.items():
         # each row's launches: its wrapper's count on its own wire's path
@@ -4938,6 +5776,11 @@ def main() -> int:
         tp_serve_launches["weighted_agg"]
     table["round_stats"]["launches_tp_serve"] = \
         tp_serve_launches["round_stats"]
+    # the FSDP round's statistics at the rank's (1, n_local) block, and
+    # the f32 flash kernel in the FSDP parity cases' prefills, per rank
+    table["round_stats_fsdp"] = fsdp_out["round_stats_fsdp"]
+    lm_table["flash_attention_f32"]["launches_fsdp"] = \
+        fsdp_out["flash_attention_f32"]
     table.update(lm_table)
     for name, row in table.items():
         if row["launches"] == 0:

@@ -70,7 +70,14 @@ parallel round (mode="parallel", aggregation="sync"):
 
 mode="sequential" trains one client at a time, twice (or once against
 the previous round's delta with `stale_angles`), with each client's
-statistics through `round_stats` on a (1, N) view. aggregation="buffered"
+statistics through `round_stats` on a (1, N) view. Given `param_specs`
+of `param_pspecs(..., fsdp=True)` and a mesh, it is the reference's
+FSDP round: the params and every param-sized tree of the round stay in
+this rank's blocks on both axes, each client trains on this data
+index's rows with each group gathered over "data" where it runs
+(`models/tp.py`), and the statistics run through `round_stats` on the
+rank's (1, n_local) block under an ownership mask, summed over the mesh
+in one (3,) all-reduce. aggregation="buffered"
 makes a call one tick of the buffered-async server (`core.buffer`): its
 flat engine streams the buffer's f32 rows through the f32 kernels (the
 sharded engine each rank's rows of it, after every rank has admitted the
@@ -780,7 +787,7 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                   angle_pred: Optional[Callable] = None,
                   grad_constraint: Optional[Callable] = None,
                   mesh=None, arrival_fn: Optional[Callable] = None, *,
-                  param_specs=None) -> Callable:
+                  param_specs=None, rows_over_data: bool = True) -> Callable:
     """Build the round: round_fn(state, batches, sel_idx, data_sizes) ->
     (state, metrics), with the reference's parameters (by name and
     position), state contract and metrics keys.
@@ -813,6 +820,11 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
     blocks of those specs, and each client trains tensor-parallel over
     the mesh's "model" axis (module docstring); the sync parallel round
     on the flat_sharded or tree engine, with the f32 downlink, runs it.
+    In sequential mode the specs are `param_pspecs(..., fsdp=True)`'s,
+    on a mesh of any shape: the FSDP round. Its `batches` then hold this
+    data index's rows of each client's batch where the batch splits
+    over "data" (`rows_over_data`, port-only, keyword), else all of
+    them, on every rank (`rows_over_data=False`).
     """
     fl.validate()
     check_mesh(mesh)
@@ -821,12 +833,14 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
             "engine='flat_sharded' shards the (K, N) delta buffer over "
             "the mesh client axis; pass mesh= to make_round_fn")
     if param_specs is not None:
-        _check_param_specs(fl, mesh)
+        _check_param_specs(fl, mesh, param_specs)
     if angle_pred is None and fl.angle_filter == "dense_only":
         angle_pred = moe_dense_only_pred
     if fl.mode == "sequential":
-        return _make_sequential_round(loss_fn, fl, angle_pred,
-                                      grad_constraint)
+        return _make_sequential_round(
+            loss_fn, fl, angle_pred, grad_constraint,
+            None if param_specs is None else mesh, param_specs,
+            rows_over_data)
     round_mesh = mesh if fl.engine == "flat_sharded" else None
     if fl.aggregation == "buffered":
         return _make_buffered_round(loss_fn, fl, delta_constraint,
@@ -838,21 +852,34 @@ def make_round_fn(loss_fn: Callable, fl: FLConfig,
                                 grad_constraint, round_mesh, param_specs)
 
 
-def _check_param_specs(fl: FLConfig, mesh) -> None:
+def _check_param_specs(fl: FLConfig, mesh, param_specs) -> None:
     """Raise for a round that cannot keep its params in blocks."""
+    from repro_torch.models import tp
+
     if mesh is None or fl.engine not in ("flat_sharded", "tree"):
         raise ValueError(
             "param_specs places the params in blocks over a mesh's model "
             "axis: pass mesh= with engine='flat_sharded' or 'tree'")
-    for what, off in (("mode='sequential'", fl.mode == "sequential"),
-                      ("aggregation='buffered'",
+    def specs_of(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in specs_of(v)]
+        return [tree]
+
+    on_data = mesh.client_size > 1 and any(
+        tp.data_dim(spec) >= 0 for spec in specs_of(param_specs))
+    for what, off in (("aggregation='buffered'",
                        fl.aggregation == "buffered"),
-                      (f"downlink={fl.downlink!r}", fl.downlink != "f32")):
+                      (f"downlink={fl.downlink!r}", fl.downlink != "f32"),
+                      ("method='fedprox' in sequential mode",
+                       fl.mode == "sequential" and fl.prox_mu > 0.0),
+                      ("params on 'data' in parallel mode (the FSDP "
+                       "specs are the sequential round's)",
+                       fl.mode == "parallel" and on_data)):
         if off:
             raise NotImplementedError(
                 f"{what} with param_specs: the round keeps its params in "
-                "blocks only in the sync parallel round with the f32 "
-                "downlink (ROADMAP Queue 1 item 13d)")
+                "blocks only in the sync parallel and sequential rounds "
+                "with the f32 downlink (ROADMAP Queue 1 item 13d)")
 
 
 def _clients(loss_fn: Callable, fl: FLConfig,
@@ -1437,9 +1464,35 @@ def _make_buffered_round(loss_fn: Callable, fl: FLConfig,
     return round_fn
 
 
+def _owned(mesh, spec: tuple) -> bool:
+    """Whether this rank counts a leaf of `spec` in the round's
+    statistics: its index is 0 on every axis of more than one rank that
+    the leaf is replicated over, so that every element is counted once
+    over the mesh."""
+    from repro_torch.models import sharding
+
+    names = {a for entry in spec for a in sharding.entry_axes(entry)}
+    return all(index == 0 for axis, size, index in (
+        ("data", mesh.client_size, mesh.client_index),
+        ("model", mesh.model_size, mesh.model_index))
+        if size > 1 and axis not in names)
+
+
+def _global_count(blocks: Tree, specs: Tree, mesh) -> int:
+    """The model's parameter count from this rank's blocks of it."""
+    from repro_torch.models import sharding
+
+    return sum(x.numel() * math.prod(
+        mesh.shape[a] for entry in spec for a in sharding.entry_axes(entry))
+        for x, spec in zip(treemath.tree_leaves(blocks),
+                           treemath.tree_leaves_like(blocks, specs)))
+
+
 def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
                            angle_pred: Optional[Callable],
-                           grad_constraint: Optional[Callable]) -> Callable:
+                           grad_constraint: Optional[Callable],
+                           mesh=None, param_specs=None,
+                           rows_over_data: bool = True) -> Callable:
     """Sequential mode: one model copy, the K clients in a Python loop.
 
     FedAdp needs the round's global delta before it can weight, so the
@@ -1450,50 +1503,91 @@ def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
     w_i * delta_i and w_i online (w_i = D_i e^{f(theta~_i)}: Eq. 11's
     softmax has one scalar denominator). `stale_angles=True` is the
     one-pass variant against the previous round's `prev_delta`. Nothing
-    in the loop waits on the device."""
+    in the loop waits on the device.
+
+    With `param_specs` (FSDP, on `mesh`) every tree of the round is this
+    rank's blocks, each client trains inside `tp.scope(mesh,
+    specs=param_specs, rows_over_data=...)`, and `round_stats` runs on
+    the rank's (1, n_local) block with the segment mask times the
+    ownership mask (`_owned`); one (3,) all-reduce over the mesh then
+    gives each client's dot and squared norms, each element counted
+    once."""
     segment_mask = _segment_masks(angle_pred)
+    owner_masks: dict = {}
+
+    def stats_mask(params) -> Optional[torch.Tensor]:
+        maskv = segment_mask(params)
+        if param_specs is None:
+            return maskv
+        dev = treemath.tree_leaves(params)[0].device
+        if dev not in owner_masks:
+            owned = treemath.segment_mask(params, [
+                _owned(mesh, spec) for spec in
+                treemath.tree_leaves_like(params, param_specs)])
+            owner_masks[dev] = owned if maskv is None else owned * maskv
+        return owner_masks[dev]
+
+    def stats(d_flat, g_flat, maskv):
+        dots, sqs, sqg = round_stats(d_flat[None], g_flat, maskv)
+        if param_specs is None:
+            return dots[0], sqs[0], sqg
+        return tuple(mesh.all_reduce(torch.stack([dots[0], sqs[0], sqg]),
+                                     axes=("data", "model")))
+
+    train = local_update
+    if param_specs is not None:
+        from repro_torch.models import tp
+
+        def train(*args):
+            with tp.scope(mesh, specs=param_specs,
+                          rows_over_data=rows_over_data):
+                return local_update(*args)
 
     def client(params, batches, i, lr):
-        return local_update(loss_fn, params,
-                            treemath.tree_map(lambda a: a[i], batches), lr,
-                            fl.prox_mu, grad_constraint)
+        return train(loss_fn, params,
+                     treemath.tree_map(lambda a: a[i], batches), lr,
+                     fl.prox_mu, grad_constraint)
 
     def round_fn(state: RoundState, batches, sel_idx, data_sizes):
         params, angle_state = state.params, state.angle
+        if mesh is not None:
+            mesh.check_device(treemath.tree_leaves(params)[0].device)
         sel = sel_idx.to(torch.int64)
         k = sel.shape[0]
         lr = _lr_at(fl, state.round)
-        maskv = segment_mask(params)
+        maskv = stats_mask(params)
         sizes = data_sizes.to(torch.float32)
         psi_avg = sizes / torch.sum(sizes)
-        zeros32 = init_prev_delta(params)
 
         losses = None
         if not fl.stale_angles:
             # ---- pass 1: the FedAvg-weighted global delta ----
-            g_ref, pass1 = zeros32, []
+            g_ref, pass1 = init_prev_delta(params), []
             for i in range(k):
                 d_i, loss = client(params, batches, i, lr)
                 g_ref = treemath.tree_axpy(psi_avg[i], d_i, g_ref)
                 pass1.append(loss)
+                del d_i  # before the next client trains
             losses = torch.stack(pass1)
         else:
             g_ref = state.prev_delta
+        # pass 2 reads g as one vector; the tree goes (each param-sized
+        # tree the round holds is one more model copy)
         g_flat, _ = treemath.tree_ravel(g_ref)
+        del g_ref
 
         # ---- pass 2 (or the one stale pass): the statistics and the
         # online weighted sum ----
         cnt = angle_state.count[sel].to(torch.float32) + 1.0
         prev_sm = angle_state.smoothed[sel]
-        num, den, g_acc = zeros32, torch.zeros((), device=sizes.device), \
-            zeros32
-        stats, pass2 = [], []
+        num, den, g_acc = init_prev_delta(params), torch.zeros(
+            (), device=sizes.device), init_prev_delta(params)
+        rows, pass2 = [], []
         for i in range(k):
             d_i, loss = client(params, batches, i, lr)
             d_flat, _ = treemath.tree_ravel(d_i)
-            dots_i, sqs_i, sqg_i = round_stats(d_flat[None], g_flat, maskv)
-            theta_i = weighting.instantaneous_angle(dots_i[0], sqs_i[0],
-                                                    sqg_i)
+            dot_i, sq_i, sqg_i = stats(d_flat, g_flat, maskv)
+            theta_i = weighting.instantaneous_angle(dot_i, sq_i, sqg_i)
             sm = ((cnt[i] - 1.0) * prev_sm[i] + theta_i) / cnt[i]
             if fl.method == "fedadp":
                 w_i = sizes[i] * torch.exp(weighting.gompertz(sm, fl.alpha))
@@ -1502,10 +1596,10 @@ def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
             num = treemath.tree_axpy(w_i, d_i, num)
             den = den + w_i
             g_acc = treemath.tree_axpy(psi_avg[i], d_i, g_acc)
-            stats.append(torch.stack([theta_i, sm, dots_i[0], sqs_i[0],
-                                      sqg_i]))
+            rows.append(torch.stack([theta_i, sm, dot_i, sq_i, sqg_i]))
             pass2.append(loss)
-        theta, theta_sm, dots, sqs, sqgs = torch.stack(stats, dim=1)
+            del d_i, d_flat  # before the next client trains
+        theta, theta_sm, dots, sqs, sqgs = torch.stack(rows, dim=1)
         delta = treemath.tree_scale(num, 1.0 / torch.clamp(den, min=1e-12))
         new_params = treemath.tree_map(
             lambda p, d: (p.to(torch.float32) + d).to(p.dtype), params,
@@ -1519,7 +1613,9 @@ def _make_sequential_round(loss_fn: Callable, fl: FLConfig,
                            else torch.stack(pass2), theta, theta_sm, w, div,
                            lr, sizes.device)
         if fl.telemetry:
-            metrics.update(_telemetry_metrics(fl, params, sel_idx, w))
+            metrics.update(_telemetry_metrics(
+                fl, params, sel_idx, w, n=None if param_specs is None
+                else _global_count(params, param_specs, mesh)))
         # prev_delta is pass 2's FedAvg-weighted sum, as in the reference
         return state._replace(params=new_params, angle=new_angle,
                               prev_delta=g_acc,

@@ -196,9 +196,35 @@ class ClientMesh:
             return t
         self._record("all_gather", axes, t)
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts, dim=dim)
+        # each rank's part lands in its view of the result: no parts
+        # beside it, so a gathered FSDP group costs its own size only
+        shape = list(t.shape)
+        shape[dim] *= n
+        out = t.new_empty(shape)
+        step = t.shape[dim]
+        dist.all_gather([out.narrow(dim, i * step, step) for i in range(n)],
+                        t, group=group)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes=("data",),
+                       dim: int = 0) -> torch.Tensor:
+        """This rank's block along `dim` of `t` summed over the ranks of
+        `axes` (the reference's psum_scatter, tiled): the partner of
+        `all_gather`, a fresh tensor; `t` itself on an axis of one
+        rank."""
+        group, n = self._group(axes)
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {n} ranks of {tuple(axes)}")
+        self._record("reduce_scatter", axes, t)
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        # torch 2.13 renames reduce_scatter_tensor reduce_scatter_single
+        getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+            out, src, group=group)
+        return out.movedim(0, dim).contiguous()
 
     def barrier(self) -> None:
         if self.group is not None:

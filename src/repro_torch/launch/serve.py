@@ -10,6 +10,11 @@ production serving launcher, the counterpart of `repro/launch/serve.py`.
         --host-mesh --smoke --shape decode_32k --batch 2 --seq 64 --steps 16
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
         --arch gemma-2b --shape decode_32k --batch 4 --seq 4096 --steps 8
+    # long_500k (B = 1): on a world with a data axis (16 ranks: (2, 8))
+    # the cache's sequence lies on "data"
+    torchrun --nnodes 2 --nproc-per-node 8 --rdzv-backend c10d \\
+        --rdzv-endpoint HOST:29500 -m repro_torch.launch.serve \\
+        --arch gemma-2b --shape long_500k --steps 8
 
 `generate` is the flow of the JAX package's `examples/serve_decode.py`:
 `transformer.forward(mode="prefill")` on the prompt and the stub inputs
@@ -33,10 +38,12 @@ batch and cache length (`--batch` / `--seq` override them; `--seq`
 sizes the cache), `--smoke` for the reduced config, and on `--host-mesh`
 one device, else the world mesh of `launch.mesh.world_mesh` (under
 torchrun, or in a process group the caller started), each rank holding
-its blocks of the params (initialised into them) and of the cache. It
-decodes `--steps` greedy tokens from zero tokens at mid-cache through
-`build_decode_step`'s fn, prints ms/token with the first step left out,
-and the tokens.
+its blocks of the params (initialised into them; above 40e9 params in
+FSDP blocks over both axes, the step builder's default) and of the
+cache (where the batch does not split over "data", as long_500k's
+B = 1, a block of its positions). It decodes `--steps` greedy tokens
+from zero tokens at mid-cache through `build_decode_step`'s fn, prints
+ms/token with the first step left out, and the tokens.
 """
 from __future__ import annotations
 
@@ -108,13 +115,17 @@ def serve_shape(cfg, shape, mesh, dev, steps: int) -> dict:
     cfg2 = shapes_mod.config_for_shape(cfg, shape)
     b, s = meta["B"], meta["S"]
     blocks = steps_mod._tensor_parallel(mesh)
+    # the step builder's default: FSDP params above the threshold
+    fsdp = cfg2.param_count() > steps_mod.SEQUENTIAL_THRESHOLD
     gen = torch.Generator(device=dev).manual_seed(0)
     params = transformer.init_params(
         gen, cfg2, mesh=mesh if blocks else None,
-        specs=sharding.param_pspecs(sds[0], mesh) if blocks else None)
+        specs=sharding.param_pspecs(sds[0], mesh, fsdp=fsdp)
+        if blocks else None)
     cache = transformer.init_cache(cfg2, b, s, device=dev,
                                    mesh=mesh if blocks else None)
-    rows = b // sharding.batch_total(mesh) if blocks else b
+    split = blocks and steps_mod.rows_split(mesh, b)
+    rows = b // sharding.batch_total(mesh) if split else b
     tok = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
     pos = s // 2  # mid-cache decode position
     out, t0 = [], None
@@ -128,7 +139,7 @@ def serve_shape(cfg, shape, mesh, dev, steps: int) -> dict:
     _sync(dev)
     ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
     ids = torch.cat(out, dim=1)
-    if blocks:  # every data index's rows
+    if split:  # every data index's rows
         ids = mesh.all_gather(ids, axes=("data",), dim=0)
     return {"tokens": ids.cpu(), "ms_per_token": ms, "cfg": cfg2}
 

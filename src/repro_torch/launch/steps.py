@@ -26,17 +26,27 @@ The reference's `delta_constraint` and `grad_constraint` are identities
 here, passed to `make_round_fn` where the reference passes its
 constraints: the activations need none (`models/tp.py`).
 
-Given such a mesh, `build_prefill_step` and `build_decode_step` build
-the serving steps the reference's partitioner makes: their `fn` runs in
-`tp.scope(mesh, rows_over_data=True)` on this rank's params
-(`sharding.param_pspecs`, e.g. from `transformer.init_params(...,
-mesh=, specs=)`), this data index's batch rows and its cache blocks
-(`sharding.cache_pspecs`, e.g. `transformer.init_cache(..., mesh=)`),
-and returns the rows' logits whole (gathered over "model" at the one
-position read) and the cache blocks. `args` keep the global shapes.
-FSDP serving and a batch that does not split over "data" (which puts
-the cache's sequence on "data") raise NotImplementedError naming
-ROADMAP Queue 1 item 13d.
+In sequential mode (`fl_mode="sequential"`, the reference's FSDP
+mode) on a `ClientMesh` of more than one rank, `build_train_step`
+builds the sequential round with `param_specs=param_pspecs(...,
+fsdp=True)`: its `fn` takes and returns this rank's blocks of the state
+on both axes, and takes this data index's rows of each client's batch
+(the batch's B dim as the in_specs split it: `local_batch`), all rows
+where B does not split over "data".
+
+Given a `ClientMesh` of more than one rank, `build_prefill_step` and
+`build_decode_step` build the serving steps the reference's partitioner
+makes: their `fn` runs in `tp.scope(mesh, ...)` on this rank's params
+(`sharding.param_pspecs(..., fsdp=)`, e.g. from
+`transformer.init_params(..., mesh=, specs=)`; with `fsdp` each group
+is gathered over "data" where it runs), this data index's batch rows
+(all of them where B does not split over "data") and its cache blocks
+(`sharding.cache_pspecs`, e.g. `transformer.init_cache(..., mesh=)`;
+where B does not split, the sequence of the attention caches goes on
+"data"), and returns the rows' logits whole (gathered over "model" at
+the one position read) and the cache blocks. `args` keep the global
+shapes. A family tensor-parallel execution does not cover raises
+NotImplementedError naming ROADMAP Queue 1 item 13d.
 """
 from __future__ import annotations
 
@@ -76,9 +86,10 @@ def _identity(tree):
 
 
 def _tensor_parallel(mesh) -> bool:
-    """Whether `mesh` is a process group's mesh with a model axis: the
-    builders then build the steps that run on this rank's blocks."""
-    return isinstance(mesh, ClientMesh) and mesh.model_size > 1
+    """Whether `mesh` is a process group's mesh of more than one rank:
+    the serving builders then build the steps that run on this rank's
+    blocks (and rows)."""
+    return isinstance(mesh, ClientMesh) and mesh.size > 1
 
 
 def _check_family(cfg: ModelConfig, use: str) -> None:
@@ -89,24 +100,45 @@ def _check_family(cfg: ModelConfig, use: str) -> None:
             f"{cfg.name}: tensor-parallel {use}: {tp.UNSUPPORTED}")
 
 
-def _check_serving(cfg: ModelConfig, mesh, fsdp: bool, batch: int) -> None:
-    """Raise NotImplementedError (naming item 13d) for tensor-parallel
-    serving the port does not cover: the family (`_check_family`),
-    FSDP params, and a batch that does not split over "data" (the cache
-    rules would put its sequence there)."""
+def rows_split(mesh, batch: int) -> bool:
+    """Whether a global batch of `batch` rows splits over the mesh's
+    batch axes (else every data rank holds every row)."""
+    total = sharding.batch_total(mesh)
+    return batch % total == 0 and batch >= total
+
+
+def _seq_over_data(mesh, cache_sds) -> bool:
+    """Whether the cache rules put an attention cache's sequence on
+    "data" (a batch that does not split there)."""
+    specs = sharding.cache_pspecs(cache_sds, mesh)
+    return any(len(spec) > 2 and spec[2] == "data"
+               for spec in treemath.tree_leaves_like(cache_sds, specs))
+
+
+def _serving_scope(cfg: ModelConfig, mesh, fsdp: bool, batch: int,
+                   p_sds, cache_sds):
+    """A serving step's `tp.scope` as a callable: on a `ClientMesh` of
+    more than one rank the step's rows over "data" where the batch
+    splits there, the params' FSDP specs with `fsdp`, and the cache's
+    sequence on "data" where its rules put it there; an empty scope
+    elsewhere. Raises NotImplementedError (naming item 13d) for a family
+    tensor-parallel execution does not cover."""
+    if not _tensor_parallel(mesh):
+        return lambda: tp.scope(None)
     _check_family(cfg, "serving")
-    if fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP serving (params over 'data', > "
-            f"{SEQUENTIAL_THRESHOLD:.0e} params): ROADMAP Queue 1 item "
-            "13d; the tensor-parallel steps hold the params on 'model' "
-            "only")
-    data = sharding.batch_total(mesh)
-    if batch % data:
-        raise NotImplementedError(
-            f"{cfg.name}: a batch of {batch} does not split over "
-            f"{data} data ranks, so the cache's sequence would go on "
-            "'data': ROADMAP Queue 1 item 13d")
+    split = rows_split(mesh, batch)
+    specs = sharding.param_pspecs(p_sds, mesh, fsdp=True) if fsdp else None
+    seq = not split and _seq_over_data(mesh, cache_sds)
+    return lambda: tp.scope(mesh, rows_over_data=split, specs=specs,
+                            seq_over_data=seq)
+
+
+def local_batch(batch, in_specs, mesh):
+    """This rank's part of a global batch tree under its `NamedSpec`
+    tree (the builders' batch in_specs): this data index's rows, or all
+    of them where the spec replicates them."""
+    return {k: sharding.block(v, mesh, in_specs[k].spec)
+            for k, v in batch.items()}
 
 
 # ------------------------------------------------------------- train
@@ -139,9 +171,11 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
             cfg, moe=dataclasses.replace(cfg.moe, combine_dtype="bfloat16"))
     rep_extra = _replicate_extra(cfg, mesh, mqa_replicate_kv)
     fl_mode = fl_mode or fl_mode_for(cfg)
-    # a process group's mesh with a model axis: the tensor-parallel round
-    tensor_parallel = (isinstance(mesh, ClientMesh)
-                       and mesh.model_size > 1)
+    # a process group's mesh with a model axis: the tensor-parallel
+    # round; in sequential mode, any mesh of more than one rank: FSDP
+    tensor_parallel = (isinstance(mesh, ClientMesh) and mesh.model_size > 1
+                       and fl_mode == "parallel")
+    fsdp_round = fl_mode == "sequential" and _tensor_parallel(mesh)
     K = sharding.batch_total(mesh) if fl_mode == "parallel" else 16
     B = max(shape.global_batch // K, 1)
     tau = local_steps
@@ -179,12 +213,13 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
         if (angle_filter == "dense_only" and cfg.moe is not None)
         else None
     )
-    if tensor_parallel:
+    if tensor_parallel or fsdp_round:
         _check_family(cfg, "training")
         round_fn = fl_mod.make_round_fn(
             loss, flcfg, delta_constraint, angle_pred, grad_constraint,
             mesh=mesh, param_specs=sharding.param_pspecs(
-                p_sds, mesh, replicate_extra=rep_extra))
+                p_sds, mesh, fsdp=fsdp, replicate_extra=rep_extra),
+            rows_over_data=rows_split(mesh, B))
     else:
         round_fn = fl_mod.make_round_fn(loss, flcfg, delta_constraint,
                                         angle_pred, grad_constraint)
@@ -216,20 +251,18 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     B, T = shape.global_batch, shape.seq_len
     if fsdp is None:
         fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
-    tensor_parallel = _tensor_parallel(mesh)
-    if tensor_parallel:
-        _check_serving(cfg, mesh, fsdp, B)
+    p_sds = params_sds(cfg)
+    batch_sds = shapes_mod.token_batch_specs(cfg, B, T)
+    cache_sds = shapes_mod.cache_specs(cfg, B, T + cfg.vision_prefix)
+    scope = _serving_scope(cfg, mesh, fsdp, B, p_sds, cache_sds)
 
     def prefill_step(params, batch):
-        with tp.scope(mesh if tensor_parallel else None,
-                      rows_over_data=True):
+        with scope():
             logits, aux, cache = transformer.forward(
                 params, cfg, batch, mode="prefill", max_len=T
             )
             return tp.gather_logits(logits[:, -1:], cfg.vocab_size), cache
 
-    p_sds = params_sds(cfg)
-    batch_sds = shapes_mod.token_batch_specs(cfg, B, T)
     p_shard = sharding.param_shardings(p_sds, mesh, fsdp=fsdp)
     b_shard = sharding.shard_batch_dim(mesh, batch_sds, default_dim=0)
     if "positions" in batch_sds:
@@ -238,7 +271,6 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     # logits, and a cache of every prompt position (the vision prefix's
     # too) laid out as init_cache lays it out
     logits_sds = shapes_mod.spec((B, 1, cfg.vocab_size), cfg.tdtype)
-    cache_sds = shapes_mod.cache_specs(cfg, B, T + cfg.vision_prefix)
     out_shard = (
         sharding.shard_batch_dim(mesh, logits_sds, default_dim=0),
         _cache_shardings(cfg, mesh, cache_sds),
@@ -273,23 +305,20 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     B, S = shape.global_batch, shape.seq_len
     if fsdp is None:
         fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
-    tensor_parallel = _tensor_parallel(mesh)
-    if tensor_parallel:
-        _check_serving(cfg, mesh, fsdp, B)
+    p_sds = params_sds(cfg)
+    d = shapes_mod.decode_specs(cfg, B, S)
+    scope = _serving_scope(cfg, mesh, fsdp, B, p_sds, d["cache"])
 
     def serve_step(params, token, cache, pos):
         # a meta position has no value; a decode step's shapes and work
         # do not depend on it, so the dry run decodes at position 0
         pos = 0 if getattr(pos, "device", None) == shapes_mod.META \
             else int(pos)
-        with tp.scope(mesh if tensor_parallel else None,
-                      rows_over_data=True):
+        with scope():
             logits, cache = transformer.decode_step(params, cfg, token,
                                                     cache, pos)
             return tp.gather_logits(logits, cfg.vocab_size), cache
 
-    p_sds = params_sds(cfg)
-    d = shapes_mod.decode_specs(cfg, B, S)
     p_shard = sharding.param_shardings(p_sds, mesh, fsdp=fsdp)
     tok_shard = sharding.shard_batch_dim(mesh, d["token"], default_dim=0)
     cache_shard = _cache_shardings(cfg, mesh, d["cache"])

@@ -14,7 +14,11 @@ here, the pods' nodes all sit on "data"). Each client then trains
 tensor-parallel over "model" and the state stays in blocks
 (`models/tp.py`), initialised straight into them leaf by leaf; a family
 that cannot raises NotImplementedError (ROADMAP Queue 1 item 13d). The
-DeepSeek family (MLA + MoE) trains so too.
+DeepSeek family (MLA + MoE) trains so too. A config above 40e9 params
+runs the reference's sequential (FSDP) round (`steps.fl_mode_for`): on a
+world its state is initialised straight into this rank's blocks on both
+axes (`param_pspecs(..., fsdp=True)`), each rank takes its data index's
+rows of the batch, and a checkpoint gathers the leaves one by one.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --host-mesh --smoke --rounds 5
@@ -128,7 +132,7 @@ def main(argv=None) -> dict:
             global_batch=args.global_batch or shape.global_batch,
         )
 
-    fn, sds, _, _, meta = steps.build_train_step(
+    fn, sds, in_specs, _, meta = steps.build_train_step(
         cfg, mesh, shape, method=args.method, stale=args.stale,
         local_steps=args.tau,
         telemetry="node" if args.telemetry else None,
@@ -148,9 +152,11 @@ def main(argv=None) -> dict:
     # RoundState's fields are a function of it
     flcfg = repro_torch.FLConfig(**meta["flcfg"])
     # the state's params and prev_delta in this rank's blocks where the
-    # mesh has a model axis (None: whole)
-    specs = (sharding.param_pspecs(sds[0].params, mesh)
-             if mesh.model_size > 1 else None)
+    # mesh has a model axis, and in sequential (FSDP) mode on any mesh of
+    # more than one rank, on both axes (None: whole)
+    fsdp = meta["fl_mode"] == "sequential"
+    specs = (sharding.param_pspecs(sds[0].params, mesh, fsdp=fsdp)
+             if mesh.model_size > 1 or (fsdp and mesh.size > 1) else None)
 
     def placed(tree):
         if specs is None:
@@ -213,6 +219,8 @@ def main(argv=None) -> dict:
             if k2 != "tokens":
                 batch[k2] = torch.zeros(spec.shape, dtype=spec.dtype,
                                         device=dev)
+        if fsdp and specs is not None:  # this data index's rows
+            batch = steps.local_batch(batch, in_specs[1], mesh)
         t0 = time.time()
         with spans.span("round", round=r + 1):
             state, m = fn(state, batch, sel, sizes)

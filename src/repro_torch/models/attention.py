@@ -14,7 +14,11 @@ raises. `attn_decode` writes the new key and value into the cache in
 place (the reference returns an updated copy) and returns that cache.
 Inside a `tp.scope` train, prefill and decode run on this rank's heads
 (`_tp_qkv`), and the cache holds this rank's KV heads where they divide
-over "model", all of them where they do not.
+over "model", all of them where they do not. Where the scope puts the
+cache's sequence on "data" (`tp.seq_over_data`), a rank's cache holds a
+block of the positions: the prefill stores those, a decode step writes
+the token's key and value on the rank that owns its slot, and the
+ranks' partial softmaxes are combined (`tp.combine_over_data`).
 """
 from __future__ import annotations
 
@@ -151,7 +155,7 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
             n = min(t, s)
             kc[:, :n] = ck[:, -n:]
             vc[:, :n] = cv[:, -n:]
-        cache = {"k": kc, "v": vc}
+        cache = {"k": tp.own_positions(kc), "v": tp.own_positions(vc)}
     return y, cache
 
 
@@ -267,21 +271,30 @@ def attn_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
 
         def pick(z):
             return z
-    # the reference's dynamic_update_slice clamps the start into range
-    slot = min(pos % s if window else pos, s - 1)
+    # the reference's dynamic_update_slice clamps the start into range;
+    # where the sequence is on "data" the rank holds positions lo ..
+    # lo + s - 1 of the whole ring or buffer and writes the slot it owns
+    lo, whole = tp.seq_block(s), s * tp.seq_blocks()
+    slot = min(pos % whole if window else pos, whole - 1) - lo
     ck, cv = cache["k"], cache["v"]
-    ck[:, slot:slot + 1] = k
-    cv[:, slot:slot + 1] = v
+    if 0 <= slot < s:
+        ck[:, slot:slot + 1] = k
+        cv[:, slot:slot + 1] = v
 
     scores = _gqa_scores(q, pick(ck), _scale(hd))  # (B,G,Hg,1,S)
-    idx = torch.arange(s, device=x.device)
+    idx = torch.arange(lo, lo + s, device=x.device)
     if window:
-        valid = idx < min(pos + 1, s)  # ring: all that is written is in
+        valid = idx < min(pos + 1, whole)  # ring: all that is written is in
     else:
         valid = idx <= pos
-    probs = _masked_softmax(scores, valid[None, None, None, None, :])
-    y = out_proj(_gqa_out(probs, pick(cv)).to(x.dtype))
-    return y, cache
+    if tp.seq_over_data() is None:
+        probs = _masked_softmax(scores, valid[None, None, None, None, :])
+        return out_proj(_gqa_out(probs, pick(cv)).to(x.dtype)), cache
+    out, sums = tp.combine_over_data(scores, valid,
+                                     lambda p_: _gqa_out(p_, pick(cv)))
+    b, g, hg = sums.shape[:3]  # sums (B, G, Hg, 1), out (B, 1, H * hd)
+    out = out.reshape(b, 1, g, hg, -1) / sums.permute(0, 3, 1, 2)[..., None]
+    return out_proj(out.reshape(b, 1, -1).to(x.dtype)), cache
 
 
 def _chunked_attention(q, k, v, scale, causal, window, q_chunk):

@@ -21,7 +21,9 @@ has no head dim: every rank holds it whole. The absorbed decode reads
 whole heads (H = 4 on M = 8) the projections' outputs are gathered, as
 in `attention._tp_qkv`, attention runs on all heads on every rank, and
 `wo` reads the rank's rows of its input; the absorbed decode then
-gathers `wk_b` and `wv_b` themselves.
+gathers `wk_b` and `wv_b` themselves. Where the scope puts the cache's
+sequence on "data" a rank holds a block of the latent positions, as in
+`attention.attn_decode`.
 """
 from __future__ import annotations
 
@@ -156,7 +158,7 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
         cr = k_rope.new_zeros((b, max_len, m.rope_head_dim))
         ck[:, :t] = c_kv
         cr[:, :t] = k_rope
-        cache = {"ckv": ck, "krope": cr}
+        cache = {"ckv": tp.own_positions(ck), "krope": tp.own_positions(cr)}
     return y, cache
 
 
@@ -171,10 +173,15 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     q_nope, q_rope = _queries(p, cfg, x, cos, sin, local, H)  # (B,1,H,*)
     c_kv, k_rope = _latents(p, cfg, x, cos, sin)  # (B,1,r), (B,1,rd)
     ckv, krope = cache["ckv"], cache["krope"]
-    # the reference's dynamic_update_slice clamps the start into range
-    slot = min(pos, ckv.shape[1] - 1)
-    ckv[:, slot:slot + 1] = c_kv
-    krope[:, slot:slot + 1] = k_rope
+    # the reference's dynamic_update_slice clamps the start into range;
+    # where the sequence is on "data" the rank holds positions lo ..
+    # lo + S_loc - 1 and writes the slot it owns
+    s_loc = ckv.shape[1]
+    lo = tp.seq_block(s_loc)
+    slot = min(pos, s_loc * tp.seq_blocks() - 1) - lo
+    if 0 <= slot < s_loc:
+        ckv[:, slot:slot + 1] = c_kv
+        krope[:, slot:slot + 1] = k_rope
 
     # absorb W_uk into the query: q_lat (B,1,H,r), over the rank's heads
     # where `local`, else over all (a block of part heads gathered)
@@ -187,11 +194,18 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     q_lat = torch.einsum("bthe,rhe->bthr", q_nope.to(f32), wk_b.to(f32))
     s = torch.einsum("bthr,bsr->bhts", q_lat, ckv.to(f32))
     s = s + torch.einsum("bthe,bse->bhts", q_rope.to(f32), krope.to(f32))
-    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
-    probs = torch.softmax(torch.where(valid[None, None, None, :],
-                                      s * _scale(m),
-                                      torch.full_like(s, NEG_INF)), dim=-1)
-    out_lat = torch.einsum("bhts,bsr->bthr", probs, ckv.to(f32))
+    valid = torch.arange(lo, lo + s_loc, device=x.device) <= pos
+    if tp.seq_over_data() is None:
+        probs = torch.softmax(torch.where(valid[None, None, None, :],
+                                          s * _scale(m),
+                                          torch.full_like(s, NEG_INF)),
+                              dim=-1)
+        out_lat = torch.einsum("bhts,bsr->bthr", probs, ckv.to(f32))
+    else:  # the ranks' blocks of the latent positions combined
+        out_lat, sums = tp.combine_over_data(
+            s * _scale(m), valid, lambda p_: torch.einsum(
+                "bhts,bsr->bthr", p_, ckv.to(f32)))
+        out_lat = out_lat / sums.permute(0, 2, 1)[..., None]
     wv_b = wv_b.reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bthr,rhe->bthe", out_lat, wv_b.to(f32))
     y = _out(out.reshape(b, 1, H * m.v_head_dim).to(x.dtype), p["wo"], cfg,

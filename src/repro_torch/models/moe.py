@@ -27,9 +27,12 @@ instead (`f` of `w_gate` / `w_up`, `d` of `w_down`), every rank runs
 every expert on its block of `f`, and the hidden and the output are
 gathered over "model". The dispatched tokens and the gates feed the
 rank's own experts, so both pass `tp.copy_to_model`; the aux loss stays
-on the replicated path and is added once. A serving step whose rows are
-split over "data" routes the rows of every data index together
-(`tp.gather_rows`), as the reference routes its whole batch.
+on the replicated path and is added once. A serving step or an FSDP
+training step whose rows are split over "data" routes the rows of every
+data index together (`tp.gather_rows`, whose backward hands each row's
+cotangent back to its owner), as the reference routes its whole batch;
+every data rank then computes the same aux loss, which the loss counts
+once (`tp.rows_mean`).
 `record_routing()` lists each call's routing, for checks.
 """
 from __future__ import annotations

@@ -24,13 +24,17 @@ model-sharded leaf is raveled, quantized and aggregated a block a rank
 width and runs the collectives itself). `gather_params` is the inverse,
 for checkpoints and hashes only. `transformer.init_params(...,
 mesh=, specs=)` makes the blocks straight from the init, leaf by leaf
-(`block`), so that no process holds the whole model. The activations
+(`block`), so that no process holds the whole model. With `fsdp=True`
+the blocks lie on both axes: the sequential round and the FSDP serving
+steps take them, and the model gathers each group over "data" where it
+runs (`models/tp.py`). The activations
 need no constraint: a tensor is either replicated or one of this rank's
 explicit blocks, so `constrain` changes nothing.
 
 The decode cache has rules of its own (`cache_pspecs`, the reference's
 `launch/steps.py::_cache_shardings`): its batch rows over the batch
-axes, its KV heads over "model" where they divide. `shard_params` and
+axes (else the attention caches' sequence over "data"), its KV heads
+over "model" where they divide. `shard_params` and
 `gather_params` move a cache tree between whole and this rank's blocks
 as they move the params.
 """
@@ -70,7 +74,7 @@ class NamedSpec:
         ValueError where a sharded dim does not divide."""
         out = list(shape)
         for dim, entry in enumerate(self.spec):
-            n = math.prod(self.mesh.shape[a] for a in _names(entry))
+            n = math.prod(self.mesh.shape[a] for a in entry_axes(entry))
             if out[dim] % n:
                 raise ValueError(f"dim {dim} of {tuple(shape)} does not "
                                  f"divide over {entry} ({n} devices)")
@@ -78,7 +82,8 @@ class NamedSpec:
         return tuple(out)
 
 
-def _names(entry) -> tuple:
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -248,7 +253,7 @@ def gather_params(blocks: PyTree, mesh, specs: PyTree,
     out = []
     for x, spec in zip(leaves, treemath.tree_leaves_like(blocks, specs)):
         for dim, entry in enumerate(spec):
-            for axis in _names(entry):
+            for axis in entry_axes(entry):
                 if _axis_size(mesh, axis) > 1:
                     x = mesh.all_gather(x, axes=(axis,), dim=dim)
         out.append(x if device is None else x.to(device))
@@ -271,7 +276,7 @@ def block(x, mesh, spec: tuple):
     the whole leaf can be freed; `x` itself where nothing is."""
     out = x
     for dim, entry in enumerate(spec):
-        for axis in _names(entry):
+        for axis in entry_axes(entry):
             n = _axis_size(mesh, axis)
             if n > 1:
                 step = out.shape[dim] // n

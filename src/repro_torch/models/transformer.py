@@ -38,6 +38,14 @@ cross-entropy run chunk by chunk over tokens (`_chunked_ce`), with the
 reference's padding and masking, each chunk recomputed in the backward
 as the reference's `jax.checkpoint(chunk)` is, so a chunk's (B, L, V)
 logits are never kept.
+
+Inside an FSDP scope (`tp.scope(..., specs=)`, the params in blocks on
+both axes) each group's leaves are gathered over "data" where the group
+runs and let go after it (`tp.gather_params`): in training inside the
+group's recompute, so that the backward's rerun gathers them again; the
+embedding, the head and the final norm are gathered at their use (a
+tied embedding once). With the rows split over "data" the loss is that
+of every data index's rows (`tp.rows_mean`).
 """
 from __future__ import annotations
 
@@ -275,11 +283,16 @@ def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
     groups = cfg.encoder_layers if encoder else cfg.num_pattern_groups
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {f"p{i}": [] for i in range(len(kinds))}
+    specs = _group_specs(len(kinds), encoder)
     for gi in range(groups):
         subs = [_index(blocks[f"p{i}"], gi) for i in range(len(kinds))]
         if mode == "train":
-            x, aux = _train_group(subs, cfg, kinds, x, aux, ctx, encoder)
+            x, aux = _train_group(subs, cfg, kinds, x, aux, ctx, encoder,
+                                  specs)
             continue
+        # FSDP: the group's leaves whole over "data" while it runs only
+        subs = [tp.gather_params(sub, spec, lead=1)
+                for sub, spec in zip(subs, specs)]
         for i, (kind, is_moe) in enumerate(kinds):
             c_in = _index(cache[f"p{i}"], gi) if mode == "decode" else None
             x, nc, a = _block(subs[i], cfg, kind, is_moe, x, ctx, c_in, mode)
@@ -287,6 +300,7 @@ def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
                 aux = aux + a
             if mode == "prefill":
                 caches[f"p{i}"].append(nc)
+        del subs
     if mode == "prefill":
         cache = {k: _stack(v) for k, v in caches.items()}
     return x, aux, cache if mode in ("prefill", "decode") else None
@@ -295,11 +309,23 @@ def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
 _CTX_TENSORS = ("cos", "sin", "enc")  # the tensors of ctx a block reads
 
 
-def _train_group(subs, cfg, kinds, x, aux, ctx, encoder):
+def _group_specs(n: int, encoder: bool) -> list:
+    """Each block position's part of the scope's UNSTACKED spec tree
+    under "blocks" inside an FSDP scope (`tp.param_specs`), else Nones."""
+    specs = tp.param_specs()
+    if specs is None or encoder:
+        return [None] * n
+    return [specs["blocks"][f"p{i}"] for i in range(n)]
+
+
+def _train_group(subs, cfg, kinds, x, aux, ctx, encoder, specs):
     """One group of blocks in training mode, (x, aux) -> (x, aux), under
     `recompute.recompute`: the group's params, its input and ctx's
     tensors are the Function's arguments, so the backward keeps only
-    them and runs the group again."""
+    them and runs the group again. Inside an FSDP scope the arguments
+    are the rank's blocks, gathered over "data" inside the group: the
+    backward's rerun gathers them again, so no more than one group is
+    ever whole."""
     flat = [treemath.tree_flatten(sub) for sub in subs]
     sizes = [len(lv) for lv, _ in flat]
     present = [name for name in _CTX_TENSORS if ctx.get(name) is not None]
@@ -308,7 +334,9 @@ def _train_group(subs, cfg, kinds, x, aux, ctx, encoder):
         gctx = dict(ctx, **dict(zip(present, rest)))
         leaves = rest[len(present):]
         for i, (kind, is_moe) in enumerate(kinds):
-            sub = treemath.tree_unflatten(flat[i][1], leaves[:sizes[i]])
+            sub = tp.gather_params(
+                treemath.tree_unflatten(flat[i][1], leaves[:sizes[i]]),
+                specs[i], lead=1)
             leaves = leaves[sizes[i]:]
             if encoder:
                 x = _encoder_block(sub, cfg, x)
@@ -357,11 +385,25 @@ def _embed(table, cfg, tokens):
     return table[tokens]
 
 
+def _whole(params, name: str):
+    """The top-level leaf (or subtree) `name` whole over "data" inside an
+    FSDP scope (`tp.gather_params` on its part of the scope's spec
+    tree), as it is otherwise: gathered at its use."""
+    specs = tp.param_specs()
+    if specs is None:
+        return params[name]
+    return tp.gather_params(params[name], specs[name])
+
+
 def embed_inputs(params, cfg, batch):
     """Token embedding and the stub multimodal prefix: the (B, P, d)
     `batch["vision_embeds"]` go before the text. Returns (x,
     text_offset): the loss applies from text_offset onward."""
-    x = _embed(params["embed"], cfg, batch["tokens"])
+    return _embed_inputs(_whole(params, "embed"), cfg, batch)
+
+
+def _embed_inputs(table, cfg, batch):
+    x = _embed(table, cfg, batch["tokens"])
     offset = 0
     if cfg.vision_prefix:
         v = batch["vision_embeds"].to(x.dtype)  # (B, P, d) stub patches
@@ -370,11 +412,12 @@ def embed_inputs(params, cfg, batch):
     return x, offset
 
 
-def _prologue(params, cfg, batch):
-    """The embedded inputs with their positions, and the encoder's
-    output for enc-dec models. Returns (x, text_offset, ctx)."""
+def _prologue(params, cfg, batch, table):
+    """The embedded inputs (`table`: the embedding, whole over "data")
+    with their positions, and the encoder's output for enc-dec models.
+    Returns (x, text_offset, ctx)."""
     tp.check_supported(cfg)
-    x, text_offset = embed_inputs(params, cfg, batch)
+    x, text_offset = _embed_inputs(table, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, batch, b, t, device=x.device)
     if cfg.rope_style == "none":
@@ -391,6 +434,21 @@ def _prologue(params, cfg, batch):
     return x, text_offset, ctx
 
 
+def _stack_run(params, cfg, batch, mode: str, max_len: int = 0):
+    """Embedding, the stack and the final norm: (x, aux, text_offset or
+    cache, table). The embedding is gathered over "data" once (FSDP) and
+    let go before the stack, unless the head reuses it (tied): `table`
+    is then that gathered table, else None."""
+    table = _whole(params, "embed")
+    x, text_offset, ctx = _prologue(params, cfg, batch, table)
+    if not cfg.tie_embeddings:
+        table = None
+    ctx["max_len"] = max(max_len, x.shape[1])
+    x, aux, cache = _run_stack(params["blocks"], cfg, x, ctx, mode)
+    x = layers.norm_apply(_whole(params, "final_norm"), x)
+    return x, aux, cache if mode == "prefill" else text_offset, table
+
+
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
             max_len: int = 0):
     """Full-sequence forward. mode: "train" | "prefill". Inside a
@@ -400,15 +458,10 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
     (`sharding.cache_pspecs`)."""
     if mode not in ("train", "prefill"):
         raise ValueError(mode)
-    x, text_offset, ctx = _prologue(params, cfg, batch)
-    ctx["max_len"] = max(max_len, x.shape[1])
-    x, aux, cache = _run_stack(params["blocks"], cfg, x, ctx, mode)
-    x = layers.norm_apply(params["final_norm"], x)
+    x, aux, extra, table = _stack_run(params, cfg, batch, mode, max_len)
     # inside a tp.scope this rank's vocab block of the logits
-    logits = _head_logits(*_head(params, cfg), x)
-    if mode == "prefill":
-        return logits, aux, cache
-    return logits, aux, text_offset
+    logits = _head_logits(*_head(params, cfg, table), x)
+    return logits, aux, extra
 
 
 def unembed(params, cfg, x):
@@ -417,10 +470,15 @@ def unembed(params, cfg, x):
     return x @ params["lm_head"]
 
 
-def _head(params, cfg):
+def _head(params, cfg, table=None):
     """The unembedding as a (d, V) matrix view and the dims of it this
-    rank holds a block of: (w, vocab block start or None, d split)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    rank holds a block of: (w, vocab block start or None, d split).
+    Tied, `table` is the embedding already gathered over "data" (FSDP);
+    otherwise the head is gathered here."""
+    if cfg.tie_embeddings:
+        w = (_whole(params, "embed") if table is None else table).T
+    else:
+        w = _whole(params, "lm_head")
     return (w, tp.vocab_start(w.shape[1], cfg.vocab_size),
             tp.split(w.shape[0], cfg.d_model) > 1)
 
@@ -442,18 +500,18 @@ def _head_logits(w, vocab_start, d_split, x):
 def hidden_forward(params, cfg: ModelConfig, batch):
     """Forward up to the final norm, WITHOUT the unembed projection.
     Returns (x, aux, text_offset)."""
-    x, text_offset, ctx = _prologue(params, cfg, batch)
-    x, aux, _ = _run_stack(params["blocks"], cfg, x, ctx, "train")
-    return layers.norm_apply(params["final_norm"], x), aux, text_offset
+    return _stack_run(params, cfg, batch, "train")[:3]
 
 
-def _chunked_ce(params, cfg, x_pred, labels):
+def _chunked_ce(params, cfg, x_pred, labels, table=None):
     """Cross-entropy with the unembed applied chunk by chunk over tokens
     (cfg.loss_chunk): x_pred (B, T, d), labels (B, T). T is padded to a
     multiple of the chunk with zero rows and labels, masked out of the
     mean, as the reference does. Each chunk runs under
     `recompute.recompute`, as the reference's `jax.checkpoint(chunk)`:
-    its (B, L, V) logits are recomputed in the backward, never kept."""
+    its (B, L, V) logits are recomputed in the backward, never kept.
+    Returns (the summed losses, the token count); `table` as `_head`'s
+    (the head reaches every chunk gathered)."""
     b, t, d = x_pred.shape
     size = cfg.loss_chunk
     pad = (-t) % size
@@ -464,8 +522,9 @@ def _chunked_ce(params, cfg, x_pred, labels):
     if pad:
         x_pred = torch.cat([x_pred, x_pred.new_zeros((b, pad, d))], 1)
         labels = torch.cat([labels, labels.new_zeros((b, pad))], 1)
-    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    _, start, d_split = _head(params, cfg)
+    w, start, d_split = _head(params, cfg, table)
+    if cfg.tie_embeddings:
+        w = w.T  # the (V, d) table: each chunk transposes it
 
     def chunk(w, xc, yc, mc):
         logits = _head_logits(w.T if cfg.tie_embeddings else w, start,
@@ -476,7 +535,7 @@ def _chunked_ce(params, cfg, x_pred, labels):
     for i in range(0, t + pad, size):
         xc, yc, mc = (z[:, i:i + size] for z in (x_pred, labels, mask))
         total = total + recompute.recompute(chunk, w, xc, yc, mc)[0]
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    return total, torch.sum(mask)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -484,21 +543,33 @@ def loss_fn(params, cfg: ModelConfig, batch):
     tokens[1:] from the positions [off .. off + T - 2], where off is the
     vision prefix's length. `batch["loss_mask"]`, when given, weights the
     tokens (not with `cfg.loss_chunk`, as in the reference). Returns a
-    scalar f32."""
+    scalar f32. Inside a scope that splits the rows over "data" (the
+    FSDP sequential round) it is the loss over every data index's rows,
+    the same on every rank (`tp.rows_mean`)."""
     tokens = batch["tokens"]
-    x, aux, off = hidden_forward(params, cfg, batch)
+    x, aux, off, table = _stack_run(params, cfg, batch, "train")
     if cfg.loss_chunk:
         x_pred = x[:, off:-1] if off else x[:, :-1]
-        return _chunked_ce(params, cfg, x_pred, tokens[:, 1:]) + aux
+        total, count = _chunked_ce(params, cfg, x_pred, tokens[:, 1:],
+                                   table)
+        return tp.rows_mean(total, count, aux)
     # inside a tp.scope the logits of this rank's vocab block (or the
     # whole logits of a head split on d_model)
-    w, start, d_split = _head(params, cfg)
+    w, start, d_split = _head(params, cfg, table)
     logits = _head_logits(w, start, d_split, x)
     pred = logits[:, off:-1] if off else logits[:, :-1]
-    ce = layers.softmax_cross_entropy(pred, tokens[:, 1:],
-                                      batch.get("loss_mask"),
-                                      vocab_start=start)
-    return ce + aux
+    if tp.rows_over_data() is None:
+        ce = layers.softmax_cross_entropy(pred, tokens[:, 1:],
+                                          batch.get("loss_mask"),
+                                          vocab_start=start)
+        return ce + aux
+    nll = layers.token_nll(pred, tokens[:, 1:], start)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return tp.rows_mean(torch.sum(nll), torch.full(
+            (), float(nll.numel()), device=nll.device), aux)
+    m = mask.to(torch.float32)
+    return tp.rows_mean(torch.sum(nll * m), torch.sum(m), aux)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
@@ -512,7 +583,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     its vocab block, as `forward`'s."""
     pos = int(pos)
     tp.check_supported(cfg)
-    x = _embed(params["embed"], cfg, token)
+    table = _whole(params, "embed")
+    x = _embed(table, cfg, token)
+    if not cfg.tie_embeddings:
+        table = None  # let it go before the stack
     if cfg.rope_style == "none":
         x = x + _sinusoid(torch.arange(pos, pos + 1, device=x.device),
                           cfg.d_model).to(x.dtype)[None]
@@ -523,8 +597,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     ctx = {"cos": cos, "sin": sin, "pos": pos,
            "window": cfg.sliding_window, "enc": None, "max_len": 0}
     x, _, cache = _run_stack(params["blocks"], cfg, x, ctx, "decode", cache)
-    x = layers.norm_apply(params["final_norm"], x)
-    return _head_logits(*_head(params, cfg), x), cache
+    x = layers.norm_apply(_whole(params, "final_norm"), x)
+    return _head_logits(*_head(params, cfg, table), x), cache
 
 
 def init_cache(cfg: ModelConfig, b: int, max_len: int,

@@ -17,8 +17,9 @@ every argument to the same parameter in the port.
 (d) Each shared public callable's parameter list equals the JAX
     package's after the port's recorded renames (`RENAMES`, `DROPPED`,
     `ADDED`): names, order and kinds. Port-only trailing keywords: `device`
-    (`FedServer`, `make_host_mesh`), `param_specs` (`make_round_fn`: the
-    spec tree of params held in blocks) and `local`
+    (`FedServer`, `make_host_mesh`), `param_specs` and `rows_over_data`
+    (`make_round_fn`: the spec tree of params held in blocks; whether a
+    sequential round's batches hold this data index's rows) and `local`
     (`make_blocked_roundtrip`: the roundtrip of a rank's blocks). The launch layer's renames: the
     module `launch/hlo_scoped.py` is `launch/optrace.py`, whose
     `analyze` reads a recorded op trace where the reference reads HLO
@@ -259,7 +260,11 @@ ADDED = {"FedServer": [inspect.Parameter(
     # the spec tree of params held in blocks: the reference's partitioner
     # reads the params' shardings instead (tensor-parallel execution)
     "make_round_fn": [inspect.Parameter(
-        "param_specs", inspect.Parameter.KEYWORD_ONLY, default=None)],
+        "param_specs", inspect.Parameter.KEYWORD_ONLY, default=None),
+        # whether a sequential (FSDP) round's batches hold this data
+        # index's rows: the partitioner reads the batch's sharding
+        inspect.Parameter("rows_over_data", inspect.Parameter.KEYWORD_ONLY,
+                          default=True)],
     # the tensor-parallel tree engine's roundtrip of this rank's blocks
     "fl_shard_map.make_blocked_roundtrip": [inspect.Parameter(
         "local", inspect.Parameter.KEYWORD_ONLY, default=False)]}

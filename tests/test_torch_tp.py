@@ -40,7 +40,8 @@ from the JAX init (written first, read by the world). Held:
   prev_delta leaves have their `NamedSpec(mesh, spec).shard_shape`.
 * **Refusals**, in this process: NotImplementedError naming item 13d
   for a family it leaves out (RWKV-6: the step builder and the model),
-  and for buffered or sequential mode with `param_specs`.
+  and for buffered rounds, a quantized downlink and FedProx's sequential
+  round with `param_specs`.
 
 The launcher off the host mesh runs on a second gloo world of 2 CPU
 ranks: its losses equal the host-mesh launcher's at 1e-5, a resumed run
@@ -701,9 +702,13 @@ def test_a_moe_config_names_item_13d():
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="sequential"), dict(aggregation="buffered"),
-    dict(downlink="int8")])
+    dict(mode="sequential", method="fedprox", prox_mu=0.1),
+    dict(aggregation="buffered"), dict(downlink="int8")])
 def test_other_rounds_with_param_specs_name_item_13d(change):
+    """The rounds that cannot keep their params in blocks refuse
+    param_specs: buffered, a quantized downlink, and FedProx's
+    sequential round (its proximal term over blocks; the FSDP sequential
+    round itself runs, `tests/test_torch_fsdp.py`)."""
     from repro_torch.core import fl as tfl
 
     engine = "tree" if change.get("mode") == "sequential" else "flat_sharded"

@@ -27,8 +27,9 @@ The serving launcher (`python -m repro_torch.launch.serve --smoke
 --shape decode_32k --batch 2 --seq 64 --steps 3`) on a gloo world of 2
 ranks emits the host-mesh launcher's tokens. In this process: the block
 init is bit for bit the whole init cut to blocks, and serving refuses
-FSDP, a batch that does not split over "data", and the families item
-13d leaves out. Torch runs one intra-op thread a rank.
+the families item 13d leaves out (with FSDP, with B = 1 on two data
+ranks, and at the model's decode). Torch runs one intra-op thread a
+rank.
 """
 import hashlib
 import os
@@ -449,27 +450,33 @@ def _fake_mesh(data=2, model=2):
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_fsdp_serving_names_item_13d(kind):
+    """FSDP serving runs for the decoder-only families
+    (`tests/test_torch_fsdp.py`); jamba-1.5-large-398b, the registry's
+    other model above the FSDP threshold, refuses it: its Mamba blocks
+    have no tensor-parallel form."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
 
     build = {"prefill": steps.build_prefill_step,
              "decode": steps.build_decode_step}[kind]
-    with pytest.raises(NotImplementedError, match="FSDP.*item 13d"):
-        build(registry.smoke("gemma-2b"), _fake_mesh(),
+    with pytest.raises(NotImplementedError, match="jamba.*item 13d"):
+        build(registry.smoke("jamba-1.5-large-398b"), _fake_mesh(),
               shapes.InputShape(kind, S, B, kind), fsdp=True)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_a_batch_that_does_not_split_over_data_names_item_13d(kind):
-    """B = 1 on two data ranks (long_500k's case): the cache's sequence
-    would go on "data"."""
+    """B = 1 on two data ranks (long_500k's case) puts the cache's
+    sequence on "data" for the attention families
+    (`tests/test_torch_fsdp.py`); RWKV-6, whose state has no sequence,
+    still refuses: its blocks have no tensor-parallel form."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
 
     build = {"prefill": steps.build_prefill_step,
              "decode": steps.build_decode_step}[kind]
-    with pytest.raises(NotImplementedError, match="'data'.*item 13d"):
-        build(registry.smoke("gemma-2b"), _fake_mesh(),
+    with pytest.raises(NotImplementedError, match="rwkv.*item 13d"):
+        build(registry.smoke("rwkv6-3b"), _fake_mesh(),
               shapes.InputShape(kind, S, 1, kind))
 
 
