@@ -115,8 +115,12 @@ across two cards where there are two; then the launcher on a (1, 2)
 gloo world (`--mesh2d-child launch`): gemma-2b at full width and depth,
 bf16, K = 1, B = 4, T = 1024, 2 rounds, ms a round and the peak a rank,
 the gathered params_sha256 equal on both ranks, and at the smoke width a
-resumed run bit for bit the uninterrupted one; the kernel table's
-`launches_tp`), tp_serve (tensor-parallel serving and the DeepSeek
+resumed run bit for bit the uninterrupted one; before it the launcher's
+step once on each rank against the dry run's record of that rank
+(`dryrun.rank_record` on a trace mesh, on meta): the placed argument
+bytes within 1% + 512 B a tensor, the peak over the predicted live bytes
+within [0.8, 1.25], the collectives' count and bytes by scope equal;
+the kernel table's `launches_tp`), tp_serve (tensor-parallel serving and the DeepSeek
 family over the model axis: the whole models' results in this process,
 each model freed before one (1, 2) gloo world on this card
 (`--mesh2d-child tp_serve`) initialises its blocks leaf by leaf and
@@ -181,7 +185,8 @@ B = 4, T = 256, in FSDP blocks == the whole-model round at 2e-4, with
 4 round_stats launches a rank at its (1, n_local) block, each held to
 the plain version, the "fsdp" collectives' count and bytes those of the
 shapes, ms a round and the peak against the round's trees in blocks +
-one group's backward working set + 1 GB; (b) deepseek-v2-236b at full
+one group's backward working set + 1 GB, and against the dry run's
+record of the rank as in tp; (b) deepseek-v2-236b at full
 width cut to one layer, bf16, fsdp=True, B = 4, prompt 512, 3 decode
 steps: prefill and decode ms, the peak against the blocks + one group
 gathered + the same prefill's activations with the params on "model"
@@ -2837,6 +2842,97 @@ def tp_lm(mesh, dev, rank: int) -> dict:
         "finite": bool(all(torch.isfinite(v).all() for v in m.values()))}
 
 
+def rank_vs_prediction(pred: dict, log: list, mesh, placed: int,
+                       tensors: int, peak: int) -> dict:
+    """The dry run's record `pred` of one rank's step
+    (`dryrun.rank_record` on a trace mesh of this rank's shape and rank,
+    on meta) beside what the card did in the same step: the bytes placed
+    for its `tensors` arguments, the peak above them, and the
+    collectives `log` recorded, by scope. The predicted live bytes count
+    the arguments as the rank is handed them."""
+    from repro_torch.launch import dryrun
+
+    m = pred["memory"]
+    live = (pred["live_bytes"] - m["argument_bytes"]
+            + pred["held_argument_bytes"])
+    return {"predicted": {"memory": m,
+                          "held_argument_bytes": pred["held_argument_bytes"],
+                          "live_bytes": live, "flops": pred["flops"],
+                          "collectives": pred["collectives"]["by_scope"]},
+            "card": {"placed_bytes": placed, "tensors": tensors,
+                     "peak_bytes": peak,
+                     "collectives": dryrun.collectives_of(log, mesh)[
+                         "by_scope"]},
+            "peak_ratio": peak / live}
+
+
+def prediction_failures(v: dict) -> list:
+    """The checks a `rank_vs_prediction` result fails: the placed bytes
+    within ARG_RTOL plus ARG_SLACK a tensor of the predicted, the peak
+    over the predicted live bytes within PEAK_RATIO, and the collectives'
+    count and bytes by scope those predicted."""
+    p, c = v["predicted"], v["card"]
+    want = p["held_argument_bytes"]
+    bad = []
+    if abs(c["placed_bytes"] - want) > (ARG_RTOL * want
+                                        + ARG_SLACK * c["tensors"]):
+        bad.append("argument bytes vs dry run")
+    if not PEAK_RATIO[0] <= v["peak_ratio"] <= PEAK_RATIO[1]:
+        bad.append("peak over dry run")
+    if c["collectives"] != p["collectives"]:
+        bad.append("collectives vs dry run")
+    return bad
+
+
+def tp_launch_prediction(mesh, dev) -> dict:
+    """The launcher's step at TP_LAUNCH_ARGV (gemma-2b, built as
+    `launch/train.py` builds it) run once on this rank's blocks of a
+    seeded state and a seeded batch, against the dry run's record of the
+    same step traced on meta at this rank's shape and rank."""
+    import repro_torch
+    from repro_torch.configs import registry, shapes
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_trace_mesh
+    from repro_torch.models import sharding, transformer
+
+    argv = dict(zip(TP_LAUNCH_ARGV[::2], TP_LAUNCH_ARGV[1::2]))
+    cfg = registry.get(argv["--arch"])
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"],
+                                seq_len=int(argv["--seq"]),
+                                global_batch=int(argv["--global-batch"]))
+    traced = make_trace_mesh((mesh.client_size, mesh.model_size), mesh.rank)
+    fn, args, ins, outs, _ = steps.build_train_step(cfg, traced, shape)
+    pred = dryrun.rank_record(fn, args, ins, outs, traced, whole_batch=True)
+    fn, args, ins, _, meta = steps.build_train_step(cfg, mesh, shape)
+    k, tau, b, t = meta["K"], meta["tau"], meta["B"], shape.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    specs = sharding.param_pspecs(args[0].params, mesh)
+    state = repro_torch.init_round_state(
+        repro_torch.FLConfig(**meta["flcfg"]), transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, mesh=mesh,
+            specs=specs))
+    real = (state, {"tokens": tps_tokens(cfg.vocab_size, k * tau * b, t, 43)
+                    .reshape(k, tau, b, t).to(dev, torch.int32)},
+            torch.arange(k, dtype=torch.int32, device=dev),
+            torch.ones((k,), device=dev))
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    with mesh.recording() as log:
+        new_state, metrics = fn(*real)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out = rank_vs_prediction(pred, log, mesh, placed,
+                             len(steps.spec_leaves(ins, real)), peak)
+    out["finite"] = bool(all(torch.isfinite(v).all()
+                             for v in metrics.values()))
+    del state, real, new_state, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_launch(mesh, dev, rank: int, out_path: str) -> dict:
     """One rank of the launcher on a (1, 2) world: gemma-2b at full width
     and depth for 2 rounds (ms a round, the peak, the gathered sha), then
@@ -2844,6 +2940,7 @@ def tp_launch(mesh, dev, rank: int, out_path: str) -> dict:
     that rank 0 writes beside `out_path`."""
     from repro_torch.launch import train
 
+    prediction = tp_launch_prediction(mesh, dev)
     torch.cuda.reset_peak_memory_stats()
     run = train.main(TP_LAUNCH_ARGV + ["--device", str(dev)])
     torch.cuda.synchronize()
@@ -2862,7 +2959,7 @@ def tp_launch(mesh, dev, rank: int, out_path: str) -> dict:
             "resumed_sha": resumed["params_sha256"],
             "resumed_start": resumed["start_round"],
             "half_losses": half["losses"], "whole_losses": whole["losses"],
-            "resumed_losses": resumed["losses"]}
+            "resumed_losses": resumed["losses"], "prediction": prediction}
 
 
 def check_tp_lm(results: list, what: str) -> dict:
@@ -2926,9 +3023,12 @@ def check_tp_lm(results: list, what: str) -> dict:
 def check_tp_launch(results: list) -> dict:
     """The ranks' gathered shas equal, 2 finite rounds on the
     flat_sharded round; at the smoke width the resumed run bit for bit
-    the uninterrupted one."""
+    the uninterrupted one; the launcher's step against the dry run's
+    record of the rank (`prediction_failures`)."""
     r0 = results[0]
     for r, res in enumerate(results):
+        print(f"tp launch rank {r} vs dry run: "
+              + json.dumps(res["prediction"]), flush=True)
         ok = (res["params_sha256"] == r0["params_sha256"]
               and res["engine"] == "flat_sharded" and res["K"] == 1
               and len(res["losses"]) == 2
@@ -2936,13 +3036,16 @@ def check_tp_launch(results: list) -> dict:
               and res["resumed_start"] == 2
               and res["resumed_sha"] == res["smoke_sha"]
               and res["half_losses"] == res["whole_losses"][:2]
-              and res["resumed_losses"] == res["whole_losses"][2:])
-        if not ok:
-            raise AssertionError(f"tp launch rank {r}: {res}")
+              and res["resumed_losses"] == res["whole_losses"][2:]
+              and res["prediction"]["finite"])
+        bad = prediction_failures(res["prediction"])
+        if not ok or bad:
+            raise AssertionError(f"tp launch rank {r}: {bad}: {res}")
     return {"round_seconds_per_rank": [r["round_seconds"] for r in results],
             "peak_bytes_per_rank": [r["peak_bytes"] for r in results],
             "losses": r0["losses"], "params_sha256": r0["params_sha256"],
-            "smoke_resume_bit_equal": True}
+            "smoke_resume_bit_equal": True,
+            "vs_dry_run_per_rank": [r["prediction"] for r in results]}
 
 
 def phase_tp(smi: str) -> dict:
@@ -3926,6 +4029,38 @@ def fsdp_group_bytes(cfg, mesh) -> int:
     return total
 
 
+def fsdp_round_prediction(cfg, fl, rank: int) -> dict:
+    """The dry run's record of (a)'s round at rank `rank` of FSDP_SHAPE:
+    the same `make_round_fn` on a trace mesh, its arguments at the
+    global shapes on meta with the specs the round holds them in (the
+    params and prev_delta in FSDP blocks, the batch's rows over
+    "data")."""
+    import repro_torch
+    from repro_torch.configs import shapes
+    from repro_torch.core.weighting import AngleState
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_trace_mesh
+    from repro_torch.models import sharding, transformer
+
+    mesh = make_trace_mesh(FSDP_SHAPE, rank)
+    k, tau, b, t = FSDP_ROUND
+    p_sds = transformer_meta(cfg)
+    p_shard = sharding.param_shardings(p_sds, mesh, fsdp=True)
+    rep = sharding.NamedSpec(mesh, ())
+    state = repro_torch.RoundState(
+        params=p_shard, angle=AngleState(rep, rep), prev_delta=p_shard,
+        ef=None, dl_ef=None, bcast=None, rng=None, round=None)
+    args = (repro_torch.init_round_state(fl, p_sds),
+            {"tokens": shapes.spec((k, tau, b, t), torch.int64)},
+            shapes.spec((k,), torch.int32), shapes.spec((k,), torch.float32))
+    ins = (state, {"tokens": sharding.NamedSpec(
+        mesh, (None, None, "data", None))}, rep, rep)
+    rf = repro_torch.make_round_fn(
+        lambda p, bt: transformer.loss_fn(p, cfg, bt), fl, mesh=mesh,
+        param_specs=fsdp_specs(cfg, mesh), rows_over_data=True)
+    return dryrun.rank_record(rf, args, ins, (state, rep), mesh)
+
+
 def fsdp_round_child(mesh, dev) -> dict:
     """(a): the sequential round of the cut lite in this rank's FSDP
     blocks: every round_stats call held to its plain version on the same
@@ -3940,7 +4075,11 @@ def fsdp_round_child(mesh, dev) -> dict:
     refs = os.environ[FSDP_REFS]
     cfg = fsdp_round_cfg()
     fl = fsdp_round_fl()
+    pred = fsdp_round_prediction(cfg, fl, mesh.rank)
     specs = fsdp_specs(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
     params = fsdp_init(cfg, dev, mesh)
     block_bytes = sum(x.numel() * x.element_size()
                       for x in treemath.tree_leaves(params))
@@ -3949,6 +4088,10 @@ def fsdp_round_child(mesh, dev) -> dict:
     batch, sel, sizes = fsdp_round_inputs(cfg, dev)
     batch = {k: v[:, :, fsdp_rows(mesh, v.shape[2])] for k, v in
              batch.items()}
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated(dev) - base
+    tensors = len(treemath.tree_leaves((state.params, state.prev_delta,
+                                        state.angle, batch, sel, sizes)))
     rf = repro_torch.make_round_fn(
         lambda p, bt: transformer.loss_fn(p, cfg, bt), fl, mesh=mesh,
         param_specs=specs, rows_over_data=True)
@@ -4029,7 +4172,9 @@ def fsdp_round_child(mesh, dev) -> dict:
                                            ref["count"])),
            "weights": m["weights"].cpu(), "loss": float(m["loss"]),
            "whole_ms": ref["ms"], "whole_peak": ref["peak"],
-           "finite": bool(all(torch.isfinite(v).all() for v in m.values()))}
+           "finite": bool(all(torch.isfinite(v).all() for v in m.values())),
+           "prediction": rank_vs_prediction(pred, log, mesh, placed,
+                                             tensors, peak - base)}
     del state, m, rf
     torch.cuda.empty_cache()
     return out
@@ -4255,6 +4400,9 @@ def check_fsdp(results: list) -> dict:
     k = FSDP_ROUND[0]
     for r, res in enumerate(results):
         a, sv = res["round"], res["serve"]
+        print(f"fsdp round rank {r} vs dry run: "
+              + json.dumps(a["prediction"]) + " failing: "
+              + json.dumps(prediction_failures(a["prediction"])), flush=True)
         checks = {
             "round vs whole": a["excess"] <= 0 and a["metrics_excess"] <= 0
             and a["count_equal"] and a["finite"],
@@ -4266,6 +4414,7 @@ def check_fsdp(results: list) -> dict:
             "fsdp collectives": a["collectives"] == a["want_collectives"],
             "round shard shapes": a["shard_shapes_ok"],
             "round peak": a["peak_bytes"] <= fsdp_round_bound(a),
+            "round vs dry run": not prediction_failures(a["prediction"]),
             "serve peak": sv["peak_bytes"] <= fsdp_serve_bound(sv),
             "serve routing equal across ranks":
                 sv["routing_sha256"] == r0["serve"]["routing_sha256"]
@@ -4297,7 +4446,9 @@ def check_fsdp(results: list) -> dict:
                   "ms_per_rank": [r["round"]["ms"] for r in results],
                   "peak_bytes_per_rank": [r["round"]["peak_bytes"]
                                           for r in results],
-                  "peak_bound": fsdp_round_bound(a0)},
+                  "peak_bound": fsdp_round_bound(a0),
+                  "vs_dry_run_per_rank": [r["round"]["prediction"]
+                                          for r in results]},
         "serve": {**r0["serve"],
                   "prefill_ms_per_rank": [r["serve"]["prefill_ms"]
                                           for r in results],

@@ -1023,13 +1023,16 @@ def _make_parallel_round(loss_fn: Callable, fl: FLConfig,
                 else _derive_param_pspecs(params, mesh))
 
     def global_template(params, kp: int):
-        """A (kp, *global shape) meta tree of the params' leaves."""
+        """A (kp, *global shape) meta tree of the params' leaves: shapes
+        and dtypes only, each a stride-0 view of one element, so that it
+        claims no storage (the dry run traces a rank on meta, where a
+        storage counts as memory)."""
         leaves, treedef = treemath.tree_flatten(params)
         shapes = ([tuple(p.shape) for p in leaves] if tp_specs is None
                   else _global_shapes(params, tp_specs,
                                       fl_shard_map.model_axis_size(mesh)))
         return treemath.tree_unflatten(treedef, [
-            torch.empty((kp,) + s, dtype=p.dtype, device="meta")
+            torch.empty((), dtype=p.dtype, device="meta").expand((kp,) + s)
             for p, s in zip(leaves, shapes)])
 
     def region_2d(params, kp: int):

@@ -102,11 +102,18 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _on_cpu(*ts) -> bool:
-    """Do the tensors all lie on the CPU, or all on the meta device (the
-    dry run's, where the plain version gives the outputs' shapes)?"""
-    kinds = {t.device.type for t in ts if t is not None}
-    return kinds == {"cpu"} or kinds == {"meta"}
+def _on(kind: str, *ts) -> bool:
+    """Do the tensors all lie on devices of `kind`?"""
+    return {t.device.type for t in ts if t is not None} == {kind}
+
+
+def _meta_out(k: int):
+    """A statistics call's outputs on the meta device, as the CUDA path
+    allocates them and with no launch: the dry run traces the step
+    around the kernel (`launch/dryrun.py`; the kernel's scratch, a few
+    floats a block, is not allocated)."""
+    out = torch.empty(2 * k + 1, dtype=torch.float32, device="meta")
+    return out[:k], out[k:2 * k], out[2 * k]
 
 
 # ---------------------------------------------------------------- f32 / bf16
@@ -161,11 +168,13 @@ def round_stats(x: torch.Tensor, g: torch.Tensor,
     """(dots (K,), sqs (K,), sqg ()) for x (K, N) f32 or bf16, g (N,),
     mask (N,) or None, accumulated in f32.
 
-    CPU tensors: the plain version. CUDA tensors: the kernel, on the
-    current stream, without synchronising; anything it does not take
-    raises."""
-    if _on_cpu(x, g, mask):
+    CPU tensors: the plain version. Meta tensors: the outputs' shapes
+    (the dry run's). CUDA tensors: the kernel, on the current stream,
+    without synchronising; anything it does not take raises."""
+    if _on("cpu", x, g, mask):
         return round_stats_plain(x, g, mask)
+    if _on("meta", x, g, mask):
+        return _meta_out(x.shape[0])
     _check(x, g, mask)
     k, n = x.shape
     name = ("repro_wire_stats_bf16" if x.dtype == torch.bfloat16
@@ -218,8 +227,10 @@ def round_stats_q(values: torch.Tensor, scales: torch.Tensor,
                        num_chunks(values.shape[1]))
     k, n = values.shape
     _check_vectors("round_stats_q", n, g, mask)
-    if _on_cpu(values, scales, g, mask):
+    if _on("cpu", values, scales, g, mask):
         return round_stats_q_plain(values, scales, g, mask)
+    if _on("meta", values, scales, g, mask):
+        return _meta_out(k)
     _check_cuda_wire("round_stats_q", values, scales, g,
                      *([mask] if mask is not None else []))
     out = _run_wire("repro_wire_stats_q8", k, n, 0, values.device,
@@ -256,9 +267,11 @@ def round_stats_q4(values: torch.Tensor, scales: torch.Tensor,
     _check_wire_shapes("round_stats_q4", None, values, scales,
                        num_groups(n, group_size))
     _check_vectors("round_stats_q4", n, g, mask)
-    if _on_cpu(values, scales, g, mask):
+    if _on("cpu", values, scales, g, mask):
         return round_stats_q4_plain(values, scales, g, mask,
                                     group_size=group_size)
+    if _on("meta", values, scales, g, mask):
+        return _meta_out(values.shape[0])
     _check_cuda_wire("round_stats_q4", values, scales, g,
                      *([mask] if mask is not None else []))
     k = values.shape[0]

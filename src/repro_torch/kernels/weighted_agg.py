@@ -111,18 +111,23 @@ def weighted_agg(w: torch.Tensor, x: torch.Tensor, *,
     """y (N,) = sum_k w[k] x[k, :] for x (K, N) f32 or bf16, accumulated
     in f32 and cast to `out_dtype` (default x.dtype, as the reference).
 
-    CPU tensors: the plain version. CUDA tensors: the kernel, on the
-    current stream, without synchronising; anything it does not take
-    (another dtype, not contiguous, wrong shapes) raises."""
+    CPU tensors: the plain version. Meta tensors: the output's shape,
+    as the CUDA path allocates it, with no launch (the dry run's,
+    `launch/dryrun.py`). CUDA tensors: the kernel, on the current
+    stream, without synchronising; anything it does not take (another
+    dtype, not contiguous, wrong shapes) raises."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return weighted_agg_plain(w, x, out_dtype)
-    _check(w, x)
+    meta = x.device.type == "meta" and w.device.type == "meta"
+    if not meta:
+        _check(w, x)
     k, n = x.shape
     y = torch.empty(n, dtype=torch.float32, device=x.device)
-    name = _WIRE_FN[x.dtype]
-    _launch(_fn("weighted_agg", name), name, x.device, w.data_ptr(),
-            x.data_ptr(), y.data_ptr(), k, n)
-    weighted_agg.launches += 1
+    if not meta:
+        name = _WIRE_FN[x.dtype]
+        _launch(_fn("weighted_agg", name), name, x.device, w.data_ptr(),
+                x.data_ptr(), y.data_ptr(), k, n)
+        weighted_agg.launches += 1
     out_dtype = out_dtype or x.dtype
     return y if out_dtype == torch.float32 else y.to(out_dtype)
 

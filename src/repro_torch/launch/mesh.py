@@ -26,6 +26,10 @@ all three):
     mesh = make_client_mesh(model=2)               # cuda:<LOCAL_RANK>
 
 `make_host_mesh()` is a world of one without a process group.
+`make_trace_mesh((D, M), rank)` is one rank of a (D, M) mesh on the
+meta device without one (`TraceMesh`): its collectives record and
+shape their results and move nothing, so the dry run traces that rank's
+program (`launch/dryrun.py`).
 `mesh.recording()` lists every collective the mesh runs inside it
 (its axes and bytes, and the `scope` it ran in), which is how the
 round's traffic is counted.
@@ -132,6 +136,10 @@ class ClientMesh:
         raise ValueError(f"unknown mesh axes {axes}; use a non-empty "
                          f"ordered subset of {AXES}")
 
+    def axes_size(self, axes: tuple) -> int:
+        """The number of ranks `axes` span."""
+        return self._group(axes)[1]
+
     def _record(self, op: str, axes: tuple, t: torch.Tensor) -> None:
         for log in self._log["logs"]:
             log.append(Collective(op, tuple(axes), tuple(t.shape),
@@ -167,23 +175,24 @@ class ClientMesh:
         psum over those axes), or with op="max" their elementwise
         maximum (pmax); returns it. The default is the client axis,
         which on a client-only mesh is every rank."""
+        self._check(t)
         group, n = self._group(axes)
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r}: use 'sum' or 'max'")
         if n > 1:
             self._record("all_reduce", axes, t)
-            dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                                   "max": dist.ReduceOp.MAX}[op],
-                            group=group)
+            self._c10d_all_reduce(t, op, group)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int,
                   axes=("data", "model")) -> torch.Tensor:
         """The `t` of the rank at index `src` of `axes` (on both axes,
         the world rank) on every rank of them, in place; returns it."""
+        self._check(t)
         group, n = self._group(axes)
         if n > 1:
             self._record("broadcast", axes, t)
-            dist.broadcast(t, src=dist.get_global_rank(group, src),
-                           group=group)
+            self._c10d_broadcast(t, src, group)
         return t
 
     def all_gather(self, t: torch.Tensor, axes=("model",),
@@ -191,6 +200,7 @@ class ClientMesh:
         """Every rank's `t` over `axes`, concatenated along `dim` in the
         axes' order (the reference's tiled all_gather); `t` itself on an
         axis of one rank."""
+        self._check(t)
         group, n = self._group(axes)
         if n == 1:
             return t
@@ -202,8 +212,8 @@ class ClientMesh:
         shape[dim] *= n
         out = t.new_empty(shape)
         step = t.shape[dim]
-        dist.all_gather([out.narrow(dim, i * step, step) for i in range(n)],
-                        t, group=group)
+        self._c10d_all_gather(
+            [out.narrow(dim, i * step, step) for i in range(n)], t, group)
         return out
 
     def reduce_scatter(self, t: torch.Tensor, axes=("data",),
@@ -212,6 +222,7 @@ class ClientMesh:
         `axes` (the reference's psum_scatter, tiled): the partner of
         `all_gather`, a fresh tensor; `t` itself on an axis of one
         rank."""
+        self._check(t)
         group, n = self._group(axes)
         if n == 1:
             return t
@@ -221,14 +232,34 @@ class ClientMesh:
         self._record("reduce_scatter", axes, t)
         src = t.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-        # torch 2.13 renames reduce_scatter_tensor reduce_scatter_single
-        getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
-            out, src, group=group)
+        self._c10d_reduce_scatter(out, src, group)
         return out.movedim(0, dim).contiguous()
 
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
+
+    # The process group's half of each collective. The methods above
+    # shape, allocate and record; these move the bytes (`TraceMesh`
+    # moves none).
+
+    def _check(self, t: torch.Tensor) -> None:
+        """Raise for a tensor this mesh cannot run a collective on."""
+
+    def _c10d_all_reduce(self, t, op: str, group) -> None:
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=group)
+
+    def _c10d_broadcast(self, t, src: int, group) -> None:
+        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+
+    def _c10d_all_gather(self, parts: list, t, group) -> None:
+        dist.all_gather(parts, t, group=group)
+
+    def _c10d_reduce_scatter(self, out, src, group) -> None:
+        # torch 2.13 renames reduce_scatter_tensor reduce_scatter_single
+        getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+            out, src, group=group)
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -324,6 +355,56 @@ def make_host_mesh(device=None) -> ClientMesh:
     device = (repro_torch.default_device() if device is None
               else torch.device(device))
     return ClientMesh(group=None, rank=0, size=1, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceMesh(ClientMesh):
+    """One rank of a (data, model) mesh of `size` ranks on the meta
+    device, with no process group: the dry run's mesh
+    (`launch/dryrun.py`). The step builders and the model code take it
+    as the ClientMesh of a real world, so one rank's program runs on
+    meta. Each collective shapes, allocates and records as a real rank's
+    does (scopes included) and moves nothing: `all_reduce` and
+    `broadcast` return their input, `all_gather` a fresh tensor of `dim`
+    times the axis's size, `reduce_scatter` one of `dim` over it. Every
+    collective raises on a tensor off the meta device: a real tensor
+    would come back as a local sum."""
+
+    def __post_init__(self):
+        if self.group is not None or self.device != torch.device("meta"):
+            raise ValueError("a TraceMesh runs on the meta device, with "
+                             "no process group")
+        if self.model < 1 or self.size % self.model:
+            raise ValueError(f"a model axis of {self.model} does not "
+                             f"divide a mesh of {self.size} ranks")
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} of a mesh of {self.size}")
+
+    def _check(self, t: torch.Tensor) -> None:
+        if t.device.type != "meta":
+            raise ValueError(
+                f"a TraceMesh collective on a tensor on {t.device}: it "
+                "traces meta tensors only, and moves no bytes")
+
+    def _c10d_all_reduce(self, t, op, group) -> None:
+        pass
+
+    def _c10d_broadcast(self, t, src, group) -> None:
+        pass
+
+    def _c10d_all_gather(self, parts, t, group) -> None:
+        pass
+
+    def _c10d_reduce_scatter(self, out, src, group) -> None:
+        pass
+
+
+def make_trace_mesh(shape: tuple, rank: int = 0) -> TraceMesh:
+    """Rank `rank` of a (data, model) = `shape` mesh on the meta device
+    (`TraceMesh`), row-major as `make_client_mesh` places ranks."""
+    data, model = shape
+    return TraceMesh(group=None, rank=rank, size=data * model,
+                     device=torch.device("meta"), model=model)
 
 
 WORLD_MODEL_AXIS = 8  # ranks on "model": one HGX node's NVLink cards

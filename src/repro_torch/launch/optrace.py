@@ -18,7 +18,8 @@ memory. From the record:
   * hbm_bytes   — operand plus result bytes of every op that is not a
                   view (views launch nothing): each eager op is one
                   kernel boundary, as a fusion is in the reference;
-  * collectives — result bytes of each c10d collective op;
+  * collectives — result bytes of each c10d collective op, under the
+                  reference's keys (`COLLECTIVES`);
   * peak_bytes  — the peak of the live bytes of the storages allocated
                   inside the trace, by storage (views share one), each
                   freed when its storage is (a weakref finalizer).
@@ -38,8 +39,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
-               "broadcast")
+# a collective's name in the port (c10d's, `ClientMesh`'s) -> its key in
+# a record, the reference's HLO opcode (`repro/launch/hlo.py`); broadcast
+# is the port's own (XLA's partitioner emits none)
+COLLECTIVES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+               "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+               "broadcast": "broadcast"}
 _MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}  # first operand
 _COLLECTIVE_NAMES = {"allreduce": "all_reduce", "allgather": "all_gather",
                      "alltoall": "all_to_all"}
@@ -164,7 +169,7 @@ class OpTrace(TorchDispatchMode):
         self.histogram[name] += 1
         coll = _collective(name)
         if coll is not None:
-            self.coll[coll] += sum(map(_nbytes, outs))
+            self.coll[COLLECTIVES[coll]] += sum(map(_nbytes, outs))
             self.coll_n += 1
         if self.keep_ops:
             self.ops.append(Op(
@@ -175,8 +180,9 @@ class OpTrace(TorchDispatchMode):
 
 
 def collective_bytes(trace: OpTrace) -> dict:
-    """Per-collective result-byte totals: {"all_reduce": bytes, ...,
-    "total": bytes, "count": n_ops}."""
+    """Per-collective result-byte totals of the c10d ops in the trace,
+    under the record's keys: {"all-reduce": bytes, ..., "total": bytes,
+    "count": n_ops}."""
     out = dict(trace.coll)
     out["total"] = sum(out.values())
     out["count"] = trace.coll_n

@@ -141,6 +141,29 @@ def local_batch(batch, in_specs, mesh):
             for k, v in batch.items()}
 
 
+def rank_blocks(specs, tree, mesh):
+    """This rank's block (`sharding.block`) of every tensor of `tree`
+    under its `NamedSpec` tree `specs`, in the tree's structure: a spec
+    at a node covers the subtree, and None leaves host values as they
+    are (`spec_leaves`' reading of the specs)."""
+    if isinstance(specs, sharding.NamedSpec):
+        return treemath.tree_map(
+            lambda x: (sharding.block(x, mesh, specs.spec)
+                       if isinstance(x, torch.Tensor) else x), tree)
+    if specs is None or isinstance(tree, torch.Tensor):
+        if isinstance(tree, torch.Tensor):
+            raise ValueError(f"no spec for a tensor of shape "
+                             f"{tuple(tree.shape)}")
+        return tree
+    if isinstance(tree, dict):
+        return {k: rank_blocks(specs[k], v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [rank_blocks(s, t, mesh) for s, t in zip(specs, tree)]
+        return (type(tree)(*parts) if hasattr(tree, "_fields")
+                else type(tree)(parts))
+    return tree
+
+
 # ------------------------------------------------------------- train
 
 

@@ -23,10 +23,12 @@
     each group's recompute its last projection (the FFN's `w_down`),
     whose output the backward never reads; the eager recompute runs it.
 (f) One full-size `dryrun.run_one("gemma-2b", "train_4k")` writes the
-    reference's record keys, and its argument bytes equal the sum of the
-    JAX package's `NamedSharding.shard_shape` over the same arguments
-    (less the reference's 8-byte PRNG key and 4-byte round, which the
-    port holds on the host).
+    reference's record keys for rank 0 of the (32, 8) mesh's program
+    ("partition": "rank", its collectives), its argument bytes equal the
+    sum of the JAX package's `NamedSharding.shard_shape` over the same
+    arguments (less the reference's 8-byte PRNG key and 4-byte round,
+    which the port holds on the host), and its flops times the 256
+    devices are the whole step's, traced as one program, within 2%.
 """
 import gc
 import math
@@ -320,14 +322,29 @@ def test_full_size_dryrun_gemma_train_4k():
     rec = dryrun.run_one("gemma-2b", "train_4k", verbose=False)
     for key in ("arch", "shape", "tag", "mesh", "devices", "meta", "build_s",
                 "memory", "flops", "bytes_accessed", "collectives", "scoped",
-                "global", "fits", "partition"):
+                "fits", "partition", "rank", "traced_mesh", "live_bytes"):
         assert key in rec, key
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                   "temp_bytes", "alias_bytes"}
     assert rec["mesh"] == "32x8" and rec["devices"] == 256
-    assert rec["partition"] == "ideal" and rec["collectives"] == {}
-    assert rec["flops"] == rec["global"]["flops"] / 256
+    assert rec["partition"] == "rank" and rec["rank"] == 0
+    assert rec["traced_mesh"] == {"data": 32, "model": 8}
+    coll = rec["collectives"]
+    assert coll["count"] > 0 and coll["total"] > 0
+    assert set(coll["by_scope"]) >= {"tp", "round"}
+    assert coll == rec["scoped"]["collectives"]
+    assert rec["flops"] == rec["scoped"]["flops"] > 0
     assert rec["meta"]["K"] == 32 and rec["meta"]["B"] == 8
+
+    # the whole step as one program: one rank's flops are a 256th of it
+    # (gemma-2b's one KV head is split on its head dim, so no product
+    # runs whole on every model rank)
+    fn, args, _, _, _ = steps.build_step(
+        "gemma-2b", "train_4k", TorchMesh((32, 8), ("data", "model")))
+    with optrace.OpTrace(keep_ops=False) as trace:
+        fn(*args)
+    excess = rec["flops"] * 256 - trace.flops
+    assert abs(excess) <= 0.02 * trace.flops, (rec["flops"], trace.flops)
 
     jmesh = AbstractMesh((32, 8), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
