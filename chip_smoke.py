@@ -176,7 +176,7 @@ to 3, the params_sha256 equal; then for that train step, a prefill
 argument bytes against memory_allocated() once the inputs are placed,
 within 1% plus 512 B a tensor, and its live bytes against
 max_memory_allocated() over the step, the ratio within [0.8, 1.25]),
-and last fsdp (params and the decode cache over "data": the whole
+then fsdp (params and the decode cache over "data": the whole
 models' results in this process, each freed before one (2, 2) gloo
 world on this card
 (`--mesh2d-child fsdp`) runs (a) the sequential round of
@@ -199,7 +199,24 @@ deepseek-v2-lite cut to 8 layers over 524,288 latent positions
 model; (d) three reduced f32 configs with fsdp=True at B = 2 and B = 1
 == the whole model at 2e-4, every flash call held to its plain version;
 (e) the serving launcher at long_500k on the (2, 2) world; the kernel
-table's `round_stats_fsdp` row and `launches_fsdp`).
+table's `round_stats_fsdp` row and `launches_fsdp`), and last tp_rec
+(the Mamba and RWKV-6 families over the model axis: the whole models' results in this
+process, then one (1, 2) gloo world (`--mesh2d-child tp_rec`) serves
+jamba-1.5-large-398b at full width cut to one pattern group of 8 layers
+and 4 of 16 experts, and rwkv6-3b at full width and depth, bf16, B = 4,
+prompt 512, 16 steps (jamba: one flash launch a prefill on the rank's
+32 of 64 heads and 4 of 8 KV heads, the routing equal across ranks;
+both: the "tp" collectives of a prefill and a decode step equal to
+those of the shapes, prefill and decode ms and the peak a rank, the
+logit gap to the whole model printed); holds the reduced f32 configs
+and each family at full width cut to 2 layers to the whole model at
+2e-4 over a prefill and 4 decode steps; trains rwkv6-3b cut to 2
+layers, f32, one tensor-parallel round (K = 2, tau = 1, T = 256) ==
+the whole round at 2e-4 with 2 + 1 FL launches a rank; runs rwkv6-3b's
+train step at full width cut to 8 layers against the dry run's record of the rank
+(placed bytes, peak, collectives by scope); and a (2, 2) world serves
+both families' reduced f32 configs with FSDP == the whole model at
+2e-4; the kernel table's `launches_tp_rec`)`.
 Then, on lines of their own: the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
 `{"ok": true, "device": {...}}`.
@@ -338,7 +355,7 @@ FAMILY_MODELS = (
     ("qwen2-vl-2b", {}, "none", 1024),  # after the 256-patch stub prefix
     ("whisper-small", {}, "none", 384),  # its decoder's context is 448
 )
-FAMILY_B, FAMILY_STEPS = 4, 16
+FAMILY_B, FAMILY_STEPS = 4, 8  # 16 steps until PR 31 (the time limit)
 # the causal GQA attention layers of each (one flash launch a prefill)
 FAMILY_FLASH = {"deepseek-v2-lite-16b": 0, "deepseek-v2-236b": 0,
                 "jamba-1.5-large-398b": 1, "rwkv6-3b": 0, "qwen2-vl-2b": 28,
@@ -353,6 +370,9 @@ INIT_SLACK = 1e9  # bytes an init may hold beyond the params (one draw)
 # host mesh (K = 1), and the dry run's prediction against the card
 LAUNCH_ARGV = ["--arch", "gemma-2b", "--host-mesh", "--seq", "1024",
                "--global-batch", "4"]
+# the launcher's three runs cut in depth (at 18 layers their checkpoint's
+# write and read took 105 of the phase's 138 s, F36 of PR 31)
+LAUNCH_CUT = {"num_layers": 2}
 LAUNCH_STEPS = {"train": (1024, 4), "prefill": (1024, 4), "decode": (4096, 4)}
 ARG_RTOL, ARG_SLACK = 0.01, 512  # the allocator rounds a tensor to 512 B
 PEAK_RATIO = (0.8, 1.25)  # the card's peak over the dry run's live bytes
@@ -2518,9 +2538,10 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
                  model: int, port: int, out_path: str) -> int:
     """One rank of a 2D world: `task` "cnn", "lm", "tp" (the 100m LM
     tensor-parallel), "launch" (the launcher), "tp_serve"
-    (tensor-parallel serving and the DeepSeek family) or "fsdp" (params
-    and the decode cache over "data") on a (world / model, model) mesh
-    over `backend`."""
+    (tensor-parallel serving and the DeepSeek family), "fsdp" (params
+    and the decode cache over "data"), "tp_rec" (the Mamba and RWKV-6
+    families tensor-parallel) or "tp_rec_fsdp" (those over "data" too)
+    on a (world / model, model) mesh over `backend`."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2540,8 +2561,9 @@ def mesh2d_child(task: str, backend: str, rank: int, world: int,
             res = tp_launch(mesh, dev, rank, out_path)
         else:
             res = {"cnn": mesh2d_cnn, "lm": mesh2d_lm, "tp": tp_lm,
-                   "tp_serve": tp_serve, "fsdp": fsdp_child}[task](
-                       mesh, dev, rank)
+                   "tp_serve": tp_serve, "fsdp": fsdp_child,
+                   "tp_rec": tp_rec_child,
+                   "tp_rec_fsdp": tpr_fsdp_child}[task](mesh, dev, rank)
         res["coords"] = (mesh.client_index, mesh.model_index)
         torch.save(res, out_path)
     finally:
@@ -3115,15 +3137,17 @@ def tps_tokens(vocab: int, b: int, t: int, seed: int) -> torch.Tensor:
                          generator=torch.Generator().manual_seed(seed))
 
 
-def tps_init(cfg, dev, mesh=None):
+def tps_init(cfg, dev, mesh=None, fsdp: bool = False):
     """The params of `cfg` from seed 0 on `dev`: whole, or this rank's
-    blocks of the same draws (`init_params(..., mesh=, specs=)`)."""
+    blocks of the same draws (`init_params(..., mesh=, specs=)`), on
+    both axes with `fsdp`."""
     from repro_torch.models import sharding, transformer
 
     specs = None
     if mesh is not None:
         specs = sharding.param_pspecs(
-            transformer.init_params(None, cfg, device="meta"), mesh)
+            transformer.init_params(None, cfg, device="meta"), mesh,
+            fsdp=fsdp)
     return transformer.init_params(torch.Generator(device=dev).manual_seed(0),
                                    cfg, mesh=mesh, specs=specs)
 
@@ -3176,12 +3200,15 @@ def tps_round(dev, extra: list) -> dict:
     return {**res, **seen}
 
 
-def tps_parity_run(cfg, params, prefill, decode, i: int, dev):
+def tps_parity_run(cfg, params, prefill, decode, i: int, dev,
+                   rows=slice(None), steps: int = TPS_PARITY_STEPS):
     """The f32 parity case i: the prefill step's last logits, then
-    TPS_PARITY_STEPS decode steps on seeded tokens, (B, 1 + steps, V)."""
-    b, t, steps = TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS
-    tokens = tps_tokens(cfg.vocab_size, b, t, 20 + i).to(dev)
-    dec = tps_tokens(cfg.vocab_size, b, steps, 30 + i).to(dev)
+    `steps` of its TPS_PARITY_STEPS seeded decode tokens, (B, 1 +
+    steps, V), on the batch rows `rows`."""
+    b, t = TPS_PARITY_B, TPS_PARITY_T
+    tokens = tps_tokens(cfg.vocab_size, b, t, 20 + i)[rows].to(dev)
+    dec = tps_tokens(cfg.vocab_size, b, TPS_PARITY_STEPS,
+                     30 + i)[rows].to(dev)
     with torch.no_grad():
         logits, cache = prefill(params, {"tokens": tokens})
         out = [logits]
@@ -3203,7 +3230,7 @@ def tps_parity_cfg(name: str, changes: dict, full: bool):
     return cfg
 
 
-def tps_parity_steps(cfg, mesh):
+def tps_parity_steps(cfg, mesh, fsdp: bool = False):
     """build_prefill_step's and build_decode_step's fns for a parity
     case on `mesh` (a host mesh: the whole model)."""
     from repro_torch.configs import shapes
@@ -3211,10 +3238,30 @@ def tps_parity_steps(cfg, mesh):
 
     b, t, n = TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS
     prefill = steps.build_prefill_step(
-        cfg, mesh, shapes.InputShape("prefill", t + n, b, "prefill"))[0]
+        cfg, mesh, shapes.InputShape("prefill", t + n, b, "prefill"),
+        fsdp=fsdp)[0]
     decode = steps.build_decode_step(
-        cfg, mesh, shapes.InputShape("decode", t + n, b, "decode"))[0]
+        cfg, mesh, shapes.InputShape("decode", t + n, b, "decode"),
+        fsdp=fsdp)[0]
     return prefill, decode
+
+
+def tps_parity_refs(table, dev) -> dict:
+    """{i: the whole model's result of parity case i} of a parity table
+    ((label, config, changes, full, ...) a case), each model made, run
+    and freed in turn on the host mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    host = make_host_mesh(dev)
+    parity = {}
+    for i, (_, name, changes, full, *_) in enumerate(table):
+        cfg = tps_parity_cfg(name, changes, full)
+        params = tps_init(cfg, dev)
+        parity[i] = tps_parity_run(cfg, params, *tps_parity_steps(cfg, host),
+                                   i, dev).cpu()
+        del params
+        torch.cuda.empty_cache()
+    return parity
 
 
 def tp_serve_refs(dev, out_dir: str) -> dict:
@@ -3227,7 +3274,6 @@ def tp_serve_refs(dev, out_dir: str) -> dict:
     from repro_torch.configs import registry
     from repro_torch.core import treemath
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
 
     t0 = time.perf_counter()
@@ -3245,16 +3291,8 @@ def tp_serve_refs(dev, out_dir: str) -> dict:
                    os.path.join(out_dir, f"{name}.pt"))
         del params, last, ids
         torch.cuda.empty_cache()
-    host = make_host_mesh(dev)
-    parity = {}
-    for i, (_, name, changes, full) in enumerate(TPS_PARITY):
-        cfg = tps_parity_cfg(name, changes, full)
-        params = tps_init(cfg, dev)
-        parity[i] = tps_parity_run(cfg, params, *tps_parity_steps(cfg, host),
-                                   i, dev).cpu()
-        del params
-        torch.cuda.empty_cache()
-    torch.save(parity, os.path.join(out_dir, "parity.pt"))
+    torch.save(tps_parity_refs(TPS_PARITY, dev),
+               os.path.join(out_dir, "parity.pt"))
     res = tps_round(dev, ["--host-mesh"])
     params = res.pop("params")
     torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
@@ -3285,13 +3323,13 @@ def tps_collectives_from_shapes(cfg, b: int, t: int) -> tuple[int, int]:
 def tps_flash_spy(fa, calls: list, tol: float):
     """A stand-in for `fa._forward` that runs the kernel and holds each
     call's output against `gqa_plain` on the same q, k, v at `tol`,
-    listing (q heads, (max |d|, excess)) in `calls`."""
+    listing (q heads, kv heads, (max |d|, excess)) in `calls`."""
     real = fa._forward
 
     def spy(q, k, v, causal):
         o = real(q, k, v, causal)
-        calls.append((q.shape[2], allclose_err(o, gqa_plain(fa, q, k, v),
-                                               tol)))
+        calls.append((q.shape[2], k.shape[2],
+                      allclose_err(o, gqa_plain(fa, q, k, v), tol)))
         return o
 
     return spy
@@ -3299,8 +3337,8 @@ def tps_flash_spy(fa, calls: list, tol: float):
 
 def tps_flash_worst(calls: list) -> list:
     """[calls, worst max |d|, worst excess] of a spy's list."""
-    return [len(calls), max((c[1][0] for c in calls), default=0.0),
-            max((c[1][1] for c in calls), default=0.0)]
+    return [len(calls), max((c[2][0] for c in calls), default=0.0),
+            max((c[2][1] for c in calls), default=0.0)]
 
 
 def tps_gemma(mesh, dev) -> dict:
@@ -3472,30 +3510,46 @@ def tps_deepseek(mesh, dev) -> dict:
     return out
 
 
-def tps_parity(mesh, dev) -> dict:
-    """(c): each f32 parity case through the step builders' fns on this
-    rank's blocks against the whole model's, at PARITY_TOL; the flash
-    launches of each case's counted run, each call held against its
-    plain version at its local shape."""
+def tps_parity(mesh, dev, table=TPS_PARITY, refs_env: str = TPS_REFS,
+               cases=None, fsdp: bool = False,
+               steps: int = TPS_PARITY_STEPS) -> dict:
+    """(c): each f32 parity case of `table` (those named in `cases`, or
+    all) through the step builders' fns on this rank's blocks (on both
+    axes with `fsdp`, on this data index's rows) against the whole
+    model's (`tps_parity_refs`, written under `refs_env`; its first
+    `steps` decode steps), at PARITY_TOL; the flash launches of each
+    case's counted run, each call held against its plain version at its
+    local shape, and the run's collectives by scope."""
     from repro_torch.kernels import flash_attn as fa
 
-    refs = torch.load(os.path.join(os.environ[TPS_REFS], "parity.pt"))
+    refs = torch.load(os.path.join(os.environ[refs_env], "parity.pt"))
     out, real = {}, fa._forward
-    for i, (label, name, changes, full) in enumerate(TPS_PARITY):
+    rows = slice(None)
+    if fsdp:  # this data index's rows
+        per = TPS_PARITY_B // mesh.client_size
+        rows = slice(mesh.client_index * per, (mesh.client_index + 1) * per)
+    for i, (label, name, changes, full, *_) in enumerate(table):
+        if cases is not None and label not in cases:
+            continue
         cfg = tps_parity_cfg(name, changes, full)
-        params = tps_init(cfg, dev, mesh)
+        params = tps_init(cfg, dev, mesh, fsdp)
+        steps_ = tps_parity_steps(cfg, mesh, fsdp)
         fa.flash_attention.launches, calls = 0, []
         fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["float32"])
         try:
-            got = tps_parity_run(cfg, params, *tps_parity_steps(cfg, mesh),
-                                 i, dev).cpu()
+            with mesh.recording() as log:
+                got = tps_parity_run(cfg, params, *steps_, i, dev, rows,
+                                     steps).cpu()
         finally:
             fa._forward = real
-        err, excess = allclose_err(got, refs[i], PARITY_TOL)
+        err, excess = allclose_err(got, refs[i][rows, :1 + steps],
+                                   PARITY_TOL)
         out[label] = {
             "max_abs": err, "excess": excess,
             "flash_launches": fa.flash_attention.launches,
-            "flash_vs_plain": tps_flash_worst(calls)}
+            "flash_vs_plain": tps_flash_worst(calls),
+            "collectives": {s: sum(c.scope == s for c in log)
+                            for s in ("tp", "fsdp")}}
         del params
         torch.cuda.empty_cache()
     return out
@@ -3691,6 +3745,606 @@ def phase_tp_serve(smi: str) -> dict:
             **r0["round"]["launches"]}
 
 
+# ---- the recurrent families over "model": Mamba (jamba) and RWKV-6 ----
+
+TPR_SHAPE = (1, 2)  # a gloo world of two ranks on this card
+TPR_FSDP_SHAPE = (2, 2)  # four ranks: params over "data" too
+TPR_TIMEOUT = 600  # seconds a world may take
+TPR_SERVE = (4, 512, 16)  # B, prompt, greedy steps: bf16
+# serving at full width: jamba cut as the families phase cuts it
+TPR_MODELS = {
+    "jamba": ("jamba-1.5-large-398b",
+              {"num_layers": 8, "moe": {"num_experts": 4},
+               "attention_impl": "flash"},
+              "depth 72 -> 8 (one pattern group); experts 16 -> 4, top-2 "
+              "kept"),
+    "rwkv6": ("rwkv6-3b", {}, "none")}
+# the served families whose whole model also runs in f32 on the same
+# prompt: the bf16 logits' gaps to it, whole and tensor-parallel, tell
+# bf16 rounding from a fault of the tensor-parallel path
+TPR_F32_WITNESS = ("rwkv6",)
+# held tensor-parallel == whole at PARITY_TOL in f32 (a prefill of
+# TPS_PARITY_T and TPS_PARITY_STEPS decode steps): the reduced configs,
+# and each family at full width cut in depth
+TPR_JAMBA_2L = {"num_layers": 2, "block_pattern": ("mamba", "attn"),
+                "moe": {"num_experts": 2}, "dtype": "float32",
+                "attention_impl": "flash"}
+TPR_PARITY = (
+    ("jamba-smoke", "jamba-1.5-large-398b", {"attention_impl": "flash"},
+     False, "none"),
+    ("rwkv6-smoke", "rwkv6-3b", {}, False, "none"),
+    ("jamba-full-2l", "jamba-1.5-large-398b", TPR_JAMBA_2L, True,
+     "depth 72 -> 2: one Mamba layer (dense FFN) and the attention layer "
+     "(MoE, experts 16 -> 2, top-2 kept)"),
+    ("rwkv6-full-2l", "rwkv6-3b", {"num_layers": 2, "dtype": "float32"},
+     True, "depth 32 -> 2"))
+TPR_FSDP = ("jamba-full-2l", "rwkv6-full-2l")  # also run FSDP on (2, 2)
+# with a prefill and this many of TPS_PARITY_STEPS decode steps: each
+# step gathers the full-width groups over "data" through gloo (with all
+# 4 the world took 90.5 s, 65 s more than at the smoke size)
+TPR_FSDP_STEPS = 1
+# one tensor-parallel round through make_round_fn(param_specs=): rwkv6-3b
+# at full width cut to 2 layers, f32; K, tau, B, T
+TPR_ROUND_CUT = {"num_layers": 2, "dtype": "float32"}
+TPR_ROUND = (2, 1, 1, 256)
+# the train steps traced by the dry run and run on the card, bf16, T
+# and global B: rwkv6-3b at full width cut to 4 layers (8 until the
+# script neared its time limit; at 32 the two ranks' rounds would peak
+# at 74 GB of the card's 80), and jamba at full
+# width cut to one Mamba layer (dense FFN): its selective scan's
+# backward and workspace (with the attention layer and 2 experts the
+# two ranks would need 83 GB)
+TPR_RECORDS = {
+    "rwkv6": ("rwkv6-3b", {"num_layers": 4}, 512, 2),
+    "jamba": ("jamba-1.5-large-398b",
+              {"num_layers": 1, "block_pattern": ("mamba",)}, 512, 2)}
+TPR_AB_REPS = 3  # timed runs of each scan form
+TPR_REFS = "CHIP_SMOKE_TP_REC_REFS"  # env: the whole-model results' dir
+
+
+def tpr_cfg(name: str, changes: dict):
+    from repro_torch.configs import registry
+    from repro_torch.models.config import with_changes
+
+    return with_changes(registry.get(name), changes)
+
+
+def tpr_collectives_from_shapes(cfg, b: int, t: int,
+                                m: int) -> tuple[int, int]:
+    """(count, bytes) of the "tp" collectives of one prefill step of b
+    rows of t tokens (a decode step: t = 1) on a model axis of m ranks
+    that holds whole heads, d_inner blocks and whole experts: the
+    vocab-parallel embedding's all-reduce; each Mamba and RWKV-6 layer's
+    own (`mamba` / `rwkv6.collectives_from_shapes`); the all-reduces
+    after an attention layer's wo and after each dense FFN's w_down or
+    expert-parallel MoE; the last position's logits gathered."""
+    from repro_torch.models import mamba, rwkv6
+
+    it = cfg.tdtype.itemsize
+    act = b * t * cfg.d_model * it
+    sizes = [act]
+    for kind, _ in cfg.layer_kinds() * cfg.num_pattern_groups:
+        if kind in ("mamba", "rwkv"):
+            mod = mamba if kind == "mamba" else rwkv6
+            sizes += [math.prod(shape) * it for _, shape in
+                      mod.collectives_from_shapes(cfg, b, t, m)]
+        else:
+            sizes.append(act)  # wo
+        if kind != "rwkv":
+            sizes.append(act)  # w_down, or the MoE's experts
+    sizes.append(b * cfg.vocab_size // m * it)
+    return len(sizes), sum(sizes)
+
+
+def tpr_routing_sha(routing: list) -> str:
+    h = hashlib.sha256()
+    for call in routing:
+        for key in sorted(call):
+            h.update(call[key].contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def tpr_round(dev, mesh=None) -> dict:
+    """One round of TPR_ROUND on rwkv6-3b cut to TPR_ROUND_CUT: through
+    `make_round_fn(..., mesh=, param_specs=)` on this rank's blocks
+    (flat_sharded), or whole on the flat engine without a mesh; its FL
+    launches, params, specs and loss."""
+    import repro_torch
+    from repro_torch.core import fl as fl_mod
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models import sharding, transformer
+
+    cfg = tpr_cfg("rwkv6-3b", TPR_ROUND_CUT)
+    k, tau, b, t = TPR_ROUND
+    flcfg = repro_torch.FLConfig(
+        num_clients=k, clients_per_round=k, local_steps=tau,
+        engine="flat" if mesh is None else "flat_sharded")
+    specs = None if mesh is None else sharding.param_pspecs(
+        transformer.init_params(None, cfg, device="meta"), mesh)
+
+    def loss(p, batch):
+        return transformer.loss_fn(p, cfg, batch)
+
+    round_fn = (fl_mod.make_round_fn(loss, flcfg) if mesh is None else
+                fl_mod.make_round_fn(loss, flcfg, mesh=mesh,
+                                     param_specs=specs))
+    state = repro_torch.init_round_state(flcfg, tps_init(cfg, dev, mesh))
+    batch = {"tokens": tps_tokens(cfg.vocab_size, k * tau * b, t, 45)
+             .reshape(k, tau, b, t).to(dev, torch.int32)}
+    wa.weighted_agg.launches = rs.round_stats.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = round_fn(state, batch,
+                              torch.arange(k, dtype=torch.int32, device=dev),
+                              torch.ones((k,), device=dev))
+    torch.cuda.synchronize()
+    return {"params": state.params, "specs": specs,
+            "loss": metrics["loss"].detach().cpu(),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {"weighted_agg": wa.weighted_agg.launches,
+                         "round_stats": rs.round_stats.launches}}
+
+
+def tpr_refs(dev, out_dir: str) -> dict:
+    """The whole-model results the worlds are held to, each model made,
+    run and freed in turn in this process: each served model's last
+    prefill logits, greedy ids and MoE routing (and for TPR_F32_WITNESS
+    its f32 whole model's last logits on the same prompt), the f32
+    parity cases through the step builders on the host mesh, and the
+    cut rwkv6 round's params and loss. Returns the seconds and the
+    witnesses' whole bf16 - f32 gaps."""
+    from repro_torch.core import treemath
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    b, t, n = TPR_SERVE
+    gaps = {}
+    for key, (name, changes, _) in TPR_MODELS.items():
+        cfg = tpr_cfg(name, changes)
+        params = tps_init(cfg, dev)
+        tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+        with moe.record_routing() as routing:
+            last = tps_last_logits(params, cfg, tokens).float().cpu()
+        ids = serve.generate(params, cfg, tokens, n)
+        ref = {"last": last, "ids": ids.cpu(),
+               "routing": tpr_routing_sha(routing)}
+        del params, ids
+        torch.cuda.empty_cache()
+        if key in TPR_F32_WITNESS:
+            cfg32 = tpr_cfg(name, {**changes, "dtype": "float32"})
+            params = tps_init(cfg32, dev)
+            ref["last_f32"] = tps_last_logits(params, cfg32, tokens).cpu()
+            gaps[key] = float((last - ref["last_f32"]).abs().max())
+            del params
+            torch.cuda.empty_cache()
+        torch.save(ref, os.path.join(out_dir, f"{key}.pt"))
+    torch.save(tps_parity_refs(TPR_PARITY, dev),
+               os.path.join(out_dir, "parity.pt"))
+    res = tpr_round(dev)
+    torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
+        treemath.tree_paths(res["params"]),
+        treemath.tree_leaves(res["params"]))},
+        os.path.join(out_dir, "round.pt"))
+    torch.save({"loss": res["loss"], "ms": res["ms"]},
+               os.path.join(out_dir, "round_loss.pt"))
+    del res
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0,
+            "whole_bf16_vs_f32_gap": gaps}
+
+
+def tpr_scan_loop(x, dt, Bm, Cm, A, h):
+    """The selective scan as the port ran it before `mamba.scan`: a loop
+    over the steps whose autograd keeps every step's state."""
+    f32 = torch.float32
+    ys = []
+    for i in range(x.shape[1]):
+        x_t, dt_t = x[:, i].to(f32), dt[:, i]
+        decay = torch.exp(dt_t[..., None] * A[None])
+        h = decay * h + (dt_t * x_t)[..., None] * Bm[:, i].to(f32)[:, None]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, i].to(f32)))
+    return torch.stack(ys, dim=1), h
+
+
+def tpr_wkv_loop(r, k, v, logw, u, S):
+    """The chunked WKV as the port ran it before `rwkv6.wkv`: a loop
+    over the chunks (`rwkv6._chunk_fwd`) under autograd."""
+    from repro_torch.models import rwkv6
+
+    b, nc, L, H, e = r.shape
+    mask, eye = rwkv6._consts(L, r.device)
+    outs = []
+    for c in range(nc):
+        o, S, _ = rwkv6._chunk_fwd(r[:, c], k[:, c], v[:, c], logw[:, c], u,
+                                   S, mask, eye)
+        outs.append(o)
+    return torch.stack(outs, dim=1).reshape(b, nc * L, H, e), S
+
+
+def tpr_scan_ab(dev) -> dict:
+    """Each scan op's forward and backward (`mamba.scan`, `rwkv6.wkv`)
+    against its former loop form under autograd, at the shapes of one
+    layer of TPR_RECORDS' train steps on one rank of TPR_SHAPE (seeded
+    f32 inputs, the stream dtype of both configs): ms (median of
+    TPR_AB_REPS, each synchronized), the peak above the inputs, and the
+    gradients' largest gap to the loop's, relative to their largest
+    entry."""
+    from repro_torch.models import mamba, rwkv6
+
+    m = TPR_SHAPE[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    name, cut, t, b = TPR_RECORDS["jamba"]
+    cfg = tpr_cfg(name, cut)
+    di, n = mamba.d_inner(cfg) // m, cfg.ssm.d_state
+    scan_in = (rand(b, t, di), torch.rand((b, t, di), generator=g,
+                                          device=dev) * 0.1,
+               rand(b, t, n), rand(b, t, n),
+               -torch.rand((di, n), generator=g, device=dev) - 0.1,
+               torch.zeros((b, di, n), device=dev))
+    name, cut, t, b = TPR_RECORDS["rwkv6"]
+    cfg = tpr_cfg(name, cut)
+    L, e = cfg.rwkv.chunk_len, cfg.rwkv.head_dim
+    h = cfg.num_heads // m
+    shape = (b, t // L, L, h, e)
+    wkv_in = (rand(*shape), rand(*shape), rand(*shape),
+              -torch.rand(shape, generator=g, device=dev) * 0.5 - 1e-3,
+              rand(h, e), torch.zeros((b, h, e, e), device=dev))
+    out = {}
+    for op, (fn, loop, args, gy) in {
+            "selective_scan": (mamba.scan, tpr_scan_loop, scan_in,
+                               rand(*scan_in[0].shape)),
+            "wkv_chunked": (rwkv6.wkv, tpr_wkv_loop, wkv_in,
+                            rand(b, t, h, e))}.items():
+        res = {"shapes": [list(a.shape) for a in args]}
+        grads = {}
+        for form, f in (("op", fn), ("loop", loop)):
+            times = []
+            for _ in range(TPR_AB_REPS + 1):
+                leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                y, _ = f(*leaves, args[5])
+                torch.autograd.backward(y, gy)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                grads[form] = [z.grad for z in leaves]
+            res[f"{form}_ms"] = float(np.median(times[1:]))
+            res[f"{form}_ms_runs"] = times[1:]
+            res[f"{form}_peak_bytes"] = peak
+        res["grad_rel_gap"] = max(
+            float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for a, w in zip(grads["op"], grads["loop"]))
+        out[op] = res
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpr_serve(key: str, mesh, dev) -> dict:
+    """(a) / (b): a family at full width (TPR_MODELS' cut), bf16, in this
+    rank's blocks: generate under a scope (decode ms a step, the peak),
+    the flash launches of the counted run and each flash call of the
+    warm-up on the rank's heads against its plain version, the MoE
+    routing's digest; one prefill and one decode step through the step
+    builders: their "tp" collectives against the shapes', the prefill's
+    ms, and its last logits' gap to the whole model's (printed, not
+    held), and for TPR_F32_WITNESS to the f32 whole model's."""
+    from repro_torch.configs import shapes
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import moe, tp
+
+    name, changes, cut = TPR_MODELS[key]
+    cfg = tpr_cfg(name, changes)
+    b, t, n = TPR_SERVE
+    ref = torch.load(os.path.join(os.environ[TPR_REFS], f"{key}.pt"))
+    params = tps_init(cfg, dev, mesh)
+    tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+    calls, real = [], fa._forward
+    with tp.scope(mesh, rows_over_data=True):
+        fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["bfloat16"])
+        try:
+            serve.generate(params, cfg, tokens, 2)  # warm-up, heads seen
+        finally:
+            fa._forward = real
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        with moe.record_routing() as routing:
+            t0 = time.perf_counter()
+            ids = serve.generate(params, cfg, tokens, n)  # the main path
+            torch.cuda.synchronize()
+            total_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+    # one prefill and one decode step through the step builders: their
+    # collectives, the prefill's time and its last logits (gathered)
+    s_ = t + 2
+    prefill = steps.build_prefill_step(
+        cfg, mesh, shapes.InputShape("prefill", s_, b, "prefill"))[0]
+    decode = steps.build_decode_step(
+        cfg, mesh, shapes.InputShape("decode", s_, b, "decode"))[0]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh.recording() as plog:
+            last, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        with mesh.recording() as dlog:
+            decode(params, ids[:, :1], cache, t)
+    last = last[:, -1].float().cpu()
+    del cache, params
+    torch.cuda.empty_cache()
+    m = mesh.model_size
+    out = {
+        "cut": cut, "layers": cfg.num_layers, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": (total_ms - prefill_ms) / (n - 1),
+        "generate_ms": total_ms, "peak_bytes": peak,
+        "flash_launches": launches,
+        "flash_heads": sorted({c[:2] for c in calls}),
+        "flash_vs_plain": tps_flash_worst(calls),
+        "want_flash": (cfg.num_pattern_groups
+                       * sum(k == "attn" for k, _ in cfg.layer_kinds())),
+        "want_heads": ([(cfg.num_heads // m, cfg.num_kv_heads // m)]
+                       if cfg.ssm is not None else []),
+        "tp_prefill": [sum(c.scope == "tp" for c in plog),
+                       sum(c.nbytes for c in plog if c.scope == "tp")],
+        "tp_decode": [sum(c.scope == "tp" for c in dlog),
+                      sum(c.nbytes for c in dlog if c.scope == "tp")],
+        "want_tp_prefill": tpr_collectives_from_shapes(cfg, b, t, m),
+        "want_tp_decode": tpr_collectives_from_shapes(cfg, b, 1, m),
+        "other_collectives": sum(c.scope != "tp" for c in plog + dlog),
+        "routing_sha256": tpr_routing_sha(routing),
+        "routing_calls": len(routing),
+        "logit_gap": float((last - ref["last"]).abs().max()),
+        "logit_scale": float(ref["last"].abs().max()),
+        "ids_equal_share": float((ids.cpu() == ref["ids"]).float().mean()),
+        "ids": ids.cpu(), "finite": bool(torch.isfinite(last).all())}
+    if "last_f32" in ref:
+        out["logit_gap_vs_f32_whole"] = float(
+            (last - ref["last_f32"]).abs().max())
+        out["last_argmax_equal_f32_whole"] = float(
+            (last.argmax(-1) == ref["last_f32"].argmax(-1)).float().mean())
+    return out
+
+
+def tpr_round_child(mesh, dev) -> dict:
+    """(d): the cut rwkv6 round on this rank's blocks: its FL launches,
+    and its params and loss against the whole round's at PARITY_TOL."""
+    from repro_torch.core import treemath
+    from repro_torch.models import sharding
+
+    refs = os.environ[TPR_REFS]
+    res = tpr_round(dev, mesh)
+    whole = torch.load(os.path.join(refs, "round.pt"), mmap=True)
+    worst, where = -math.inf, ""
+    for path, x, spec in zip(treemath.tree_paths(res["params"]),
+                             treemath.tree_leaves(res["params"]),
+                             treemath.tree_leaves_like(res["params"],
+                                                       res["specs"])):
+        key = "/".join(path)
+        want = sharding.block(whole[key], mesh, spec).to(dev)
+        e, w = excess_err({key: (x, want)}, PARITY_TOL, PARITY_TOL)
+        if e > worst:
+            worst, where = e, w
+    ref = torch.load(os.path.join(refs, "round_loss.pt"))
+    loss_err = allclose_err(res["loss"], ref["loss"], PARITY_TOL)
+    out = {"launches": res["launches"], "excess": worst,
+           "worst_leaf": where, "ms": res["ms"], "whole_ms": ref["ms"],
+           "loss": res["loss"].tolist(), "loss_excess": loss_err[1]}
+    del res, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpr_record(mesh, dev, key: str) -> dict:
+    """(e): TPR_RECORDS[key]'s tensor-parallel train step run once on
+    this rank's blocks of a seeded state and batch, against the dry
+    run's record of the same step traced on meta at this rank's shape
+    and rank (`rank_vs_prediction`)."""
+    import repro_torch
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_trace_mesh
+    from repro_torch.models import sharding, transformer
+
+    arch, cut, t, b = TPR_RECORDS[key]
+    cfg = tpr_cfg(arch, cut)
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=t,
+                                global_batch=b)
+    traced = make_trace_mesh((mesh.client_size, mesh.model_size), mesh.rank)
+    fn, args, ins, outs, _ = steps.build_train_step(cfg, traced, shape)
+    t0 = time.perf_counter()
+    pred = dryrun.rank_record(fn, args, ins, outs, traced, whole_batch=True)
+    trace_s = time.perf_counter() - t0
+    fn, args, ins, _, meta = steps.build_train_step(cfg, mesh, shape)
+    k, tau, b_ = meta["K"], meta["tau"], meta["B"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    specs = sharding.param_pspecs(args[0].params, mesh)
+    state = repro_torch.init_round_state(
+        repro_torch.FLConfig(**meta["flcfg"]), transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, mesh=mesh,
+            specs=specs))
+    real = (state, {"tokens": tps_tokens(cfg.vocab_size, k * tau * b_, t, 47)
+                    .reshape(k, tau, b_, t).to(dev, torch.int32)},
+            torch.arange(k, dtype=torch.int32, device=dev),
+            torch.ones((k,), device=dev))
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with mesh.recording() as log:
+        new_state, metrics = fn(*real)
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out = rank_vs_prediction(pred, log, mesh, placed,
+                             len(steps.spec_leaves(ins, real)), peak)
+    out.update(cut=f"{arch} {cut}", finite=bool(all(
+                   torch.isfinite(v).all() for v in metrics.values())),
+               step_ms=step_ms, trace_seconds=trace_s,
+               ops_traced=pred.get("ops"))
+    del state, real, new_state, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rec_child(mesh, dev, rank: int) -> dict:
+    """One rank of the (1, 2) world: (a) jamba and (b) rwkv6-3b serving,
+    (c) the f32 parity cases, (d) the cut rwkv6 round, (e) each of
+    TPR_RECORDS' train steps against the dry run."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    return {"jamba": tpr_serve("jamba", mesh, dev),
+            "rwkv6": tpr_serve("rwkv6", mesh, dev),
+            "parity": tps_parity(mesh, dev, TPR_PARITY, TPR_REFS),
+            "round": tpr_round_child(mesh, dev),
+            "record": {key: tpr_record(mesh, dev, key)
+                       for key in TPR_RECORDS}}
+
+
+def tpr_fsdp_child(mesh, dev, rank: int) -> dict:
+    """One rank of the (2, 2) world: the full-width cut parity cases of
+    both families served with their params on both axes (FSDP), a
+    prefill and TPR_FSDP_STEPS decode steps."""
+    return {"parity": tps_parity(mesh, dev, TPR_PARITY, TPR_REFS, TPR_FSDP,
+                                 fsdp=True, steps=TPR_FSDP_STEPS)}
+
+
+def check_tp_rec(results: list, fsdp: list) -> dict:
+    """The ranks' greedy ids and routing equal; each family's "tp"
+    collectives those of the shapes, no other collective; jamba's flash
+    launches one a prefill on the rank's 32 of 64 heads and 4 of 8 KV
+    heads, each call within FLASH_TOL of its plain version; every parity
+    case (tensor-parallel and FSDP) within PARITY_TOL, jamba's full-width
+    case through flash both ways; the round's 2 + 1 FL launches and its
+    params and loss within PARITY_TOL; each train step against the dry
+    run (`prediction_failures`). Returns the line's part."""
+    r0 = results[0]
+    bad = []
+    for r, res in enumerate(results):
+        for key in TPR_MODELS:
+            s, s0 = res[key], r0[key]
+            checks = {
+                "ids equal across ranks": torch.equal(s["ids"], s0["ids"]),
+                "finite": s["finite"],
+                "routing equal across ranks":
+                    s["routing_sha256"] == s0["routing_sha256"],
+                "flash launches": s["flash_launches"] == s["want_flash"],
+                "flash on the rank's heads": [tuple(h) for h in
+                                              s["flash_heads"]]
+                == [tuple(h) for h in s["want_heads"]],
+                "flash vs plain": s["flash_vs_plain"][2] <= 1.0,
+                "tp prefill collectives":
+                    tuple(s["tp_prefill"]) == tuple(s["want_tp_prefill"]),
+                "tp decode collectives":
+                    tuple(s["tp_decode"]) == tuple(s["want_tp_decode"]),
+                "no other collective": s["other_collectives"] == 0,
+            }
+            bad += [f"rank {r} {key}: {n}" for n, ok in checks.items()
+                    if not ok]
+        checks = {
+            "parity": all(c["excess"] <= 1.0
+                          for c in res["parity"].values()),
+            "parity flash vs plain": all(
+                c["flash_vs_plain"][0] == c["flash_launches"]
+                and c["flash_vs_plain"][2] <= 1.0
+                for c in res["parity"].values())
+            and res["parity"]["jamba-full-2l"]["flash_launches"] > 0,
+            "round launches": res["round"]["launches"] == {
+                "weighted_agg": 2, "round_stats": 1},
+            "round vs whole": res["round"]["excess"] <= 0
+            and res["round"]["loss_excess"] <= 1.0,
+        }
+        for key, rec in res["record"].items():
+            checks[f"{key} train step finite"] = rec["finite"]
+            bad += [f"rank {r} {key}: {n}"
+                    for n in prediction_failures(rec)]
+        bad += [f"rank {r}: {n}" for n, ok in checks.items() if not ok]
+    for r, res in enumerate(fsdp):
+        for label, c in res["parity"].items():
+            if c["excess"] > 1.0 or c["collectives"]["fsdp"] == 0 \
+                    or c["flash_vs_plain"][2] > 1.0 \
+                    or c["flash_vs_plain"][0] != c["flash_launches"]:
+                bad.append(f"fsdp rank {r}: {label}")
+        if res["parity"]["jamba-full-2l"]["flash_launches"] == 0:
+            bad.append(f"fsdp rank {r}: jamba-full-2l ran no flash")
+    if bad:
+        raise AssertionError(f"tp_rec: {bad}: " + json.dumps(
+            {k: v for k, v in r0.items()}, default=str)[:8000])
+    fam = {}
+    for key in TPR_MODELS:
+        fam[key] = {**{k: v for k, v in r0[key].items() if k != "ids"},
+                    "prefill_ms_per_rank": [r[key]["prefill_ms"]
+                                            for r in results],
+                    "decode_ms_per_step_per_rank": [
+                        r[key]["decode_ms_per_step"] for r in results],
+                    "peak_bytes_per_rank": [r[key]["peak_bytes"]
+                                            for r in results],
+                    "sample_ids": r0[key]["ids"][0, :12].tolist()}
+    return {"ranks": len(results), **fam, "parity": r0["parity"],
+            "round": {**r0["round"],
+                      "excess_per_rank": [r["round"]["excess"]
+                                          for r in results]},
+            "record_vs_dry_run_per_rank": {
+                key: [r["record"][key] for r in results]
+                for key in TPR_RECORDS},
+            "fsdp_parity_per_rank": [r["parity"] for r in fsdp]}
+
+
+def phase_tp_rec(smi: str) -> dict:
+    """The recurrent families over "model": the scan ops against their
+    loop forms and the whole-model references in this process (each
+    freed before a world starts), then one (1, 2) gloo world on this
+    card runs (a)-(e) (`tp_rec_child`) and one (2, 2) world the FSDP
+    parity cases. Returns rank 0's launches of the slice's kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"phase": "tp_rec", "card": smi, "note": MESH2D_CARD_NOTE,
+           "mesh": list(TPR_SHAPE), "fsdp_mesh": list(TPR_FSDP_SHAPE),
+           "cuts": {**{k: v[2] for k, v in TPR_MODELS.items()},
+                    **{c[0]: c[4] for c in TPR_PARITY},
+                    "round": f"rwkv6-3b {TPR_ROUND_CUT}",
+                    **{f"record/{k}": f"{v[0]} {v[1]}"
+                       for k, v in TPR_RECORDS.items()}}}
+    out["scan_ops_vs_loops"] = tpr_scan_ab(dev)
+    with tempfile.TemporaryDirectory() as refs:
+        out["whole_model_refs"] = tpr_refs(dev, refs)
+        os.environ[TPR_REFS] = refs
+        try:
+            t1 = time.perf_counter()
+            results = run_mesh2d("tp_rec", "gloo", TPR_SHAPE, TPR_TIMEOUT)
+            out["world_seconds"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            fsdp = run_mesh2d("tp_rec_fsdp", "gloo", TPR_FSDP_SHAPE,
+                              TPR_TIMEOUT)
+            out["fsdp_world_seconds"] = time.perf_counter() - t1
+        finally:
+            os.environ.pop(TPR_REFS, None)
+    out.update(check_tp_rec(results, fsdp))
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    r0 = results[0]
+    return {"flash_attention": r0["jamba"]["flash_launches"],
+            "flash_attention_f32": sum(
+                c["flash_launches"] for c in r0["parity"].values()),
+            **r0["round"]["launches"]}
+
+
 # ---- FSDP: params over "data" (the sequential round, serving) and the
 # decode cache's sequence on "data" ----
 
@@ -3699,7 +4353,9 @@ FSDP_TIMEOUT = 900  # seconds the world may take
 # (a) the sequential (FSDP) round: deepseek-v2-lite-16b at full width,
 # cut to one layer (at two, four ranks' rounds did not fit the card)
 FSDP_ROUND_CUT = {"num_layers": 1, "dtype": "float32"}
-FSDP_ROUND = (4, 1, 4, 256)  # K, tau, B, T
+# K, tau, B, T (K = 4 took 93 s of the phase's 183, F32 of PR 31: each
+# client trains twice, every training gathering the layer over gloo)
+FSDP_ROUND = (2, 1, 4, 256)
 # the most param-sized f32 trees the sequential round holds at once, in
 # blocks: the params, prev_delta, g (raveled), the two online sums, and
 # in a client's step its gradient, stepped params and delta
@@ -3710,9 +4366,9 @@ FSDP_GROUP_BACKWARD = 3
 # (b) FSDP serving: deepseek-v2-236b at full width, bf16, one layer
 # (each decode step gathers every layer over gloo's host staging)
 FSDP_SERVE_CUT = {"num_layers": 1}
-# B, prompt, greedy tokens (a prefill and 3 decode steps: at ~9 s a step
-# through gloo on one card, 16 steps would take ~150 s alone)
-FSDP_SERVE = (4, 512, 4)
+# B, prompt, greedy tokens (a prefill and 1 decode step: at ~9-12 s a
+# step through gloo on one card, the whole script nears its time limit)
+FSDP_SERVE = (4, 512, 2)
 # (c) long_500k, B = 1, the cache's sequence on "data": gemma-2b whole
 # (its ring of 8,192 slots split at 4,096 on (2, 2)), then
 # deepseek-v2-lite cut to 8 layers over its 524,288 latent positions
@@ -5675,8 +6331,9 @@ def phase_launch(dev) -> dict:
     """The launch layer: the dry run of gemma-2b x train_4k on the 32x8
     mesh under this card's torch; the launcher's path in this process
     (gemma-2b at full width and depth, bf16, host mesh, K = 1, T = 1024,
-    B = 4): 3 rounds, then 2 rounds with a checkpoint and --resume to 3,
-    the two params_sha256 equal; then for the train step, a prefill
+    B = 4; cut to LAUNCH_CUT's depth): 3 rounds, then 2 rounds with a
+    checkpoint and --resume to 3, the two params_sha256 equal; then, at
+    full depth, for the train step, a prefill
     (B = 4, T = 1024) and a decode step (B = 4, S = 4096), each built on
     a (1, 1) mesh, the dry run's prediction against the card: the
     argument bytes against memory_allocated() once the inputs are placed
@@ -5688,6 +6345,7 @@ def phase_launch(dev) -> dict:
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import dryrun, steps, train
     from repro_torch.launch.mesh import AbstractMesh, HBM_BYTES
+    from repro_torch.models.config import with_changes
 
     t_phase = time.perf_counter()
     total = torch.cuda.get_device_properties(dev).total_memory
@@ -5697,18 +6355,25 @@ def phase_launch(dev) -> dict:
     dry = dryrun.run_one("gemma-2b", "train_4k", verbose=False)
     emit({"phase": "launch", "dryrun": dry})
 
-    with tempfile.TemporaryDirectory() as ckpt:
-        whole = train.main(LAUNCH_ARGV + ["--rounds", "3"])
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        half = train.main(LAUNCH_ARGV + ["--rounds", "2", "--ckpt", ckpt])
-        half_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        resumed = train.main(LAUNCH_ARGV + ["--rounds", "3", "--ckpt", ckpt,
-                                            "--resume"])
-        resume_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
+    real_get = registry.get
+    registry.get = lambda name: (with_changes(real_get(name), LAUNCH_CUT)
+                                 if name == "gemma-2b" else real_get(name))
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            whole = train.main(LAUNCH_ARGV + ["--rounds", "3"])
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            half = train.main(LAUNCH_ARGV + ["--rounds", "2", "--ckpt",
+                                             ckpt])
+            half_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            resumed = train.main(LAUNCH_ARGV + ["--rounds", "3", "--ckpt",
+                                                ckpt, "--resume"])
+            resume_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        registry.get = real_get
     if resumed["params_sha256"] != whole["params_sha256"]:
         raise AssertionError(f"resumed params {resumed['params_sha256']} != "
                              f"uninterrupted {whole['params_sha256']}")
@@ -5864,16 +6529,18 @@ def main() -> int:
     sharded_launches = phase_sharded(wa, rs, dev, nodes, test)
     mesh2d = phase_mesh2d(wa, rs, tq, dev, smi)
     tp_launches = phase_tp(smi)
-    tp_serve_launches = phase_tp_serve(smi)
     lm_out = phase_lm_train(wa, rs, fa, dev)
     serve_out = phase_serve(fa, dev)
     family_launches, family_flash_errs = phase_families(fa, dev)
     ops_launches = phase_ops(wa, gd, ops, dev, nodes, test)
     phase_launch(dev)
-    # last: its whole-model references launch many kernels in this
+    # last: their whole-model references launch many kernels in this
     # process, after which the profiles of the phases above have lost
-    # every kernel between their ends (device_kernels)
+    # every kernel between their ends (device_kernels; after tp_serve's
+    # in F33 of PR 31, after fsdp's and tp_rec's before)
+    tp_serve_launches = phase_tp_serve(smi)
     fsdp_out = phase_fsdp(smi)
+    tp_rec_launches = phase_tp_rec(smi)
 
     for name, row in table.items():
         # each row's launches: its wrapper's count on its own wire's path
@@ -5927,6 +6594,16 @@ def main() -> int:
         tp_serve_launches["weighted_agg"]
     table["round_stats"]["launches_tp_serve"] = \
         tp_serve_launches["round_stats"]
+    # and the recurrent families per rank of the (1, 2) world: jamba's
+    # bf16 prefill on the rank's 32 of 64 heads, the f32 jamba parity
+    # cases' prefills, and the cut rwkv6 round's aggregation/statistics
+    lm_table["flash_attention"]["launches_tp_rec"] = \
+        tp_rec_launches["flash_attention"]
+    lm_table["flash_attention_f32"]["launches_tp_rec"] = \
+        tp_rec_launches["flash_attention_f32"]
+    table["weighted_agg"]["launches_tp_rec"] = \
+        tp_rec_launches["weighted_agg"]
+    table["round_stats"]["launches_tp_rec"] = tp_rec_launches["round_stats"]
     # the FSDP round's statistics at the rank's (1, n_local) block, and
     # the f32 flash kernel in the FSDP parity cases' prefills, per rank
     table["round_stats_fsdp"] = fsdp_out["round_stats_fsdp"]

@@ -14,8 +14,8 @@ backward and the recompute included) is recorded. A record holds the
 reference's keys, per device, under one of two partitions:
 
 "partition": "rank" — the families tensor-parallel execution covers
-(`models.tp.covers`: the decoder-only configs, dense or MoE, GQA / MQA
-or MLA). The step is built on `launch.mesh.make_trace_mesh` at the
+(`models.tp.covers`: the decoder-only configs of attention (GQA / MQA
+or MLA), Mamba and RWKV-6 blocks, dense or MoE). The step is built on `launch.mesh.make_trace_mesh` at the
 production shape and rank 0 ("2x32x8" as (64, 8), the pods on "data",
 as `launch.mesh.world_mesh` runs them), each argument cut to the rank's
 block (`steps.rank_blocks`), and one rank's program runs: its own ops,
@@ -41,8 +41,8 @@ nothing (`mesh.recording()`).
     the model's, "fsdp" the params' and the loss's over "data", "round"
     the round's own).
 
-"partition": "ideal" — the other families (Mamba, RWKV-6, Whisper,
-Qwen2-VL), whose one-rank program is ROADMAP Queue 1 item 13d. The step
+"partition": "ideal" — the other families (Whisper, Qwen2-VL), whose
+one-rank program is ROADMAP Queue 1 item 13d. The step
 is built on the abstract mesh and traced whole as one program; the
 arguments and outputs are per device, exact, from the specs; temp,
 flops and bytes are the whole step's (under "global") over the device

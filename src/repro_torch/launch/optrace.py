@@ -14,7 +14,13 @@ memory. From the record:
                   each convolution 2 * (output elements) * (input
                   channels a group) * (kernel elements); a
                   convolution_backward counts that once for each
-                  gradient it computes;
+                  gradient it computes; the recurrent blocks' custom
+                  ops (`models/mamba.py`'s selective scan,
+                  `models/rwkv6.py`'s chunked WKV, and their backward
+                  ops) count the products their loop form's trace
+                  counted at the same shapes: per step the scan's
+                  (R, di, n) x (R, n) product, per chunk the WKV's
+                  einsums, each backward twice its forward;
   * hbm_bytes   — operand plus result bytes of every op that is not a
                   view (views launch nothing): each eager op is one
                   kernel boundary, as a fusion is in the reference;
@@ -22,7 +28,10 @@ memory. From the record:
                   reference's keys (`COLLECTIVES`);
   * peak_bytes  — the peak of the live bytes of the storages allocated
                   inside the trace, by storage (views share one), each
-                  freed when its storage is (a weakref finalizer).
+                  freed when its storage is (a weakref finalizer); a
+                  recurrent block's op adds the workspace it holds
+                  while it runs (`mamba.scan_workspace`,
+                  `rwkv6.wkv_workspace`), on every device alike.
 
 `unknown_trip_loops` is always 0: an eager program unrolls every loop,
 so every trip is traced.
@@ -39,6 +48,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.models import mamba, rwkv6
+
 # a collective's name in the port (c10d's, `ClientMesh`'s) -> its key in
 # a record, the reference's HLO opcode (`repro/launch/hlo.py`); broadcast
 # is the port's own (XLA's partitioner emits none)
@@ -48,6 +59,8 @@ COLLECTIVES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
 _MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}  # first operand
 _COLLECTIVE_NAMES = {"allreduce": "all_reduce", "allgather": "all_gather",
                      "alltoall": "all_to_all"}
+_RECURRENT = {"selective_scan", "selective_scan_backward", "wkv_chunked",
+              "wkv_chunked_backward"}
 
 
 class Op(NamedTuple):
@@ -87,12 +100,51 @@ def op_flops(base: str, args, out) -> float:
         return _mm_flops(tuple(args[i].shape), tuple(args[i + 1].shape))
     if base == "convolution":
         return _conv_flops(tuple(args[1].shape), tuple(out.shape))
+    if base in _RECURRENT:
+        return recurrent_flops(base, args)
     if base == "convolution_backward":
         # (grad_out, input, weight, ..., output_mask): the input and
         # weight gradients each cost one forward
         per = _conv_flops(tuple(args[2].shape), tuple(args[0].shape))
         return per * sum(bool(m) for m in args[10][:2])
     return 0.0
+
+
+def _scan_shapes(args, backward: bool) -> tuple:
+    """(R, T, di, n) of a selective scan op's call (the backward's
+    operands start with the two cotangents)."""
+    r, t, di = args[2 if backward else 0].shape
+    return r, t, di, args[4 if backward else 2].shape[-1]
+
+
+def _wkv_shapes(args, backward: bool) -> tuple:
+    """(B, nC, L, H, e) of a chunked WKV op's call."""
+    return tuple(args[2 if backward else 0].shape)
+
+
+def recurrent_flops(base: str, args) -> float:
+    """The flops of a recurrent block's op: its loop form's products
+    (module docstring), 0 for any other op."""
+    if base in ("selective_scan", "selective_scan_backward"):
+        r, t, di, n = _scan_shapes(args, base != "selective_scan")
+        return 2.0 * r * t * di * n * (1 if base == "selective_scan" else 2)
+    if base in ("wkv_chunked", "wkv_chunked_backward"):
+        b, nc, l_, h, e = _wkv_shapes(args, base != "wkv_chunked")
+        per = 2.0 * b * h * nc * (2 * l_ * l_ * e + 2 * l_ * e * e + l_ * e)
+        return per * (1 if base == "wkv_chunked" else 2)
+    return 0.0
+
+
+def recurrent_workspace(base: str, args) -> int:
+    """The bytes a recurrent block's op holds while it runs beside its
+    operands and results (0 for any other op)."""
+    if base in ("selective_scan", "selective_scan_backward"):
+        back = base != "selective_scan"
+        return mamba.scan_workspace(*_scan_shapes(args, back), back)
+    if base in ("wkv_chunked", "wkv_chunked_backward"):
+        back = base != "wkv_chunked"
+        return rwkv6.wkv_workspace(*_wkv_shapes(args, back), back)
+    return 0
 
 
 def _collective(name: str) -> Optional[str]:
@@ -162,7 +214,8 @@ class OpTrace(TorchDispatchMode):
             weakref.finalize(st, self._free, key, size)
             self.live += size
             alloc += size
-        self.peak = max(self.peak, self.live)
+        work = recurrent_workspace(base, args) if base in _RECURRENT else 0
+        self.peak = max(self.peak, self.live + work)
         self.n_ops += 1
         self.flops += flops
         self.hbm_bytes += nbytes

@@ -145,8 +145,8 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, cos, sin, *,
                          k_rope_h.to(f32))
     mask = (torch.arange(t, device=x.device)[None, :]
             <= torch.arange(t, device=x.device)[:, None])
-    probs = torch.softmax(torch.where(mask, s * _scale(m),
-                                      torch.full_like(s, NEG_INF)), dim=-1)
+    probs = torch.softmax(torch.where(mask, s * _scale(m), NEG_INF),
+                          dim=-1)
     out = torch.einsum("bhts,bshe->bthe", probs, v.to(f32))
     y = _out(out.reshape(b, t, H * m.v_head_dim).to(x.dtype), p["wo"], cfg,
              local)
@@ -197,9 +197,7 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     valid = torch.arange(lo, lo + s_loc, device=x.device) <= pos
     if tp.seq_over_data() is None:
         probs = torch.softmax(torch.where(valid[None, None, None, :],
-                                          s * _scale(m),
-                                          torch.full_like(s, NEG_INF)),
-                              dim=-1)
+                                          s * _scale(m), NEG_INF), dim=-1)
         out_lat = torch.einsum("bhts,bsr->bthr", probs, ckv.to(f32))
     else:  # the ranks' blocks of the latent positions combined
         out_lat, sums = tp.combine_over_data(

@@ -15,7 +15,15 @@ Megatron-LM does (arXiv:1909.08053):
   gather_from_model(x, d)  all-gather along dim d forward (a projection
                            whose blocks do not hold whole heads, or an
                            embedding split on its columns); this rank's
-                           slice of the cotangent backward
+                           slice of the cotangent backward. With
+                           `own_parts` each rank reads its own part of
+                           the gathered tensor (Mamba's `in_proj`,
+                           whose column blocks are not the rank's
+                           channels): the cotangent reduce-scattered
+  scatter_to_model(x, d)   reduce-scatter along dim d forward (the
+                           partial products of a row-parallel matmul,
+                           each rank keeping its block of the sum: the
+                           RWKV channel mix); all-gather backward
   max_over_model(x)        the elementwise max over "model", no gradient
                            (the detached max of a vocab-parallel
                            softmax)
@@ -90,8 +98,8 @@ DATA_AXES = ("data",)
 SCOPE = "tp"
 FSDP_SCOPE = "fsdp"
 UNSUPPORTED = ("ROADMAP Queue 1 item 13d: tensor-parallel execution of "
-               "this family (Mamba, RWKV-6, Whisper's encoder and "
-               "cross-attention, Qwen2-VL's vision prefix and M-RoPE)")
+               "this family (Whisper's encoder and cross-attention, "
+               "Qwen2-VL's vision prefix and M-RoPE)")
 
 
 class _Scope(NamedTuple):
@@ -186,11 +194,12 @@ def split(local: int, whole: int) -> int:
 def covers(cfg) -> bool:
     """Whether tensor-parallel execution covers `cfg`'s family, in
     training and in serving alike: the decoder-only configs of attention
-    blocks, GQA / MQA or MLA, each with a dense or MoE FFN."""
-    return (cfg.ssm is None and cfg.rwkv is None
-            and not cfg.encoder_layers and not cfg.vision_prefix
+    (GQA / MQA or MLA), Mamba and RWKV-6 blocks, each attention or Mamba
+    block with a dense or MoE FFN."""
+    return (not cfg.encoder_layers and not cfg.vision_prefix
             and cfg.rope_style != "mrope"
-            and all(kind == "attn" for kind, _ in cfg.layer_kinds()))
+            and all(kind in ("attn", "mamba", "rwkv")
+                    for kind, _ in cfg.layer_kinds()))
 
 
 def check_supported(cfg) -> None:
@@ -202,8 +211,8 @@ def check_supported(cfg) -> None:
         return
     raise NotImplementedError(
         f"{cfg.name}: tensor-parallel execution: {UNSUPPORTED}; the "
-        "decoder-only configs (GQA / MQA or MLA, dense or MoE) run "
-        "tensor-parallel")
+        "decoder-only configs (GQA / MQA or MLA, Mamba, RWKV-6; dense or "
+        "MoE) run tensor-parallel")
 
 
 # ---------------------------------------------------- the collectives
@@ -416,13 +425,29 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
                                                  SCOPE)
 
 
-def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, dim: int, *,
+                      own_parts: bool = False) -> torch.Tensor:
     """Every model rank's x joined along `dim` in rank order; in the
-    backward this rank's slice of the cotangent."""
+    backward this rank's slice of the cotangent, which every rank holds
+    alike. With `own_parts` each rank reads a part of its own of the
+    result, so the cotangents differ: the backward sums them over
+    "model" and keeps this rank's slice (a reduce-scatter)."""
     mesh = active()
     if mesh is None:
         return x
-    return _Gather.apply(x, dim % x.dim(), mesh, MODEL_AXES, SCOPE)
+    fn = _GatherSum if own_parts else _Gather
+    return fn.apply(x, dim % x.dim(), mesh, MODEL_AXES, SCOPE)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of x summed over "model" (the
+    partial products of a row-parallel matmul of which each rank keeps
+    a block); in the backward the ranks' cotangents of their blocks
+    gathered."""
+    mesh = active()
+    if mesh is None:
+        return x
+    return _Scatter.apply(x, dim % x.dim(), mesh, MODEL_AXES, SCOPE)
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,15 @@
 `launch.mesh.make_trace_mesh`) against a real rank and against the JAX
 package's per-device program.
 
-Four steps at the smoke configs on a (2, 4) ("data", "model") mesh:
+Five steps at the smoke configs on a (2, 4) ("data", "model") mesh:
 gemma-2b's parallel train step (flat_sharded, tensor-parallel over
 "model"), deepseek-v2-lite-16b's sequential train step (FSDP over
 "data", MLA + MoE, stale angles, T = 40 so that the MoE's gathered rows
 (80) and capacity (56) are dims no other product has), gemma-2b's
 `fsdp=True` prefill (B = 4, rows over "data") and its `fsdp=True`
-decode at B = 1 (the cache's sequence on "data").
+decode at B = 1 (the cache's sequence on "data"), and
+jamba-1.5-large-398b's parallel train step (Mamba + attention + MoE
+tensor-parallel, the selective scan one op a pass).
 
 (a) One gloo world of 8 CPU ranks (`torch.multiprocessing` spawn,
     `file://` store) runs the four steps for real under
@@ -28,8 +30,9 @@ decode at B = 1 (the cache's sequence on "data").
     (`_counted`), with at most 5% left uncounted. The two collective
     histograms are printed side by side, not held equal: XLA's
     partitioner picks its own collectives.
-(c) A family tensor-parallel execution does not cover (rwkv6-smoke)
-    keeps the ideal partition, and its note names item 13d.
+(c) A family tensor-parallel execution does not cover (whisper-smoke)
+    keeps the ideal partition, and its note names item 13d; a covered
+    recurrent one (rwkv6-smoke) takes the rank partition.
 (d) A trace-mesh collective on a CPU tensor raises.
 """
 import json
@@ -59,6 +62,7 @@ CASES = {
                    {"fl_mode": "sequential", "stale": True}),
     "fsdp_prefill": ("gemma-2b", "prefill", 64, 4, {"fsdp": True}),
     "seq_decode": ("gemma-2b", "decode", 130, 1, {"fsdp": True}),
+    "jamba_tp_train": ("jamba-1.5-large-398b", "train", 64, 4, {}),
 }
 DECODE_POS = 5
 
@@ -401,11 +405,21 @@ def test_record_flops_equal_the_jax_per_device_hlo(worlds, case):
 def test_uncovered_family_keeps_the_ideal_partition():
     from repro_torch.launch import dryrun
 
-    rec = dryrun.run_one("rwkv6-3b-smoke", "decode_32k", verbose=False)
+    rec = dryrun.run_one("whisper-small-smoke", "decode_32k", verbose=False)
     assert rec["partition"] == "ideal" and rec["collectives"] == {}
     assert "item 13d" in rec["collectives_note"]
     assert rec["memory"]["temp_bytes"] == (
         rec["global"]["temp_bytes"] // rec["devices"])
+
+
+def test_recurrent_family_takes_the_rank_partition():
+    """RWKV-6 is covered: its record is rank 0's program, with its "tp"
+    collectives (the WKV state's heads on "model")."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_one("rwkv6-3b-smoke", "decode_32k", verbose=False)
+    assert rec["partition"] == "rank"
+    assert rec["collectives"]["by_scope"]["tp"]["count"] > 0
 
 
 @pytest.mark.parametrize("op", ["all_reduce", "all_gather",

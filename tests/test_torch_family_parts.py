@@ -160,7 +160,7 @@ def test_rwkv_wkv_and_time_mix_decode_match_jax():
     u = rng.normal(size=(H, e)).astype(np.float32)
     s0 = rng.normal(size=(2, H, e, e)).astype(np.float32)
     wout, ws = jrwkv._wkv_chunked(*map(jnp.asarray, (r, k, v, logw, u, s0)))
-    out, s = trwkv._wkv_chunked(*map(torch.from_numpy,
+    out, s = trwkv.wkv_chunked(*map(torch.from_numpy,
                                      (r, k, v, logw, u, s0)))
     _close(out, wout, "wkv out")
     _close(s, ws, "wkv state")

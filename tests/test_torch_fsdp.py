@@ -13,20 +13,28 @@ both axes. Held at 1e-5:
   fl_mode="sequential")`'s fn (K = 16 clients, B = 2 rows each, T = 64)
   on this rank's blocks and this data index's rows, against the JAX
   package's sequential round (`make_round_fn(..., FLConfig(mode=
-  "sequential"))`) jitted on the whole model: params, prev_delta, the
+  "sequential"))`) jitted on the whole model (the recurrent families
+  at `RECURRENT_TOL`): params, prev_delta, the
   smoothed angles, loss, theta, weights, divergence. The smoke configs
   of gemma-2b on every mesh (B = 2 splits over 2 data ranks and is
-  replicated over 4 and 8), minitron-4b and deepseek-v2-lite-16b
-  (MLA + MoE); `stale_angles`, fedavg and `angle_filter="dense_only"`
-  cases.
+  replicated over 4 and 8), minitron-4b, deepseek-v2-lite-16b
+  (MLA + MoE), rwkv6-3b (the WKV on each rank's heads) and
+  jamba-1.5-large-398b cut to one Mamba and one attention layer (the
+  selective scan and its backward on each rank's d_inner channels;
+  the whole smoke config's sequential round takes the JAX package
+  minutes to compile); `stale_angles`, fedavg and
+  `angle_filter="dense_only"` cases.
 * **Serving.** `build_prefill_step` / `build_decode_step` with
   `fsdp=True`: the prefill's last logits and 3 decode steps' logits
   against the JAX package's unsharded `forward(mode="prefill")` and
   `decode_step`, for gemma-2b at B = 4 and at B = 1 (the cache's
   sequence on "data", its block edge at position 65, which the decode
   steps cross), gemma-2b with a sliding window of 24 at B = 1 (the
-  ring wraps, and its slots cross the ranks' blocks), and
-  deepseek-v2-lite-16b at B = 4 and B = 1 (the MLA latents on "data").
+  ring wraps, and its slots cross the ranks' blocks),
+  deepseek-v2-lite-16b at B = 4 and B = 1 (the MLA latents on "data"),
+  jamba-1.5-large-398b at B = 4 (Mamba's state replicated over "data"
+  where the rows are, its attention cache's sequence on "data") and
+  rwkv6-3b at B = 1 (the WKV state replicated over "data").
 
 Also held: the ranks bit for bit (every rank's round; the ranks of a
 data index's logits); every param, prev_delta and cache leaf of its
@@ -61,8 +69,10 @@ TOL = 1e-5
 T = 64
 K = 16  # the step builder's clients a sequential round
 GLOBAL_B = 2 * K  # B = 2 rows a client: split over 2 data ranks only
-ARCHS = ("gemma-2b", "minitron-4b", "deepseek-v2-lite-16b")
-# case -> (config, mesh, build_train_step keywords)
+ARCHS = ("gemma-2b", "minitron-4b", "deepseek-v2-lite-16b", "rwkv6-3b",
+         "jamba-1.5-large-398b")
+# case -> (config, mesh, build_train_step keywords; "changes" cuts the
+# config, whose init is then the case's own)
 # (the rows split over "data" on 2x4, are replicated on 8x1 and 4x2;
 # 1x8 has no data axis)
 ROUND_CASES = {
@@ -73,6 +83,10 @@ ROUND_CASES = {
     "minitron-4b/4x2/fedavg": ("minitron-4b", "4x2", {"method": "fedavg"}),
     "deepseek-v2-lite-16b/2x4/dense_only": (
         "deepseek-v2-lite-16b", "2x4", {"angle_filter": "dense_only"}),
+    "rwkv6-3b/2x4": ("rwkv6-3b", "2x4", {}),
+    "jamba-1.5-large-398b/2x4": (
+        "jamba-1.5-large-398b", "2x4",
+        {"changes": {"num_layers": 2, "block_pattern": ("mamba", "attn")}}),
 }
 METRIC_KEYS = ("loss", "theta", "weights", "divergence")
 # serving: case -> (config, its changes, B)
@@ -82,18 +96,41 @@ SERVE_CASES = {
     "gemma-2b-swa/B1": ("gemma-2b", {"sliding_window": 24}, 1),
     "deepseek-v2-lite-16b/B4": ("deepseek-v2-lite-16b", {}, 4),
     "deepseek-v2-lite-16b/B1": ("deepseek-v2-lite-16b", {}, 1),
+    "jamba-1.5-large-398b/B4": ("jamba-1.5-large-398b", {}, 4),
+    "rwkv6-3b/B1": ("rwkv6-3b", {}, 1),
 }
 STEPS = 3
 EDGE = 65  # a rank's positions of a cache split over "data"
+# the recurrent families, (serving, the round): the port's whole model
+# already differs from the JAX package's by up to 1.9e-5 in jamba's and
+# 1.4e-5 in rwkv6's smoke logits (scale 3.8 / 3.4), and by 1.1e-4 in
+# rwkv6's sequential round's angles (whose first WKV positions pass the
+# group norm at a variance far below its 1e-6 epsilon)
+RECURRENT_TOL = {"jamba-1.5-large-398b": (5e-5, TOL),
+                 "rwkv6-3b": (5e-5, 5e-4)}
 SERVE_MESHES = ("8x1", "2x4", "4x2")  # every mesh with a data axis
 
 
 def case_seed(case):
-    return 3 + sorted(ROUND_CASES).index(case)
+    """A round case's seed: its place in name order, the cut configs'
+    cases after the others."""
+    return 3 + sorted(ROUND_CASES, key=lambda c: (
+        "changes" in ROUND_CASES[c][2], c)).index(case)
 
 
 def arch_seed(arch):
     return 11 + ARCHS.index(arch)
+
+
+def round_case(case):
+    """(config, its changes, mesh, build_train_step keywords) of a round
+    case, and the key of its init: the config's, or the case's own for
+    a cut config (no config's key is a prefix of it)."""
+    arch, mname, kw = ROUND_CASES[case]
+    kw = dict(kw)
+    changes = kw.pop("changes", None)
+    return arch, changes, mname, kw, (case.replace("/", ":") if changes
+                                      else arch)
 
 
 def cache_len(mname):
@@ -169,12 +206,18 @@ def jax_main(out_dir):
 
     inits = {arch: jax.tree.map(np.asarray, jtr.init_params(
         jax.random.key(arch_seed(arch)), _jax_cfg(arch))) for arch in ARCHS}
+    for case in ROUND_CASES:
+        arch, changes, _, _, init_key = round_case(case)
+        if init_key not in inits:
+            inits[init_key] = jax.tree.map(np.asarray, jtr.init_params(
+                jax.random.key(arch_seed(arch)), _jax_cfg(arch, changes)))
     tpt._save(os.path.join(out_dir, "params.npz"), {
         k: v for arch, tree in inits.items()
         for k, v in tpt._flat_paths(arch, tree).items()})
     res = {}
-    for case, (arch, _, kw) in ROUND_CASES.items():
-        cfg = _jax_cfg(arch)
+    for case in ROUND_CASES:
+        arch, changes, _, kw, init_key = round_case(case)
+        cfg = _jax_cfg(arch, changes)
         fc = jfl.FLConfig(num_clients=K, clients_per_round=K, local_steps=1,
                           method=kw.get("method", "fedadp"),
                           mode="sequential",
@@ -183,12 +226,13 @@ def jax_main(out_dir):
                 if kw.get("angle_filter") == "dense_only" else None)
         rf = jax.jit(jfl.make_round_fn(
             lambda p, bt, cfg=cfg: jtr.loss_fn(p, cfg, bt), fc, None, pred))
-        st = jfl.init_round_state(fc, jax.tree.map(jnp.asarray, inits[arch]))
+        st = jfl.init_round_state(fc, jax.tree.map(jnp.asarray,
+                                                   inits[init_key]))
         sm0, cnt0 = angle0()
         st = st._replace(
             angle=AngleState(jnp.asarray(sm0), jnp.asarray(cnt0)),
             prev_delta=jax.tree.map(jnp.asarray,
-                                    prev_delta0(inits[arch], case)))
+                                    prev_delta0(inits[init_key], case)))
         st, m = rf(st, {"tokens": jnp.asarray(round_tokens(
             case, cfg.vocab_size))}, jnp.arange(K, dtype=jnp.int32),
             jnp.asarray(sizes()))
@@ -288,8 +332,8 @@ def _port_round(case, mesh, params_np):
     from repro_torch.launch import steps
     from repro_torch.models import sharding
 
-    arch, _, kw = ROUND_CASES[case]
-    cfg = port_cfg(arch)
+    arch, changes, _, kw, _ = round_case(case)
+    cfg = port_cfg(arch, changes)
     fn, args, in_specs, _, meta = steps.build_train_step(
         cfg, mesh, shapes.InputShape("train", T, GLOBAL_B, "train"),
         fl_mode="sequential", **kw)
@@ -415,9 +459,10 @@ def _port_worker(rank, init_file, out_dir):
         res = {f"reduce_scatter_ok/{name}": np.asarray(
             _reduce_scatter_check(mesh)) for name, mesh in meshes.items()}
         inits = tpt._load_when_written(os.path.join(out_dir, "params.npz"))
-        for case, (arch, mname, _) in ROUND_CASES.items():
+        for case in ROUND_CASES:
+            _, _, mname, _, init_key = round_case(case)
             res.update(_port_round(case, meshes[mname],
-                                   tpt._nested(inits, arch)))
+                                   tpt._nested(inits, init_key)))
         for case, (arch, _, _) in SERVE_CASES.items():
             for mname in SERVE_MESHES:
                 res.update(_port_serve(case, mname, meshes[mname],
@@ -457,10 +502,10 @@ def worlds():
     return port, jx
 
 
-def _close(got, want, msg):
+def _close(got, want, msg, tol=TOL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (msg, got.shape, want.shape)
-    bad = np.abs(got - want) > TOL + TOL * np.abs(want)
+    bad = np.abs(got - want) > tol + tol * np.abs(want)
     assert not bad.any(), (f"{msg}: {int(bad.sum())} of {bad.size} off, "
                            f"worst {np.max(np.abs(got - want))}")
 
@@ -473,13 +518,14 @@ def test_fsdp_sequential_round_matches_the_jax_round(worlds, case):
     port, jx = worlds
     p = port[0]
     prefix = f"round/{case}"
+    tol = RECURRENT_TOL.get(ROUND_CASES[case][0], (TOL, TOL))[1]
     for key in ("params", "prev_delta", "angle"):
         _close(p[f"{prefix}/{key}"], jx[f"{prefix}/{key}"],
-               f"{prefix} {key}")
+               f"{prefix} {key}", tol)
     assert np.array_equal(p[f"{prefix}/count"], jx[f"{prefix}/count"])
     for key in METRIC_KEYS:
         _close(p[f"{prefix}/m/{key}"], jx[f"{prefix}/m/{key}"],
-               f"{prefix} {key}")
+               f"{prefix} {key}", tol)
 
 
 @pytest.mark.parametrize("case", list(ROUND_CASES))
@@ -505,16 +551,19 @@ def test_fsdp_round_ranks_agree_and_stay_in_blocks(worlds, case):
 def test_fsdp_prefill_and_decode_match_the_jax_model(worlds, case, mname):
     port, jx = worlds
     prefix = f"serve/{case}/{mname}"
+    arch, changes, b = SERVE_CASES[case]
+    tol = RECURRENT_TOL.get(arch, (TOL, TOL))[0]
+    attention = any(kind == "attn" for kind, _ in
+                    port_cfg(arch, changes).layer_kinds())
     for r, p in enumerate(port):
         rows = p[f"{prefix}/rows"]
         _close(p[f"{prefix}/logits"], jx[f"serve/{case}"][rows],
-               f"rank {r} {prefix}")
+               f"rank {r} {prefix}", tol)
         assert p[f"{prefix}/shapes_ok"], f"rank {r} {prefix}"
-        # a batch that does not split over "data" puts the cache's
-        # sequence there
-        b = SERVE_CASES[case][2]
+        # a batch that does not split over "data" puts the attention
+        # cache's sequence there (the recurrent state has none)
         assert bool(p[f"{prefix}/seq_on_data"]) == (
-            b % MESHES[mname][0] != 0), prefix
+            attention and b % MESHES[mname][0] != 0), prefix
 
 
 @pytest.mark.parametrize("mname", SERVE_MESHES)

@@ -16,9 +16,12 @@ from the JAX init (written first, read by the world). Held:
   and vocab 512 (tied, flash, `loss_chunk`) and deepseek-v2-lite-16b
   (MLA + MoE: E = 4 expert-parallel on M = 2 and 4, each expert's last
   dim split on M = 8; also with `angle_filter="dense_only"` on (2, 4)),
-  against the JAX package's
-  unsharded tree round jitted, over 2 rounds at 1e-5: params,
-  prev_delta, the smoothed angles, loss, theta, weights, divergence.
+  jamba-1.5-large-398b (Mamba + attention + MoE: the selective scan on
+  each rank's d_inner channels) and rwkv6-3b (the chunked WKV on each
+  rank's heads), against the JAX package's
+  unsharded tree round jitted, over 2 rounds at 1e-5 (rwkv6's second
+  at `LATER_ROUND_TOL`): params, prev_delta, the smoothed angles, loss,
+  theta, weights, divergence.
   Together: local heads with local K/V (G % M == 0) and with gathered
   K/V (G < M), gathered Q (H = 4 on M = 8), tied and untied heads,
   `loss_chunk` on and off. The int8 wire (gemma on (2, 4), minitron on
@@ -33,13 +36,17 @@ from the JAX init (written first, read by the world). Held:
   and tree) against the whole-model 2D round at 1e-5 on f32; on int8
   both engines of both kinds aggregate the same pinned deltas (the
   whole-model ones, cut to blocks for the tensor-parallel round), at
-  1e-5.
+  1e-5. Where a later round is held to JAX at `LATER_ROUND_TOL`
+  (rwkv6), each round of the step on every mesh against the
+  whole-model 2D round from the same state (the step's, gathered) and
+  batch, at 1e-5.
 * **Sharding.** Every rank ends with the same gathered params and
-  metrics, bit for bit; no all_gather outside the "tp" scope is as
+  metrics, bit for bit (ranks past 0 hand in a large array's digest); no all_gather outside the "tp" scope is as
   large as the smallest model-sharded block; each rank's params and
   prev_delta leaves have their `NamedSpec(mesh, spec).shard_shape`.
 * **Refusals**, in this process: NotImplementedError naming item 13d
-  for a family it leaves out (RWKV-6: the step builder and the model),
+  for a family it leaves out (Whisper: the step builder and the model;
+  RWKV-6 and Jamba build),
   and for buffered rounds, a quantized downlink and FedProx's sequential
   round with `param_specs`.
 
@@ -50,6 +57,7 @@ the host mesh with an equal `params_sha256`. Torch runs one intra-op
 thread a rank: several sum in an order that changes between processes.
 """
 import dataclasses
+import hashlib
 import os
 import shutil
 import subprocess
@@ -80,19 +88,29 @@ ARCHS = {
     "starcoder2-15b": ({}, "xla"),
     "lm": ({"loss_chunk": 24}, "flash"),
     "deepseek-v2-lite-16b": ({}, "xla"),
+    "jamba-1.5-large-398b": ({}, "xla"),
+    "rwkv6-3b": ({}, "xla"),
 }
 STEP_CASES = [(a, m) for a in ARCHS for m in MESHES]
 # build_train_step(angle_filter="dense_only"): the angles over the
 # params outside the routed experts
 DENSE_ONLY_CASES = [("deepseek-v2-lite-16b", "2x4")]
-SEED_ORDER = sorted(a for a in ARCHS if not a.startswith("deepseek")) + [
-    "deepseek-v2-lite-16b"]
+RECURRENT = ("jamba-1.5-large-398b", "rwkv6-3b")
+SEED_ORDER = sorted(a for a in ARCHS if not a.startswith("deepseek")
+                    and a not in RECURRENT) + [
+    "deepseek-v2-lite-16b", *RECURRENT]
 INT8_CASES = {"gemma-2b": "2x4", "minitron-4b": "4x2"}
 INT8_K, INT8_TAU = 4, 2
 WHOLE_CASES = [("gemma-2b", "2x4"), ("starcoder2-15b", "4x2"),
                ("gemma-2b", "1x8")]
 WHOLE_K, WHOLE_TAU = 4, 2
 FLIP_SHARE = 1e-4  # int8 elements past 1e-5, at most this share
+# rwkv6-smoke after its first round: the bonus u and w_base start at 0,
+# so each head's first WKV output has a variance far below the group
+# norm's 1e-6 epsilon, which multiplies its rounding by ~1e3; the
+# port's whole model (its loop form before the WKV op as well) is
+# 2.1e-3 off the JAX round's theta there
+LATER_ROUND_TOL = {"rwkv6-3b": 5e-3}
 METRIC_KEYS = ("loss", "theta", "weights", "divergence")
 
 
@@ -176,9 +194,17 @@ def _jax_cfg(arch):
     return dataclasses.replace(cfg, **changes)
 
 
-def jax_main(out_dir):
+JAX_PARTS = {"": lambda arch: arch not in RECURRENT,  # file suffix -> archs
+             "_recurrent": lambda arch: arch in RECURRENT}
+
+
+def jax_main(out_dir, part=""):
     """The reference's rounds: the unsharded tree round per (config, K),
-    and the int8 tree round on a device mesh; params first."""
+    and the int8 tree round on a device mesh; params first. Two
+    subprocesses run the two `JAX_PARTS` side by side, each writing
+    params{part}.npz and jax{part}.npz (the recurrent families' rounds
+    take the longest to compile)."""
+    mine = JAX_PARTS[part]
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -190,10 +216,10 @@ def jax_main(out_dir):
 
     enter = getattr(jax.sharding, "use_mesh", None) or jax.set_mesh
     inits = {}
-    for arch in ARCHS:
+    for arch in filter(mine, ARCHS):
         inits[arch] = jax.tree.map(np.asarray, jtr.init_params(
             jax.random.key(0), _jax_cfg(arch)))
-    _save(os.path.join(out_dir, "params.npz"), {
+    _save(os.path.join(out_dir, f"params{part}.npz"), {
         k: v for arch, tree in inits.items()
         for k, v in _flat_paths(arch, tree).items()})
 
@@ -249,9 +275,13 @@ def jax_main(out_dir):
 
     res = {}
     for arch, mname in STEP_CASES:
-        res.update(run(arch, client_count(mname), TAU,
-                       case_seed(arch, mname), ROUNDS,
-                       prefix=f"step/{arch}/{mname}"))
+        if mine(arch):
+            res.update(run(arch, client_count(mname), TAU,
+                           case_seed(arch, mname), ROUNDS,
+                           prefix=f"step/{arch}/{mname}"))
+    if part:  # the other cases are the main part's
+        _save(os.path.join(out_dir, f"jax{part}.npz"), res)
+        return
     for arch, mname in DENSE_ONLY_CASES:
         res.update(run(arch, client_count(mname), TAU,
                        case_seed(arch, mname) + 5, ROUNDS,
@@ -366,8 +396,26 @@ def _port_step(arch, mname, mesh, params_np, angle_filter="all"):
     prefix = f"{'dense_only' if dense_only else 'step'}/{arch}/{mname}"
     seed = case_seed(arch, mname) + (5 if dense_only else 0)
     res = {}
+    # where a later round is held to JAX at LATER_ROUND_TOL: each round
+    # also on the whole model, from the gathered state the step starts at
+    whole_rf = (tfl.make_round_fn(_loss(cfg), fc, mesh=mesh)
+                if arch in LATER_ROUND_TOL and not dense_only else None)
     for r in range(ROUNDS):
         toks = tokens(seed, r, k, TAU, b, cfg.vocab_size)
+        if whole_rf is not None:
+            whole, wm = whole_rf(st._replace(
+                params=sharding.gather_params(st.params, mesh, specs),
+                prev_delta=sharding.gather_params(st.prev_delta, mesh,
+                                                  specs)),
+                {"tokens": torch.from_numpy(toks)},
+                torch.arange(k, dtype=torch.int32),
+                torch.from_numpy(sizes_of(k)))
+            at = f"step_whole/{arch}/{mname}/r{r}"
+            res.update({f"{at}/params": _ravel(whole.params),
+                        f"{at}/prev_delta": _ravel(whole.prev_delta),
+                        f"{at}/angle": whole.angle.smoothed.numpy()})
+            res.update({f"{at}/m/{key}": wm[key].detach().numpy()
+                        for key in METRIC_KEYS})
         with mesh.recording() as log:
             st, m = fn(st, {"tokens": torch.from_numpy(toks)},
                        torch.arange(k, dtype=torch.int32),
@@ -493,7 +541,10 @@ def _port_worker(rank, init_file, out_dir):
 
         meshes = {name: make_client_mesh(device="cpu", model=shape[1])
                   for name, shape in MESHES.items()}
-        inits = _load_when_written(os.path.join(out_dir, "params.npz"))
+        inits = {}
+        for part in JAX_PARTS:
+            inits.update(_load_when_written(os.path.join(
+                out_dir, f"params{part}.npz")))
         res = {}
         for arch, mname in STEP_CASES:
             res.update(_port_step(arch, mname, meshes[mname],
@@ -512,10 +563,10 @@ def _port_worker(rank, init_file, out_dir):
         dist.destroy_process_group()
 
 
-def _start_jax(out_dir):
+def _start_jax(out_dir, part=""):
     prog = (f"import sys; sys.path.insert(0, {HERE!r}); "
             "import test_torch_tp as t; "
-            f"t.jax_main({out_dir!r})")
+            f"t.jax_main({out_dir!r}, {part!r})")
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
     return subprocess.Popen([sys.executable, "-c", prog], env=env,
@@ -539,29 +590,59 @@ def _run_world(worker, nprocs, args):
     return deadline
 
 
+DIGEST_BYTES = 1 << 16  # a larger array of a rank past 0 is kept as its digest
+
+
+def _digest(x) -> str:
+    x = np.ascontiguousarray(x)
+    digest = hashlib.sha256(x.view(np.uint8)).hexdigest()
+    return f"{x.dtype}{x.shape}:{digest}"
+
+
+def _load_rank(path, whole: bool) -> dict:
+    """A rank's results: rank 0's whole, every other rank's large arrays
+    as their digests (eight ranks' whole params do not fit beside each
+    other in the test process)."""
+    with np.load(path) as f:
+        return {k: f[k] if whole or f[k].nbytes <= DIGEST_BYTES
+                else _digest(f[k]) for k in f.files}
+
+
+def _bit_equal(got, want) -> bool:
+    """A rank's result (an array or its digest) bit for bit rank 0's."""
+    if isinstance(got, str):
+        return got == _digest(want)
+    return np.array_equal(got, want, equal_nan=True)
+
+
 @pytest.fixture(scope="module")
 def worlds():
     """(each rank's results, the JAX results)."""
     with tempfile.TemporaryDirectory() as out_dir:
-        jax_proc = _start_jax(out_dir)
+        procs = [_start_jax(out_dir, part) for part in JAX_PARTS]
         try:
             deadline = _run_world(_port_worker, WORLD, (
                 os.path.join(out_dir, "store"), out_dir))
-            _, err = jax_proc.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))
+            errs = [p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[1]
+                for p in procs]
         finally:
-            if jax_proc.poll() is None:
-                jax_proc.kill()
-        assert jax_proc.returncode == 0, err[-3000:]
-        port = [dict(np.load(os.path.join(out_dir, f"port_rank{r}.npz")))
-                for r in range(WORLD)]
-        jx = dict(np.load(os.path.join(out_dir, "jax.npz")))
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for p, err in zip(procs, errs):
+            assert p.returncode == 0, err[-3000:]
+        port = [_load_rank(os.path.join(out_dir, f"port_rank{r}.npz"),
+                           whole=r == 0) for r in range(WORLD)]
+        jx = {}
+        for part in JAX_PARTS:
+            jx.update(np.load(os.path.join(out_dir, f"jax{part}.npz")))
     return port, jx
 
 
-def _close(got, want, msg, allow=0.0):
+def _close(got, want, msg, allow=0.0, tol=TOL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    bad = np.abs(got - want) > TOL + TOL * np.abs(want) + allow
+    bad = np.abs(got - want) > tol + tol * np.abs(want) + allow
     assert not bad.any(), (f"{msg}: {int(bad.sum())} of {bad.size} off, "
                            f"worst {np.max(np.abs(got - want))}")
 
@@ -577,12 +658,28 @@ def test_tp_train_step_matches_the_jax_round(worlds, kind, arch, mname):
     p = port[0]
     for r in range(ROUNDS):
         prefix = f"{kind}/{arch}/{mname}/r{r}"
+        tol = LATER_ROUND_TOL.get(arch, TOL) if r else TOL
         for key in ("params", "prev_delta", "angle"):
             _close(p[f"{prefix}/{key}"], jx[f"{prefix}/{key}"],
-                   f"{prefix} {key}")
+                   f"{prefix} {key}", tol=tol)
         assert np.array_equal(p[f"{prefix}/count"], jx[f"{prefix}/count"])
         for key in METRIC_KEYS:
             _close(p[f"{prefix}/m/{key}"], jx[f"{prefix}/m/{key}"],
+                   f"{prefix} {key}", tol=tol)
+
+
+@pytest.mark.parametrize("arch,mname", [
+    (a, m) for a in LATER_ROUND_TOL for m in MESHES])
+def test_tp_later_round_matches_the_whole_model_round(worlds, arch, mname):
+    """Where a later round is held to JAX at LATER_ROUND_TOL, each round
+    of the tensor-parallel step equals the port's whole-model 2D round
+    from the same state (the step's, gathered) and batch at 1e-5."""
+    p = worlds[0][0]
+    for r in range(ROUNDS):
+        prefix = f"{arch}/{mname}/r{r}"
+        for key in ("params", "prev_delta", "angle") + tuple(
+                f"m/{k}" for k in METRIC_KEYS):
+            _close(p[f"step/{prefix}/{key}"], p[f"step_whole/{prefix}/{key}"],
                    f"{prefix} {key}")
 
 
@@ -636,8 +733,8 @@ def test_ranks_agree_bit_for_bit(worlds, group):
     assert keys, group
     for key in keys:
         for r in range(1, WORLD):
-            assert np.array_equal(port[r][key], port[0][key],
-                                  equal_nan=True), f"rank {r} {key}"
+            assert _bit_equal(port[r][key], port[0][key]), \
+                f"rank {r} {key}"
 
 
 @pytest.mark.parametrize("group", [
@@ -653,7 +750,9 @@ def test_state_stays_in_blocks(worlds, group):
     leaves (the region re-joins only those), and for the dense configs,
     whose replicated leaves are the norms, smaller than the smallest
     model-sharded block. DeepSeek replicates `wkv_a` and the router,
-    which are larger than its smallest block."""
+    which are larger than its smallest block; Jamba the router, and
+    its Mamba blocks' conv_b, dt_b and D of d_inner each, larger than
+    its smallest block (a block of conv_w)."""
     port, _ = worlds
     for r, p in enumerate(port):
         assert p[f"{group}/shard_shapes_ok"], f"rank {r} {group}"
@@ -661,7 +760,7 @@ def test_state_stays_in_blocks(worlds, group):
         largest = p[f"{group}/largest_gather"]
         assert largest <= p[f"{group}/replicated_share"], (
             f"rank {r} {group}: an all_gather of {largest} B outside 'tp'")
-        if "/deepseek" not in group:
+        if "/deepseek" not in group and "/jamba" not in group:
             assert largest < p[f"{group}/smallest_block"], (
                 f"rank {r} {group}: an all_gather of {largest} B outside "
                 "'tp'")
@@ -681,24 +780,40 @@ def _fake_2d_mesh():
 
 
 def test_a_moe_config_names_item_13d():
-    """A family item 13d still leaves out (RWKV-6; the MoE and MLA of
-    the DeepSeek family now train tensor-parallel): the step builder and
-    the model refuse it."""
+    """A family item 13d still leaves out (Whisper's encoder and
+    cross-attention; the MoE and MLA of the DeepSeek family, Mamba and
+    RWKV-6 now train tensor-parallel): the step builder and the model
+    refuse it."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
     from repro_torch.models import tp, transformer
 
-    cfg = registry.smoke("rwkv6-3b")
+    cfg = registry.smoke("whisper-small")
     mesh = _fake_2d_mesh()
     with pytest.raises(NotImplementedError, match="item 13d"):
         steps.build_train_step(cfg, mesh,
                                shapes.InputShape("train_4k", T, 4, "train"))
     params = transformer.init_params(None, cfg, device="meta")
     batch = {"tokens": torch.zeros((2, T), dtype=torch.int32,
-                                   device="meta")}
+                                   device="meta"),
+             "enc_embeds": torch.zeros((2, cfg.encoder_len, cfg.d_model),
+                                       device="meta")}
     with tp.scope(mesh), pytest.raises(NotImplementedError,
                                        match="item 13d"):
         transformer.loss_fn(params, cfg, batch)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_the_recurrent_families_build_their_train_step(arch):
+    """Mamba (Jamba) and RWKV-6 build the tensor-parallel train step on a
+    (2, 2) mesh; their rounds run in the world above."""
+    from repro_torch.configs import registry, shapes
+    from repro_torch.launch import steps
+
+    fn, _, _, _, meta = steps.build_train_step(
+        registry.smoke(arch), _fake_2d_mesh(),
+        shapes.InputShape("train_4k", T, 4, "train"))
+    assert callable(fn) and meta["flcfg"]["engine"] == "flat_sharded"
 
 
 @pytest.mark.parametrize("change", [
