@@ -132,8 +132,16 @@ logit gap and the greedy ids against the whole model) and
 deepseek-v2-lite-16b at full width and depth, bf16, B = 4, prompt 512,
 16 steps (the peak after init at most the blocks + 1 GB; the routing
 bit for bit across ranks; the dropped share; the last logits against
-the whole model); holds four reduced f32 configs' prefill and decode
-through the step builders to the whole model at 2e-4; trains
+the whole model), and whisper-small (1,500 encoder frames, prompt 448)
+and qwen2-vl-2b (256-patch prefix, prompt 512) at full width and depth,
+bf16, flash, B = 4, 8 steps (12 / 28 flash launches a prefill on the
+rank's 6 of 12 heads, none in decode; the "tp" collectives of a
+prefill and a decode step equal to those of the shapes, whisper's
+d_model-split embedding and head among them; prefill and decode ms and
+the peak a rank; the logit gaps to the whole model printed); holds six
+reduced f32 configs' prefill and decode, and deepseek-v2-lite, whisper
+and qwen2-vl at full width cut in depth, through the step builders to
+the whole model at 2e-4; trains
 deepseek-v2-lite at full width cut to 2 layers, f32, one round through
 the launcher, == the host mesh's round at 2e-4 with 2 + 1 FL launches
 a rank; and runs the serving launcher (gemma-2b, decode_32k, B = 4,
@@ -198,8 +206,12 @@ deepseek-v2-lite cut to 8 layers over 524,288 latent positions
 (positions across 262,144): ms a step and the logit gap to the whole
 model; (d) three reduced f32 configs with fsdp=True at B = 2 and B = 1
 == the whole model at 2e-4, every flash call held to its plain version;
-(e) the serving launcher at long_500k on the (2, 2) world; the kernel
-table's `round_stats_fsdp` row and `launches_fsdp`), and last tp_rec
+and whisper-small at full width cut to 2 + 2 layers, whose B = 1
+decode combines the ranks' partial softmaxes over both caches (the
+self-attention cache's and the cross cache's 1,500 encoder positions
+on "data"); (e) the serving launcher at long_500k on the (2, 2) world;
+the kernel table's `round_stats_fsdp` row and `launches_fsdp`), and
+last tp_rec
 (the Mamba and RWKV-6 families over the model axis: the whole models' results in this
 process, then one (1, 2) gloo world (`--mesh2d-child tp_rec`) serves
 jamba-1.5-large-398b at full width cut to one pattern group of 8 layers
@@ -210,11 +222,13 @@ both: the "tp" collectives of a prefill and a decode step equal to
 those of the shapes, prefill and decode ms and the peak a rank, the
 logit gap to the whole model printed); holds the reduced f32 configs
 and each family at full width cut to 2 layers to the whole model at
-2e-4 over a prefill and 4 decode steps; trains rwkv6-3b cut to 2
-layers, f32, one tensor-parallel round (K = 2, tau = 1, T = 256) ==
-the whole round at 2e-4 with 2 + 1 FL launches a rank; runs rwkv6-3b's
-train step at full width cut to 8 layers against the dry run's record of the rank
-(placed bytes, peak, collectives by scope); and a (2, 2) world serves
+2e-4 over a prefill and 4 decode steps; trains rwkv6-3b and
+qwen2-vl-2b (its 256-patch prefix) cut to 2 layers, f32, one
+tensor-parallel round each (K = 2, tau = 1, T = 256) == the whole round
+at 2e-4 with 2 + 1 FL launches a rank; runs the train steps of
+rwkv6-3b (4 layers), jamba (one Mamba layer) and whisper-small (full
+width and depth) against the dry run's record of the rank (placed
+bytes, peak, collectives by scope); and a (2, 2) world serves
 both families' reduced f32 configs with FSDP == the whole model at
 2e-4; the kernel table's `launches_tp_rec`)`.
 Then, on lines of their own: the kernel table as one JSON object, the card's name and
@@ -3120,7 +3134,20 @@ TPS_PARITY = (("gemma-2b", "gemma-2b", {}, False),
               ("deepseek-v2-lite-16b-q32", "deepseek-v2-lite-16b",
                {"mla": {"q_lora_rank": 32}}, False),
               ("deepseek-v2-lite-16b-full-2l", "deepseek-v2-lite-16b",
-               {"num_layers": 2, "dtype": "float32"}, True))
+               {"num_layers": 2, "dtype": "float32"}, True),
+              # the encoder-decoder and the vision prefix: the reduced
+              # configs, and each at full width cut in depth
+              ("whisper-small", "whisper-small", {"attention_impl": "flash"},
+               False),
+              ("qwen2-vl-2b", "qwen2-vl-2b", {"attention_impl": "flash"},
+               False),
+              ("whisper-small-full-2l", "whisper-small",
+               {"num_layers": 2, "encoder_layers": 2, "dtype": "float32",
+                "attention_impl": "flash"}, True,
+               "depth 12 + 12 -> 2 + 2 (encoder + decoder)"),
+              ("qwen2-vl-2b-full-2l", "qwen2-vl-2b",
+               {"num_layers": 2, "dtype": "float32",
+                "attention_impl": "flash"}, True, "depth 28 -> 2"))
 TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS = 2, 64, 4
 # one round through launch.train: deepseek-v2-lite at full width, cut
 TPS_ROUND_CUT = {"num_layers": 2, "dtype": "float32"}
@@ -3129,6 +3156,16 @@ TPS_ROUND_ARGV = ["--arch", "deepseek-v2-lite-16b", "--seq", "128",
 TPS_SERVE_ARGV = ["--arch", "gemma-2b", "--shape", "decode_32k", "--batch",
                   "4", "--seq", "4096", "--steps", "8"]
 TPS_REFS = "CHIP_SMOKE_TP_SERVE_REFS"  # env: the whole-model results' dir
+# the encoder-decoder and the vision-prefix families served at full width
+# and depth, bf16, flash: (config, its changes, the cut as printed, (B,
+# prompt, greedy steps)); whisper's prompt is its decoder's context of
+# 448, after its 1,500 encoder frames; qwen2-vl's follows its 256-patch
+# prefix
+TPS_MODELS = {
+    "whisper": ("whisper-small", {"attention_impl": "flash"},
+                "none; 1,500 encoder frames, prompt 448", (4, 448, 8)),
+    "qwen2-vl": ("qwen2-vl-2b", {"attention_impl": "flash"},
+                 "none; 256-patch prefix + prompt 512", (4, 512, 8))}
 
 
 def tps_tokens(vocab: int, b: int, t: int, seed: int) -> torch.Tensor:
@@ -3159,14 +3196,30 @@ def tps_gemma_cfg():
                                attention_impl="flash")
 
 
-def tps_last_logits(params, cfg, tokens) -> torch.Tensor:
+def tps_extras(cfg, b: int, dev, seed: int) -> dict:
+    """The stub inputs of `cfg`'s family for b rows, drawn N(0, 0.02^2)
+    from a CPU generator (the same on every process), on `dev` in the
+    config's dtype: Whisper's (b, encoder_len, d) frame embeddings,
+    Qwen2-VL's (b, P, d) patch embeddings; {} for the other families."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, n in (("enc_embeds", cfg.encoder_len if cfg.encoder_layers
+                    else 0), ("vision_embeds", cfg.vision_prefix)):
+        if n:
+            out[key] = (torch.randn((b, n, cfg.d_model), generator=g)
+                        * 0.02).to(dev, cfg.tdtype)
+    return out
+
+
+def tps_last_logits(params, cfg, tokens, extras=None) -> torch.Tensor:
     """The prefill's last-position logits (B, V), whole: inside a
-    tp.scope its vocab blocks gathered."""
+    tp.scope its vocab blocks gathered. `extras`: the stub inputs."""
     from repro_torch.models import tp, transformer
 
     with torch.no_grad():
-        logits, _, _ = transformer.forward(params, cfg, {"tokens": tokens},
-                                           mode="prefill")
+        logits, _, _ = transformer.forward(
+            params, cfg, {"tokens": tokens, **(extras or {})},
+            mode="prefill")
         return tp.gather_logits(logits[:, -1], cfg.vocab_size)
 
 
@@ -3202,18 +3255,22 @@ def tps_round(dev, extra: list) -> dict:
 
 def tps_parity_run(cfg, params, prefill, decode, i: int, dev,
                    rows=slice(None), steps: int = TPS_PARITY_STEPS):
-    """The f32 parity case i: the prefill step's last logits, then
-    `steps` of its TPS_PARITY_STEPS seeded decode tokens, (B, 1 +
-    steps, V), on the batch rows `rows`."""
+    """The f32 parity case i: the prefill step's last logits (the
+    family's seeded stub inputs beside the prompt), then `steps` of its
+    TPS_PARITY_STEPS seeded decode tokens at P + T + s, (B, 1 + steps,
+    V), on the batch rows `rows`."""
     b, t = TPS_PARITY_B, TPS_PARITY_T
     tokens = tps_tokens(cfg.vocab_size, b, t, 20 + i)[rows].to(dev)
     dec = tps_tokens(cfg.vocab_size, b, TPS_PARITY_STEPS,
                      30 + i)[rows].to(dev)
+    extras = {k: v[rows] for k, v in tps_extras(cfg, b, dev, 40 + i).items()}
+    start = cfg.vision_prefix + t
     with torch.no_grad():
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, {"tokens": tokens, **extras})
         out = [logits]
         for s_ in range(steps):
-            logits, cache = decode(params, dec[:, s_:s_ + 1], cache, t + s_)
+            logits, cache = decode(params, dec[:, s_:s_ + 1], cache,
+                                   start + s_)
             out.append(logits)
     return torch.cat(out, dim=1)
 
@@ -3236,12 +3293,13 @@ def tps_parity_steps(cfg, mesh, fsdp: bool = False):
     from repro_torch.configs import shapes
     from repro_torch.launch import steps
 
-    b, t, n = TPS_PARITY_B, TPS_PARITY_T, TPS_PARITY_STEPS
+    b, n = TPS_PARITY_B, TPS_PARITY_STEPS
+    s = cfg.vision_prefix + TPS_PARITY_T + n  # the cache's positions
     prefill = steps.build_prefill_step(
-        cfg, mesh, shapes.InputShape("prefill", t + n, b, "prefill"),
+        cfg, mesh, shapes.InputShape("prefill", s, b, "prefill"),
         fsdp=fsdp)[0]
     decode = steps.build_decode_step(
-        cfg, mesh, shapes.InputShape("decode", t + n, b, "decode"),
+        cfg, mesh, shapes.InputShape("decode", s, b, "decode"),
         fsdp=fsdp)[0]
     return prefill, decode
 
@@ -3268,9 +3326,10 @@ def tp_serve_refs(dev, out_dir: str) -> dict:
     """The whole-model results the tensor-parallel world is held to,
     each model made, run and freed in turn in this process before the
     world starts: gemma-2b's last prefill logits and greedy ids, the
-    same of deepseek-v2-lite-16b, the f32 parity cases through the step
-    builders on the host mesh, and the cut deepseek round on the host
-    mesh (its params written to `out_dir`). Returns the seconds."""
+    same of deepseek-v2-lite-16b and of TPS_MODELS (whisper-small and
+    qwen2-vl-2b on their stub inputs), the f32 parity cases through the
+    step builders on the host mesh, and the cut deepseek round on the
+    host mesh (its params written to `out_dir`). Returns the seconds."""
     from repro_torch.configs import registry
     from repro_torch.core import treemath
     from repro_torch.launch import serve
@@ -3291,6 +3350,7 @@ def tp_serve_refs(dev, out_dir: str) -> dict:
                    os.path.join(out_dir, f"{name}.pt"))
         del params, last, ids
         torch.cuda.empty_cache()
+    tps_serve_refs(TPS_MODELS, dev, out_dir)
     torch.save(tps_parity_refs(TPS_PARITY, dev),
                os.path.join(out_dir, "parity.pt"))
     res = tps_round(dev, ["--host-mesh"])
@@ -3305,19 +3365,50 @@ def tp_serve_refs(dev, out_dir: str) -> dict:
     return {"seconds": time.perf_counter() - t0}
 
 
-def tps_collectives_from_shapes(cfg, b: int, t: int) -> tuple[int, int]:
-    """(count, bytes) of the "tp" collectives of one gemma prefill step of
-    b rows of t tokens (a decode step: t = 1) on a model axis of 2 whose
-    q blocks hold whole heads and whose one KV head's head_dim is split:
-    the vocab-parallel embedding's all-reduce; per layer the all_gathers
-    of k and v (this rank's half of the head_dim) and the all-reduces
-    after wo and w_down; the last position's logits gathered."""
-    act = b * t * cfg.d_model * cfg.tdtype.itemsize
-    kv = b * t * cfg.num_kv_heads * cfg.hd // 2 * cfg.tdtype.itemsize
-    logits = b * cfg.vocab_size // 2 * cfg.tdtype.itemsize
-    layers_ = cfg.num_layers
-    return (2 + 4 * layers_,
-            act + layers_ * (2 * kv + 2 * act) + logits)
+def tps_collectives_from_shapes(cfg, b: int, t: int, m: int,
+                                decode: bool = False) -> tuple[int, int]:
+    """(count, bytes) of the "tp" collectives of one serving step of b
+    rows of t tokens (a decode step: t = 1, `decode`) on a model axis of
+    m ranks whose q blocks hold whole heads, from the shapes, each
+    collective by its input's bytes: the embedding's vocab-parallel
+    all-reduce of the (b, t, d) rows, or where no m divides the vocab
+    (whisper's 51,865) the gather of the rank's (b, t, d / m) columns; a
+    prefill's encoder layers (Whisper), each the all-reduces after `wo`
+    and `w_down` over its encoder_len frames; each decoder layer over the
+    vision prefix's and the text's positions: an attention layer's k and
+    v gathered where the KV heads do not divide over m (gemma: the
+    rank's half of the head_dim), the all-reduce after `wo` and after a
+    cross-attention's `wo` (its K and V are the rank's heads, in the
+    prefill from the encoder's output, in decode from the cache); a
+    Mamba or RWKV-6 layer's own (`mamba` / `rwkv6
+    .collectives_from_shapes`); the all-reduce after each dense FFN's
+    `w_down` or MoE's experts; at the head the last position's vocab
+    blocks gathered, or with the head split on d_model the partial
+    logits of every position all-reduced."""
+    from repro_torch.models import mamba, rwkv6
+
+    it = cfg.tdtype.itemsize
+    d, v = cfg.d_model, cfg.vocab_size
+    positions = t + (0 if decode else cfg.vision_prefix)
+    act = b * positions * d * it
+    vocab_split = v % m == 0
+    sizes = [b * t * d * it if vocab_split else b * t * d // m * it]
+    if cfg.encoder_layers and not decode:
+        sizes += [b * cfg.encoder_len * d * it] * (2 * cfg.encoder_layers)
+    for kind, _ in cfg.layer_kinds() * cfg.num_pattern_groups:
+        if kind in ("mamba", "rwkv"):
+            mod = mamba if kind == "mamba" else rwkv6
+            sizes += [math.prod(shape) * it for _, shape in
+                      mod.collectives_from_shapes(cfg, b, positions, m)]
+        else:
+            if cfg.mla is None and cfg.num_kv_heads % m:
+                sizes += [b * positions * cfg.num_kv_heads * cfg.hd // m
+                          * it] * 2
+            sizes += [act] * (2 if cfg.encoder_layers else 1)  # wo, cross
+        if kind != "rwkv":
+            sizes.append(act)  # w_down, or the MoE's experts
+    sizes.append(b * v // m * it if vocab_split else b * positions * v * it)
+    return len(sizes), sum(sizes)
 
 
 def tps_flash_spy(fa, calls: list, tol: float):
@@ -3424,8 +3515,10 @@ def tps_gemma(mesh, dev) -> dict:
                        sum(c.nbytes for c in plog if c.scope == "tp")],
         "tp_decode": [sum(c.scope == "tp" for c in dlog),
                       sum(c.nbytes for c in dlog if c.scope == "tp")],
-        "want_tp_prefill": tps_collectives_from_shapes(cfg, b, t),
-        "want_tp_decode": tps_collectives_from_shapes(cfg, b, 1),
+        "want_tp_prefill": tps_collectives_from_shapes(
+            cfg, b, t, mesh.model_size),
+        "want_tp_decode": tps_collectives_from_shapes(
+            cfg, b, 1, mesh.model_size, decode=True),
         "other_collectives": sum(c.scope != "tp" for c in plog + dlog),
         "logit_gap": float((last - ref["last"]).abs().max()),
         "logit_scale": float(ref["last"].abs().max()),
@@ -3609,12 +3702,15 @@ def tps_serve_cli(dev) -> dict:
 
 def tp_serve(mesh, dev, rank: int) -> dict:
     """One rank of the tensor-parallel serving world: (b) deepseek-v2-lite
-    first (the largest blocks), then (a) gemma-2b, (c) the f32 parity
-    cases, (d) the cut deepseek round and (e) the serving CLI."""
+    first (the largest blocks), then (a) gemma-2b, (f) whisper-small and
+    qwen2-vl-2b (`tps_serve`), (c) the f32 parity cases, (d) the cut
+    deepseek round and (e) the serving CLI."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     out = {"deepseek": tps_deepseek(mesh, dev),
            "gemma": tps_gemma(mesh, dev),
+           **{key: tps_serve(TPS_MODELS, key, mesh, dev,
+                             os.environ[TPS_REFS]) for key in TPS_MODELS},
            "parity": tps_parity(mesh, dev),
            "round": tps_round_child(mesh, dev),
            "serve_cli": tps_serve_cli(dev)}
@@ -3626,10 +3722,12 @@ def check_tp_serve(results: list) -> dict:
     launches a prefill, each on the rank's heads, the "tp" collectives
     of the shapes; (b) the peak after init within the block bytes +
     INIT_SLACK; (c) every parity case within PARITY_TOL; (d) 2 + 1 FL
-    launches and the round within PARITY_TOL. Returns the line's part."""
+    launches and the round within PARITY_TOL; (f) whisper-small's and
+    qwen2-vl-2b's flash launches (12 / 28 a prefill, none in decode) and
+    "tp" collectives (`tps_serve_failures`). Returns the line's part."""
     r0 = results[0]
     g0, d0 = r0["gemma"], r0["deepseek"]
-    bad = []
+    bad = tps_serve_failures(results, TPS_MODELS)
     for r, res in enumerate(results):
         g, d, rd = res["gemma"], res["deepseek"], res["round"]
         checks = {
@@ -3694,6 +3792,7 @@ def check_tp_serve(results: list) -> dict:
                      "peak_after_init_per_rank": [
                          r["deepseek"]["peak_after_init"] for r in results],
                      "routing_bit_equal": True},
+        **tps_serve_summary(results, TPS_MODELS),
         "parity": r0["parity"],
         "round": {**r0["round"],
                   "excess_per_rank": [r["round"]["excess"]
@@ -3706,9 +3805,10 @@ def check_tp_serve(results: list) -> dict:
 
 
 def phase_tp_serve(smi: str) -> dict:
-    """Tensor-parallel serving and the DeepSeek family over "model": the
+    """Tensor-parallel serving, the DeepSeek family and the
+    encoder-decoder and vision-prefix families over "model": the
     whole-model references in this process (each freed before the world
-    starts), then one (1, 2) gloo world on this card runs (a)-(e)
+    starts), then one (1, 2) gloo world on this card runs (a)-(f)
     (`tp_serve`), and a (1, 2) NCCL world across two cards where two or
     more are visible. Returns rank 0's launches of the slice's kernels
     on the gloo world."""
@@ -3717,7 +3817,9 @@ def phase_tp_serve(smi: str) -> dict:
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     out = {"phase": "tp_serve", "card": smi, "note": MESH2D_CARD_NOTE,
-           "mesh": list(TPS_SHAPE)}
+           "mesh": list(TPS_SHAPE),
+           "cuts": {**{k: v[2] for k, v in TPS_MODELS.items()},
+                    **{c[0]: c[4] for c in TPS_PARITY if len(c) > 4}}}
     cards = torch.cuda.device_count()
     with tempfile.TemporaryDirectory() as refs:
         out["whole_model_refs"] = tp_serve_refs(dev, refs)
@@ -3740,8 +3842,10 @@ def phase_tp_serve(smi: str) -> dict:
     emit(out)
     r0 = results[0]
     return {"flash_attention": r0["gemma"]["flash_launches"],
-            "flash_attention_f32":
-                r0["parity"]["minitron-4b-flash"]["flash_launches"],
+            "flash_attention_families": {
+                TPS_MODELS[k][0]: r0[k]["flash_launches"] for k in TPS_MODELS},
+            "flash_attention_f32": sum(
+                c["flash_launches"] for c in r0["parity"].values()),
             **r0["round"]["launches"]}
 
 
@@ -3751,14 +3855,15 @@ TPR_SHAPE = (1, 2)  # a gloo world of two ranks on this card
 TPR_FSDP_SHAPE = (2, 2)  # four ranks: params over "data" too
 TPR_TIMEOUT = 600  # seconds a world may take
 TPR_SERVE = (4, 512, 16)  # B, prompt, greedy steps: bf16
-# serving at full width: jamba cut as the families phase cuts it
+# serving at full width (as TPS_MODELS): jamba cut as the families phase
+# cuts it
 TPR_MODELS = {
     "jamba": ("jamba-1.5-large-398b",
               {"num_layers": 8, "moe": {"num_experts": 4},
                "attention_impl": "flash"},
               "depth 72 -> 8 (one pattern group); experts 16 -> 4, top-2 "
-              "kept"),
-    "rwkv6": ("rwkv6-3b", {}, "none")}
+              "kept", TPR_SERVE),
+    "rwkv6": ("rwkv6-3b", {}, "none", TPR_SERVE)}
 # the served families whose whole model also runs in f32 on the same
 # prompt: the bf16 logits' gaps to it, whole and tensor-parallel, tell
 # bf16 rounding from a fault of the tensor-parallel path
@@ -3783,9 +3888,11 @@ TPR_FSDP = ("jamba-full-2l", "rwkv6-full-2l")  # also run FSDP on (2, 2)
 # step gathers the full-width groups over "data" through gloo (with all
 # 4 the world took 90.5 s, 65 s more than at the smoke size)
 TPR_FSDP_STEPS = 1
-# one tensor-parallel round through make_round_fn(param_specs=): rwkv6-3b
-# at full width cut to 2 layers, f32; K, tau, B, T
+# tensor-parallel rounds through make_round_fn(param_specs=): rwkv6-3b
+# and qwen2-vl-2b (its 256-patch prefix before the T tokens) at full
+# width cut to 2 layers, f32; K, tau, B, T
 TPR_ROUND_CUT = {"num_layers": 2, "dtype": "float32"}
+TPR_ROUNDS = {"rwkv6": "rwkv6-3b", "qwen2-vl": "qwen2-vl-2b"}
 TPR_ROUND = (2, 1, 1, 256)
 # the train steps traced by the dry run and run on the card, bf16, T
 # and global B: rwkv6-3b at full width cut to 4 layers (8 until the
@@ -3797,7 +3904,10 @@ TPR_ROUND = (2, 1, 1, 256)
 TPR_RECORDS = {
     "rwkv6": ("rwkv6-3b", {"num_layers": 4}, 512, 2),
     "jamba": ("jamba-1.5-large-398b",
-              {"num_layers": 1, "block_pattern": ("mamba",)}, 512, 2)}
+              {"num_layers": 1, "block_pattern": ("mamba",)}, 512, 2),
+    # whisper-small at full width and depth: its encoder over 1,500
+    # frames and the cross-attention in every decoder layer
+    "whisper": ("whisper-small", {}, 448, 2)}
 TPR_AB_REPS = 3  # timed runs of each scan form
 TPR_REFS = "CHIP_SMOKE_TP_REC_REFS"  # env: the whole-model results' dir
 
@@ -3809,33 +3919,6 @@ def tpr_cfg(name: str, changes: dict):
     return with_changes(registry.get(name), changes)
 
 
-def tpr_collectives_from_shapes(cfg, b: int, t: int,
-                                m: int) -> tuple[int, int]:
-    """(count, bytes) of the "tp" collectives of one prefill step of b
-    rows of t tokens (a decode step: t = 1) on a model axis of m ranks
-    that holds whole heads, d_inner blocks and whole experts: the
-    vocab-parallel embedding's all-reduce; each Mamba and RWKV-6 layer's
-    own (`mamba` / `rwkv6.collectives_from_shapes`); the all-reduces
-    after an attention layer's wo and after each dense FFN's w_down or
-    expert-parallel MoE; the last position's logits gathered."""
-    from repro_torch.models import mamba, rwkv6
-
-    it = cfg.tdtype.itemsize
-    act = b * t * cfg.d_model * it
-    sizes = [act]
-    for kind, _ in cfg.layer_kinds() * cfg.num_pattern_groups:
-        if kind in ("mamba", "rwkv"):
-            mod = mamba if kind == "mamba" else rwkv6
-            sizes += [math.prod(shape) * it for _, shape in
-                      mod.collectives_from_shapes(cfg, b, t, m)]
-        else:
-            sizes.append(act)  # wo
-        if kind != "rwkv":
-            sizes.append(act)  # w_down, or the MoE's experts
-    sizes.append(b * cfg.vocab_size // m * it)
-    return len(sizes), sum(sizes)
-
-
 def tpr_routing_sha(routing: list) -> str:
     h = hashlib.sha256()
     for call in routing:
@@ -3845,8 +3928,9 @@ def tpr_routing_sha(routing: list) -> str:
     return h.hexdigest()
 
 
-def tpr_round(dev, mesh=None) -> dict:
-    """One round of TPR_ROUND on rwkv6-3b cut to TPR_ROUND_CUT: through
+def tpr_round(dev, key: str, mesh=None) -> dict:
+    """One round of TPR_ROUND on TPR_ROUNDS[key] cut to TPR_ROUND_CUT
+    (each client's rows with the family's seeded stub inputs): through
     `make_round_fn(..., mesh=, param_specs=)` on this rank's blocks
     (flat_sharded), or whole on the flat engine without a mesh; its FL
     launches, params, specs and loss."""
@@ -3856,7 +3940,7 @@ def tpr_round(dev, mesh=None) -> dict:
     from repro_torch.kernels import weighted_agg as wa
     from repro_torch.models import sharding, transformer
 
-    cfg = tpr_cfg("rwkv6-3b", TPR_ROUND_CUT)
+    cfg = tpr_cfg(TPR_ROUNDS[key], TPR_ROUND_CUT)
     k, tau, b, t = TPR_ROUND
     flcfg = repro_torch.FLConfig(
         num_clients=k, clients_per_round=k, local_steps=tau,
@@ -3872,7 +3956,9 @@ def tpr_round(dev, mesh=None) -> dict:
                                      param_specs=specs))
     state = repro_torch.init_round_state(flcfg, tps_init(cfg, dev, mesh))
     batch = {"tokens": tps_tokens(cfg.vocab_size, k * tau * b, t, 45)
-             .reshape(k, tau, b, t).to(dev, torch.int32)}
+             .reshape(k, tau, b, t).to(dev, torch.int32),
+             **{name: x.reshape((k, tau, b) + x.shape[1:]) for name, x in
+                tps_extras(cfg, k * tau * b, dev, 46).items()}}
     wa.weighted_agg.launches = rs.round_stats.launches = 0
     t0 = time.perf_counter()
     state, metrics = round_fn(state, batch,
@@ -3886,51 +3972,65 @@ def tpr_round(dev, mesh=None) -> dict:
                          "round_stats": rs.round_stats.launches}}
 
 
-def tpr_refs(dev, out_dir: str) -> dict:
-    """The whole-model results the worlds are held to, each model made,
-    run and freed in turn in this process: each served model's last
-    prefill logits, greedy ids and MoE routing (and for TPR_F32_WITNESS
-    its f32 whole model's last logits on the same prompt), the f32
-    parity cases through the step builders on the host mesh, and the
-    cut rwkv6 round's params and loss. Returns the seconds and the
-    witnesses' whole bf16 - f32 gaps."""
-    from repro_torch.core import treemath
+def tps_serve_refs(models: dict, dev, out_dir: str,
+                   witness: tuple = ()) -> dict:
+    """For each served model of `models` (TPS_MODELS' form), made, run and
+    freed in turn in this process: its last prefill logits, greedy ids
+    and MoE routing on the seeded prompt and stub inputs, written to
+    `out_dir`; for a key in `witness` also its f32 whole model's last
+    logits on the same prompt. Returns those keys' whole bf16 - f32
+    gaps."""
     from repro_torch.launch import serve
     from repro_torch.models import moe
 
-    t0 = time.perf_counter()
-    b, t, n = TPR_SERVE
     gaps = {}
-    for key, (name, changes, _) in TPR_MODELS.items():
+    for key, (name, changes, _, (b, t, n)) in models.items():
         cfg = tpr_cfg(name, changes)
         params = tps_init(cfg, dev)
         tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+        extras = tps_extras(cfg, b, dev, 12)
         with moe.record_routing() as routing:
-            last = tps_last_logits(params, cfg, tokens).float().cpu()
-        ids = serve.generate(params, cfg, tokens, n)
+            last = tps_last_logits(params, cfg, tokens, extras).float().cpu()
+        ids = serve.generate(params, cfg, tokens, n, extras=extras)
         ref = {"last": last, "ids": ids.cpu(),
                "routing": tpr_routing_sha(routing)}
         del params, ids
         torch.cuda.empty_cache()
-        if key in TPR_F32_WITNESS:
+        if key in witness:
             cfg32 = tpr_cfg(name, {**changes, "dtype": "float32"})
             params = tps_init(cfg32, dev)
-            ref["last_f32"] = tps_last_logits(params, cfg32, tokens).cpu()
+            ref["last_f32"] = tps_last_logits(
+                params, cfg32, tokens, tps_extras(cfg32, b, dev, 12)).cpu()
             gaps[key] = float((last - ref["last_f32"]).abs().max())
             del params
             torch.cuda.empty_cache()
         torch.save(ref, os.path.join(out_dir, f"{key}.pt"))
+    return gaps
+
+
+def tpr_refs(dev, out_dir: str) -> dict:
+    """The whole-model results the worlds are held to, each model made,
+    run and freed in turn in this process: the served models'
+    (`tps_serve_refs`, rwkv6 with its f32 witness), the f32 parity cases
+    through the step builders on the host mesh, and each TPR_ROUNDS
+    round's params and loss. Returns the seconds and the witnesses'
+    whole bf16 - f32 gaps."""
+    from repro_torch.core import treemath
+
+    t0 = time.perf_counter()
+    gaps = tps_serve_refs(TPR_MODELS, dev, out_dir, TPR_F32_WITNESS)
     torch.save(tps_parity_refs(TPR_PARITY, dev),
                os.path.join(out_dir, "parity.pt"))
-    res = tpr_round(dev)
-    torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
-        treemath.tree_paths(res["params"]),
-        treemath.tree_leaves(res["params"]))},
-        os.path.join(out_dir, "round.pt"))
-    torch.save({"loss": res["loss"], "ms": res["ms"]},
-               os.path.join(out_dir, "round_loss.pt"))
-    del res
-    torch.cuda.empty_cache()
+    for key in TPR_ROUNDS:
+        res = tpr_round(dev, key)
+        torch.save({"/".join(p): x.detach().cpu() for p, x in zip(
+            treemath.tree_paths(res["params"]),
+            treemath.tree_leaves(res["params"]))},
+            os.path.join(out_dir, f"round_{key}.pt"))
+        torch.save({"loss": res["loss"], "ms": res["ms"]},
+                   os.path.join(out_dir, f"round_loss_{key}.pt"))
+        del res
+        torch.cuda.empty_cache()
     return {"seconds": time.perf_counter() - t0,
             "whole_bf16_vs_f32_gap": gaps}
 
@@ -4029,31 +4129,33 @@ def tpr_scan_ab(dev) -> dict:
     return out
 
 
-def tpr_serve(key: str, mesh, dev) -> dict:
-    """(a) / (b): a family at full width (TPR_MODELS' cut), bf16, in this
-    rank's blocks: generate under a scope (decode ms a step, the peak),
-    the flash launches of the counted run and each flash call of the
-    warm-up on the rank's heads against its plain version, the MoE
-    routing's digest; one prefill and one decode step through the step
-    builders: their "tp" collectives against the shapes', the prefill's
-    ms, and its last logits' gap to the whole model's (printed, not
-    held), and for TPR_F32_WITNESS to the f32 whole model's."""
+def tps_serve(models: dict, key: str, mesh, dev, refs: str) -> dict:
+    """A family at full width (`models[key]`, TPS_MODELS' form), bf16, in
+    this rank's blocks, on its seeded prompt and stub inputs: generate
+    under a scope (decode ms a step, the peak), the flash launches of
+    the counted run and each flash call of the warm-up on the rank's
+    heads against its plain version, the MoE routing's digest; one
+    prefill and one decode step (at P + T) through the step builders:
+    their "tp" collectives against the shapes'
+    (`tps_collectives_from_shapes`), the prefill's ms, and its last
+    logits' gap to the whole model's in `refs` (printed, not held), and
+    where the whole model has an f32 witness to that too."""
     from repro_torch.configs import shapes
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import serve, steps
     from repro_torch.models import moe, tp
 
-    name, changes, cut = TPR_MODELS[key]
+    name, changes, cut, (b, t, n) = models[key]
     cfg = tpr_cfg(name, changes)
-    b, t, n = TPR_SERVE
-    ref = torch.load(os.path.join(os.environ[TPR_REFS], f"{key}.pt"))
+    ref = torch.load(os.path.join(refs, f"{key}.pt"))
     params = tps_init(cfg, dev, mesh)
     tokens = tps_tokens(cfg.vocab_size, b, t, 11).to(dev)
+    extras = tps_extras(cfg, b, dev, 12)
     calls, real = [], fa._forward
     with tp.scope(mesh, rows_over_data=True):
         fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["bfloat16"])
-        try:
-            serve.generate(params, cfg, tokens, 2)  # warm-up, heads seen
+        try:  # warm-up, heads seen
+            serve.generate(params, cfg, tokens, 2, extras=extras)
         finally:
             fa._forward = real
         torch.cuda.synchronize()
@@ -4061,14 +4163,16 @@ def tpr_serve(key: str, mesh, dev) -> dict:
         fa.flash_attention.launches = 0
         with moe.record_routing() as routing:
             t0 = time.perf_counter()
-            ids = serve.generate(params, cfg, tokens, n)  # the main path
+            ids = serve.generate(params, cfg, tokens, n,
+                                 extras=extras)  # the main path
             torch.cuda.synchronize()
             total_ms = (time.perf_counter() - t0) * 1e3
         launches = fa.flash_attention.launches
         peak = torch.cuda.max_memory_allocated()
     # one prefill and one decode step through the step builders: their
     # collectives, the prefill's time and its last logits (gathered)
-    s_ = t + 2
+    start = cfg.vision_prefix + t
+    s_ = start + 2
     prefill = steps.build_prefill_step(
         cfg, mesh, shapes.InputShape("prefill", s_, b, "prefill"))[0]
     decode = steps.build_decode_step(
@@ -4077,15 +4181,17 @@ def tpr_serve(key: str, mesh, dev) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with mesh.recording() as plog:
-            last, cache = prefill(params, {"tokens": tokens})
+            last, cache = prefill(params, {"tokens": tokens, **extras})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         with mesh.recording() as dlog:
-            decode(params, ids[:, :1], cache, t)
+            decode(params, ids[:, :1], cache, start)
     last = last[:, -1].float().cpu()
     del cache, params
     torch.cuda.empty_cache()
     m = mesh.model_size
+    want_flash = (cfg.num_pattern_groups * sum(
+        k == "attn" for k, _ in cfg.layer_kinds()) if cfg.mla is None else 0)
     out = {
         "cut": cut, "layers": cfg.num_layers, "prefill_ms": prefill_ms,
         "decode_ms_per_step": (total_ms - prefill_ms) / (n - 1),
@@ -4093,16 +4199,16 @@ def tpr_serve(key: str, mesh, dev) -> dict:
         "flash_launches": launches,
         "flash_heads": sorted({c[:2] for c in calls}),
         "flash_vs_plain": tps_flash_worst(calls),
-        "want_flash": (cfg.num_pattern_groups
-                       * sum(k == "attn" for k, _ in cfg.layer_kinds())),
+        "want_flash": want_flash,
         "want_heads": ([(cfg.num_heads // m, cfg.num_kv_heads // m)]
-                       if cfg.ssm is not None else []),
+                       if want_flash else []),
         "tp_prefill": [sum(c.scope == "tp" for c in plog),
                        sum(c.nbytes for c in plog if c.scope == "tp")],
         "tp_decode": [sum(c.scope == "tp" for c in dlog),
                       sum(c.nbytes for c in dlog if c.scope == "tp")],
-        "want_tp_prefill": tpr_collectives_from_shapes(cfg, b, t, m),
-        "want_tp_decode": tpr_collectives_from_shapes(cfg, b, 1, m),
+        "want_tp_prefill": tps_collectives_from_shapes(cfg, b, t, m),
+        "want_tp_decode": tps_collectives_from_shapes(cfg, b, 1, m,
+                                                      decode=True),
         "other_collectives": sum(c.scope != "tp" for c in plog + dlog),
         "routing_sha256": tpr_routing_sha(routing),
         "routing_calls": len(routing),
@@ -4118,26 +4224,74 @@ def tpr_serve(key: str, mesh, dev) -> dict:
     return out
 
 
-def tpr_round_child(mesh, dev) -> dict:
-    """(d): the cut rwkv6 round on this rank's blocks: its FL launches,
-    and its params and loss against the whole round's at PARITY_TOL."""
+def tps_serve_failures(results: list, keys) -> list:
+    """The checks each rank's `tps_serve` result of `keys` fails: the
+    greedy ids and the routing equal across ranks, finite logits, the
+    flash launches of the counted run one a causal GQA layer a prefill
+    (none in decode) on the rank's heads, each call within FLASH_TOL of
+    its plain version, the "tp" collectives of a prefill and a decode
+    step those of the shapes, and no other collective."""
+    r0, bad = results[0], []
+    for r, res in enumerate(results):
+        for key in keys:
+            s, s0 = res[key], r0[key]
+            checks = {
+                "ids equal across ranks": torch.equal(s["ids"], s0["ids"]),
+                "finite": s["finite"],
+                "routing equal across ranks":
+                    s["routing_sha256"] == s0["routing_sha256"],
+                "flash launches": s["flash_launches"] == s["want_flash"],
+                "flash on the rank's heads": [tuple(h) for h in
+                                              s["flash_heads"]]
+                == [tuple(h) for h in s["want_heads"]],
+                "flash vs plain": s["flash_vs_plain"][2] <= 1.0,
+                "tp prefill collectives":
+                    tuple(s["tp_prefill"]) == tuple(s["want_tp_prefill"]),
+                "tp decode collectives":
+                    tuple(s["tp_decode"]) == tuple(s["want_tp_decode"]),
+                "no other collective": s["other_collectives"] == 0,
+            }
+            bad += [f"rank {r} {key}: {n}" for n, ok in checks.items()
+                    if not ok]
+    return bad
+
+
+def tps_serve_summary(results: list, keys) -> dict:
+    """The line's part of each `tps_serve` key: rank 0's result beside
+    every rank's prefill ms, decode ms a step and peak."""
+    r0 = results[0]
+    return {key: {**{k: v for k, v in r0[key].items() if k != "ids"},
+                  "prefill_ms_per_rank": [r[key]["prefill_ms"]
+                                          for r in results],
+                  "decode_ms_per_step_per_rank": [
+                      r[key]["decode_ms_per_step"] for r in results],
+                  "peak_bytes_per_rank": [r[key]["peak_bytes"]
+                                          for r in results],
+                  "sample_ids": r0[key]["ids"][0, :12].tolist()}
+            for key in keys}
+
+
+def tpr_round_child(mesh, dev, key: str) -> dict:
+    """(d): the cut TPR_ROUNDS[key] round on this rank's blocks: its FL
+    launches, and its params and loss against the whole round's at
+    PARITY_TOL."""
     from repro_torch.core import treemath
     from repro_torch.models import sharding
 
     refs = os.environ[TPR_REFS]
-    res = tpr_round(dev, mesh)
-    whole = torch.load(os.path.join(refs, "round.pt"), mmap=True)
+    res = tpr_round(dev, key, mesh)
+    whole = torch.load(os.path.join(refs, f"round_{key}.pt"), mmap=True)
     worst, where = -math.inf, ""
     for path, x, spec in zip(treemath.tree_paths(res["params"]),
                              treemath.tree_leaves(res["params"]),
                              treemath.tree_leaves_like(res["params"],
                                                        res["specs"])):
-        key = "/".join(path)
-        want = sharding.block(whole[key], mesh, spec).to(dev)
-        e, w = excess_err({key: (x, want)}, PARITY_TOL, PARITY_TOL)
+        leaf = "/".join(path)
+        want = sharding.block(whole[leaf], mesh, spec).to(dev)
+        e, w = excess_err({leaf: (x, want)}, PARITY_TOL, PARITY_TOL)
         if e > worst:
             worst, where = e, w
-    ref = torch.load(os.path.join(refs, "round_loss.pt"))
+    ref = torch.load(os.path.join(refs, f"round_loss_{key}.pt"))
     loss_err = allclose_err(res["loss"], ref["loss"], PARITY_TOL)
     out = {"launches": res["launches"], "excess": worst,
            "worst_leaf": where, "ms": res["ms"], "whole_ms": ref["ms"],
@@ -4177,10 +4331,13 @@ def tpr_record(mesh, dev, key: str) -> dict:
         repro_torch.FLConfig(**meta["flcfg"]), transformer.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg, mesh=mesh,
             specs=specs))
-    real = (state, {"tokens": tps_tokens(cfg.vocab_size, k * tau * b_, t, 47)
-                    .reshape(k, tau, b_, t).to(dev, torch.int32)},
-            torch.arange(k, dtype=torch.int32, device=dev),
+    batch = {"tokens": tps_tokens(cfg.vocab_size, k * tau * b_, t, 47)
+             .reshape(k, tau, b_, t).to(dev, torch.int32),
+             **{name: x.reshape((k, tau, b_) + x.shape[1:]) for name, x in
+                tps_extras(cfg, k * tau * b_, dev, 48).items()}}
+    real = (state, batch, torch.arange(k, dtype=torch.int32, device=dev),
             torch.ones((k,), device=dev))
+    del batch
     torch.cuda.synchronize()
     placed = torch.cuda.memory_allocated(dev) - base
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4203,14 +4360,16 @@ def tpr_record(mesh, dev, key: str) -> dict:
 
 def tp_rec_child(mesh, dev, rank: int) -> dict:
     """One rank of the (1, 2) world: (a) jamba and (b) rwkv6-3b serving,
-    (c) the f32 parity cases, (d) the cut rwkv6 round, (e) each of
-    TPR_RECORDS' train steps against the dry run."""
+    (c) the f32 parity cases, (d) the cut rwkv6 and qwen2-vl rounds, (e)
+    each of TPR_RECORDS' train steps against the dry run."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    return {"jamba": tpr_serve("jamba", mesh, dev),
-            "rwkv6": tpr_serve("rwkv6", mesh, dev),
+    refs = os.environ[TPR_REFS]
+    return {**{key: tps_serve(TPR_MODELS, key, mesh, dev, refs)
+               for key in TPR_MODELS},
             "parity": tps_parity(mesh, dev, TPR_PARITY, TPR_REFS),
-            "round": tpr_round_child(mesh, dev),
+            "round": {key: tpr_round_child(mesh, dev, key)
+                      for key in TPR_ROUNDS},
             "record": {key: tpr_record(mesh, dev, key)
                        for key in TPR_RECORDS}}
 
@@ -4224,37 +4383,16 @@ def tpr_fsdp_child(mesh, dev, rank: int) -> dict:
 
 
 def check_tp_rec(results: list, fsdp: list) -> dict:
-    """The ranks' greedy ids and routing equal; each family's "tp"
-    collectives those of the shapes, no other collective; jamba's flash
-    launches one a prefill on the rank's 32 of 64 heads and 4 of 8 KV
-    heads, each call within FLASH_TOL of its plain version; every parity
-    case (tensor-parallel and FSDP) within PARITY_TOL, jamba's full-width
-    case through flash both ways; the round's 2 + 1 FL launches and its
-    params and loss within PARITY_TOL; each train step against the dry
-    run (`prediction_failures`). Returns the line's part."""
+    """The served families (`tps_serve_failures`: jamba's flash one a
+    prefill on the rank's 32 of 64 heads and 4 of 8 KV heads); every
+    parity case (tensor-parallel and FSDP) within PARITY_TOL, jamba's
+    full-width case through flash both ways; each round's 2 + 1 FL
+    launches and its params and loss within PARITY_TOL; each train step
+    against the dry run (`prediction_failures`). Returns the line's
+    part."""
     r0 = results[0]
-    bad = []
+    bad = tps_serve_failures(results, TPR_MODELS)
     for r, res in enumerate(results):
-        for key in TPR_MODELS:
-            s, s0 = res[key], r0[key]
-            checks = {
-                "ids equal across ranks": torch.equal(s["ids"], s0["ids"]),
-                "finite": s["finite"],
-                "routing equal across ranks":
-                    s["routing_sha256"] == s0["routing_sha256"],
-                "flash launches": s["flash_launches"] == s["want_flash"],
-                "flash on the rank's heads": [tuple(h) for h in
-                                              s["flash_heads"]]
-                == [tuple(h) for h in s["want_heads"]],
-                "flash vs plain": s["flash_vs_plain"][2] <= 1.0,
-                "tp prefill collectives":
-                    tuple(s["tp_prefill"]) == tuple(s["want_tp_prefill"]),
-                "tp decode collectives":
-                    tuple(s["tp_decode"]) == tuple(s["want_tp_decode"]),
-                "no other collective": s["other_collectives"] == 0,
-            }
-            bad += [f"rank {r} {key}: {n}" for n, ok in checks.items()
-                    if not ok]
         checks = {
             "parity": all(c["excess"] <= 1.0
                           for c in res["parity"].values()),
@@ -4263,11 +4401,12 @@ def check_tp_rec(results: list, fsdp: list) -> dict:
                 and c["flash_vs_plain"][2] <= 1.0
                 for c in res["parity"].values())
             and res["parity"]["jamba-full-2l"]["flash_launches"] > 0,
-            "round launches": res["round"]["launches"] == {
-                "weighted_agg": 2, "round_stats": 1},
-            "round vs whole": res["round"]["excess"] <= 0
-            and res["round"]["loss_excess"] <= 1.0,
         }
+        for key, rd in res["round"].items():
+            checks[f"{key} round launches"] = rd["launches"] == {
+                "weighted_agg": 2, "round_stats": 1}
+            checks[f"{key} round vs whole"] = (rd["excess"] <= 0
+                                               and rd["loss_excess"] <= 1.0)
         for key, rec in res["record"].items():
             checks[f"{key} train step finite"] = rec["finite"]
             bad += [f"rank {r} {key}: {n}"
@@ -4284,20 +4423,12 @@ def check_tp_rec(results: list, fsdp: list) -> dict:
     if bad:
         raise AssertionError(f"tp_rec: {bad}: " + json.dumps(
             {k: v for k, v in r0.items()}, default=str)[:8000])
-    fam = {}
-    for key in TPR_MODELS:
-        fam[key] = {**{k: v for k, v in r0[key].items() if k != "ids"},
-                    "prefill_ms_per_rank": [r[key]["prefill_ms"]
-                                            for r in results],
-                    "decode_ms_per_step_per_rank": [
-                        r[key]["decode_ms_per_step"] for r in results],
-                    "peak_bytes_per_rank": [r[key]["peak_bytes"]
-                                            for r in results],
-                    "sample_ids": r0[key]["ids"][0, :12].tolist()}
-    return {"ranks": len(results), **fam, "parity": r0["parity"],
-            "round": {**r0["round"],
-                      "excess_per_rank": [r["round"]["excess"]
-                                          for r in results]},
+    return {"ranks": len(results),
+            **tps_serve_summary(results, TPR_MODELS),
+            "parity": r0["parity"],
+            "round": {key: {**rd, "excess_per_rank": [
+                r["round"][key]["excess"] for r in results]}
+                for key, rd in r0["round"].items()},
             "record_vs_dry_run_per_rank": {
                 key: [r["record"][key] for r in results]
                 for key in TPR_RECORDS},
@@ -4305,11 +4436,13 @@ def check_tp_rec(results: list, fsdp: list) -> dict:
 
 
 def phase_tp_rec(smi: str) -> dict:
-    """The recurrent families over "model": the scan ops against their
-    loop forms and the whole-model references in this process (each
-    freed before a world starts), then one (1, 2) gloo world on this
-    card runs (a)-(e) (`tp_rec_child`) and one (2, 2) world the FSDP
-    parity cases. Returns rank 0's launches of the slice's kernels."""
+    """The recurrent families over "model" (and the qwen2-vl round and
+    whisper's train step against the dry run): the scan ops against
+    their loop forms and the whole-model references in this process
+    (each freed before a world starts), then one (1, 2) gloo world on
+    this card runs (a)-(e) (`tp_rec_child`) and one (2, 2) world the
+    FSDP parity cases. Returns rank 0's launches of the path's
+    kernels."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4318,7 +4451,8 @@ def phase_tp_rec(smi: str) -> dict:
            "mesh": list(TPR_SHAPE), "fsdp_mesh": list(TPR_FSDP_SHAPE),
            "cuts": {**{k: v[2] for k, v in TPR_MODELS.items()},
                     **{c[0]: c[4] for c in TPR_PARITY},
-                    "round": f"rwkv6-3b {TPR_ROUND_CUT}",
+                    **{f"round/{k}": f"{v} {TPR_ROUND_CUT}"
+                       for k, v in TPR_ROUNDS.items()},
                     **{f"record/{k}": f"{v[0]} {v[1]}"
                        for k, v in TPR_RECORDS.items()}}}
     out["scan_ops_vs_loops"] = tpr_scan_ab(dev)
@@ -4342,7 +4476,9 @@ def phase_tp_rec(smi: str) -> dict:
     return {"flash_attention": r0["jamba"]["flash_launches"],
             "flash_attention_f32": sum(
                 c["flash_launches"] for c in r0["parity"].values()),
-            **r0["round"]["launches"]}
+            **r0["round"]["rwkv6"]["launches"],
+            "rounds": {TPR_ROUNDS[k]: rd["launches"]
+                       for k, rd in r0["round"].items()}}
 
 
 # ---- FSDP: params over "data" (the sequential round, serving) and the
@@ -4378,12 +4514,17 @@ FSDP_LONG = (
                       507902, 507903, 507904, 507905)),
     ("deepseek-v2-lite-16b", {"num_layers": 8},
      (262142, 262143, 262144, 262145)))
-# (d) f32 reduced configs with fsdp=True: B = 2 (rows over "data"), and
-# B = 1 (the cache's sequence over "data", its block edge at position
-# 65, which the decode steps cross)
-FSDP_PARITY = (("gemma-2b", {"attention_impl": "flash"}),
-               ("minitron-4b", {"attention_impl": "flash"}),
-               ("deepseek-v2-lite-16b", {"mla": {"q_lora_rank": 32}}))
+# (d) f32 configs with fsdp=True: B = 2 (rows over "data"), and B = 1
+# (the cache's sequence over "data", its block edge at position 65,
+# which the decode steps cross): (config, its changes, at full width (or
+# reduced)); whisper-small at full width cut to 2 + 2 layers, whose
+# cross cache's 1,500 encoder positions lie on "data" too at B = 1
+FSDP_PARITY = (("gemma-2b", {"attention_impl": "flash"}, False),
+               ("minitron-4b", {"attention_impl": "flash"}, False),
+               ("deepseek-v2-lite-16b", {"mla": {"q_lora_rank": 32}}, False),
+               ("whisper-small", {"num_layers": 2, "encoder_layers": 2,
+                                  "dtype": "float32",
+                                  "attention_impl": "flash"}, True))
 FSDP_PARITY_T, FSDP_PARITY_STEPS = 64, 3
 FSDP_PARITY_S = {2: 68, 1: 130}  # B -> cache positions
 FSDP_SERVE_ARGV = ["--arch", "gemma-2b", "--shape", "long_500k", "--steps",
@@ -4470,19 +4611,13 @@ def fsdp_long_cfg(name: str, changes: dict):
     return cfg, shapes.config_for_shape(cfg, shapes.SHAPES["long_500k"])
 
 
-def fsdp_parity_cfg(name: str, changes: dict):
-    from repro_torch.configs import registry
-    from repro_torch.models.config import with_changes
-
-    cfg = with_changes(registry.smoke(name), changes)
-    assert cfg.dtype == "float32", cfg.dtype
-    return cfg
-
-
 def fsdp_parity_run(cfg, params, mesh, b: int, i: int, dev):
     """Prefill and FSDP_PARITY_STEPS decode steps through the step
     builders' fns with fsdp=True (this data index's rows, or all where b
-    does not split over "data"): the logits (rows, 1 + steps, V)."""
+    does not split over "data"; the family's seeded stub inputs beside
+    the prompt): the logits (rows, 1 + steps, V), and the decode steps'
+    "tp" all-reduces over "data" (the ranks' partial softmaxes combined
+    where a cache's sequence lies there: two a layer a cache)."""
     from repro_torch.configs import shapes
     from repro_torch.launch import steps
 
@@ -4495,13 +4630,18 @@ def fsdp_parity_run(cfg, params, mesh, b: int, i: int, dev):
     rows = fsdp_rows(mesh, b)
     tokens = tps_tokens(cfg.vocab_size, b, t, 50 + i)[rows].to(dev)
     dec = tps_tokens(cfg.vocab_size, b, n, 60 + i)[rows].to(dev)
+    extras = {k: v[rows] for k, v in tps_extras(cfg, b, dev, 65 + i).items()}
     with torch.no_grad():
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, {"tokens": tokens, **extras})
         out = [logits]
-        for s_ in range(n):
-            logits, cache = decode(params, dec[:, s_:s_ + 1], cache, t + s_)
-            out.append(logits)
-    return torch.cat(out, dim=1)
+        with mesh.recording() as log:
+            for s_ in range(n):
+                logits, cache = decode(params, dec[:, s_:s_ + 1], cache,
+                                       t + s_)
+                out.append(logits)
+    combines = sum(c.scope == "tp" and c.op == "all_reduce"
+                   and c.axes == ("data",) for c in log)
+    return torch.cat(out, dim=1), combines
 
 
 def fsdp_rows(mesh, b: int) -> slice:
@@ -4606,12 +4746,12 @@ def fsdp_refs(dev, out_dir: str) -> dict:
         torch.cuda.empty_cache()
     # (d)
     parity = {}
-    for i, (name, changes) in enumerate(FSDP_PARITY):
-        cfg = fsdp_parity_cfg(name, changes)
+    for i, (name, changes, full) in enumerate(FSDP_PARITY):
+        cfg = tps_parity_cfg(name, changes, full)
         params = fsdp_init(cfg, dev)
         for b in FSDP_PARITY_S:
             parity[(i, b)] = fsdp_parity_run(cfg, params, host, b, i,
-                                             dev).cpu()
+                                             dev)[0].cpu()
         del params
         torch.cuda.empty_cache()
     torch.save(parity, os.path.join(out_dir, "parity.pt"))
@@ -4978,28 +5118,38 @@ def fsdp_long_child(mesh, dev) -> list:
 def fsdp_parity_child(mesh, dev) -> dict:
     """(d): each f32 parity case with fsdp=True against the whole model
     at PARITY_TOL, B = 2 (rows over "data") and B = 1 (the cache's
-    sequence over "data"); every flash call held to its plain version at
-    its local shape."""
+    sequence over "data"; whisper's cross cache too); every flash call
+    held to its plain version at its local shape; the decode steps'
+    combines over "data"."""
     from repro_torch.kernels import flash_attn as fa
 
     refs = torch.load(os.path.join(os.environ[FSDP_REFS], "parity.pt"))
     out, real = {}, fa._forward
-    for i, (name, changes) in enumerate(FSDP_PARITY):
-        cfg = fsdp_parity_cfg(name, changes)
+    for i, (name, changes, full) in enumerate(FSDP_PARITY):
+        cfg = tps_parity_cfg(name, changes, full)
         params = fsdp_init(cfg, dev, mesh)
         for b in FSDP_PARITY_S:
             fa.flash_attention.launches, calls = 0, []
             fa._forward = tps_flash_spy(fa, calls, FLASH_TOL["float32"])
             try:
-                got = fsdp_parity_run(cfg, params, mesh, b, i, dev).cpu()
+                got, combines = fsdp_parity_run(cfg, params, mesh, b, i, dev)
             finally:
                 fa._forward = real
-            err, excess = allclose_err(got, refs[(i, b)][fsdp_rows(mesh, b)],
+            err, excess = allclose_err(got.cpu(),
+                                       refs[(i, b)][fsdp_rows(mesh, b)],
                                        PARITY_TOL)
-            out[f"{name}/B{b}"] = {
+            # a cache on "data": the self-attention cache at B = 1, and
+            # whisper's cross cache (its encoder_len divides over "data")
+            caches = (b % mesh.client_size != 0) * (
+                1 + (cfg.encoder_layers > 0
+                     and cfg.encoder_len % mesh.client_size == 0))
+            out[f"{name}{'-full' if full else ''}/B{b}"] = {
                 "max_abs": err, "excess": excess,
                 "flash_launches": fa.flash_attention.launches,
-                "flash_vs_plain": tps_flash_worst(calls)}
+                "flash_vs_plain": tps_flash_worst(calls),
+                "data_combines": combines,
+                "want_data_combines": (2 * caches * cfg.num_layers
+                                       * FSDP_PARITY_STEPS)}
         del params
         torch.cuda.empty_cache()
     return out
@@ -5084,6 +5234,10 @@ def check_fsdp(results: list) -> dict:
                 and c["flash_vs_plain"][2] <= 1.0
                 for c in res["parity"].values())
             and res["parity"]["gemma-2b/B2"]["flash_launches"] > 0,
+            "parity combines over data": all(
+                c["data_combines"] == c["want_data_combines"]
+                for c in res["parity"].values())
+            and res["parity"]["whisper-small-full/B1"]["data_combines"] > 0,
             "serve cli tokens": torch.equal(
                 res["serve_cli"]["tokens"], r0["serve_cli"]["tokens"])
             and math.isfinite(res["serve_cli"]["ms_per_token"]),
@@ -6584,10 +6738,13 @@ def main() -> int:
     for name in ("flash_attention_f32", "flash_attention_f32_train"):
         lm_table[name]["launches_tp"] = tp_launches["flash_attention"]
     # and tensor-parallel serving per rank of the (1, 2) world: gemma-2b's
-    # bf16 prefill on the rank's 4 of 8 heads, the f32 minitron parity
-    # case's prefill, and the cut deepseek round's aggregation/statistics
+    # bf16 prefill on the rank's 4 of 8 heads (and whisper-small's and
+    # qwen2-vl-2b's generate calls on their 6 of 12), the f32 parity
+    # cases' prefills, and the cut deepseek round's aggregation/statistics
     lm_table["flash_attention"]["launches_tp_serve"] = \
         tp_serve_launches["flash_attention"]
+    lm_table["flash_attention"]["launches_tp_serve_families"] = \
+        tp_serve_launches["flash_attention_families"]
     lm_table["flash_attention_f32"]["launches_tp_serve"] = \
         tp_serve_launches["flash_attention_f32"]
     table["weighted_agg"]["launches_tp_serve"] = \
@@ -6597,6 +6754,7 @@ def main() -> int:
     # and the recurrent families per rank of the (1, 2) world: jamba's
     # bf16 prefill on the rank's 32 of 64 heads, the f32 jamba parity
     # cases' prefills, and the cut rwkv6 round's aggregation/statistics
+    # (and the cut qwen2-vl round's)
     lm_table["flash_attention"]["launches_tp_rec"] = \
         tp_rec_launches["flash_attention"]
     lm_table["flash_attention_f32"]["launches_tp_rec"] = \
@@ -6604,6 +6762,9 @@ def main() -> int:
     table["weighted_agg"]["launches_tp_rec"] = \
         tp_rec_launches["weighted_agg"]
     table["round_stats"]["launches_tp_rec"] = tp_rec_launches["round_stats"]
+    for name in ("weighted_agg", "round_stats"):
+        table[name]["launches_tp_rec_rounds"] = {
+            arch: n[name] for arch, n in tp_rec_launches["rounds"].items()}
     # the FSDP round's statistics at the rank's (1, n_local) block, and
     # the f32 flash kernel in the FSDP parity cases' prefills, per rank
     table["round_stats_fsdp"] = fsdp_out["round_stats_fsdp"]

@@ -11,13 +11,11 @@ The mesh is `make_production_mesh`: "32x8" (256 cards) or "2x32x8"
 arguments are meta tensors at the global shapes, and runs once under
 `launch.optrace.OpTrace`: nothing is allocated, and every op (the
 backward and the recompute included) is recorded. A record holds the
-reference's keys, per device, under one of two partitions:
-
-"partition": "rank" — the families tensor-parallel execution covers
-(`models.tp.covers`: the decoder-only configs of attention (GQA / MQA
-or MLA), Mamba and RWKV-6 blocks, dense or MoE). The step is built on `launch.mesh.make_trace_mesh` at the
-production shape and rank 0 ("2x32x8" as (64, 8), the pods on "data",
-as `launch.mesh.world_mesh` runs them), each argument cut to the rank's
+reference's keys, per device, as one rank runs it ("partition":
+"rank"), for every family of the registry. The step is built on
+`launch.mesh.make_trace_mesh` at the production shape and rank 0
+("2x32x8" as (64, 8), the pods on "data", as `launch.mesh.world_mesh`
+runs them), each argument cut to the rank's
 block (`steps.rank_blocks`), and one rank's program runs: its own ops,
 and its collectives through the mesh, which records them and moves
 nothing (`mesh.recording()`).
@@ -41,12 +39,12 @@ nothing (`mesh.recording()`).
     the model's, "fsdp" the params' and the loss's over "data", "round"
     the round's own).
 
-"partition": "ideal" — the other families (Whisper, Qwen2-VL), whose
-one-rank program is ROADMAP Queue 1 item 13d. The step
-is built on the abstract mesh and traced whole as one program; the
-arguments and outputs are per device, exact, from the specs; temp,
-flops and bytes are the whole step's (under "global") over the device
-count, and "collectives" is {} with `IDEAL_NOTE`.
+`step_record` ("partition": "ideal") traces a step built on an
+abstract mesh whole, as one program: the arguments and outputs per
+device from the specs; temp, flops and bytes the whole step's (under
+"global") over the device count; "collectives" {} with `IDEAL_NOTE`.
+The sweep does not use it; `chip_smoke.py`'s launch phase does, on a
+(1, 1) mesh, where the one program is the device's.
 
 Both: live_bytes = arguments + outputs + temp - alias, the reference's
 live bytes a device; fits = live_bytes within one card's memory;
@@ -68,15 +66,12 @@ import torch
 
 from repro_torch.configs import shapes as shapes_mod
 from repro_torch.configs.registry import ARCHS
-from repro_torch.configs.registry import get as get_arch
 from repro_torch.launch import optrace, steps
 from repro_torch.launch.mesh import (HBM_BYTES, make_production_mesh,
                                      make_trace_mesh)
-from repro_torch.models import tp
 
 IDEAL_NOTE = ("the whole step is traced as one program, which issues no "
-              "collective: this family's one-rank program is ROADMAP "
-              "Queue 1 item 13d")
+              "collective")
 
 
 def mesh_name(multi_pod: bool) -> str:
@@ -239,28 +234,22 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             verbose: bool = True, tag: str = "baseline", **kw) -> dict:
     budget_s = kw.pop("budget_s", 0.0)
     t0 = time.time()
-    if tp.covers(get_arch(arch)):
-        mesh = make_trace_mesh(_trace_shape(multi_pod))
-        fn, args, in_specs, out_specs, meta = steps.build_step(
-            arch, shape_name, mesh, **kw)
-        whole = (shapes_mod.SHAPES[shape_name].kind == "train"
-                 and meta["fl_mode"] == "parallel")
-        rec = rank_record(fn, args, in_specs, out_specs, mesh,
-                          whole_batch=whole, budget_s=budget_s)
-        if multi_pod:
-            rec["traced_mesh_note"] = ("the pods on \"data\", as "
-                                       "launch.mesh.world_mesh runs a world")
-    else:
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        fn, args, in_specs, out_specs, meta = steps.build_step(
-            arch, shape_name, mesh, **kw)
-        rec = step_record(fn, args, in_specs, out_specs, mesh,
-                          budget_s=budget_s)
+    mesh = make_trace_mesh(_trace_shape(multi_pod))
+    fn, args, in_specs, out_specs, meta = steps.build_step(
+        arch, shape_name, mesh, **kw)
+    whole = (shapes_mod.SHAPES[shape_name].kind == "train"
+             and meta["fl_mode"] == "parallel")
+    rec = rank_record(fn, args, in_specs, out_specs, mesh,
+                      whole_batch=whole, budget_s=budget_s)
+    if multi_pod:
+        rec["traced_mesh_note"] = ("the pods on \"data\", as "
+                                   "launch.mesh.world_mesh runs a world")
     rec = {"arch": arch, "shape": shape_name, "tag": tag,
            "mesh": mesh_name(multi_pod), "meta": meta,
            "build_s": round(time.time() - t0, 1), **rec}
     if verbose:
         m = rec["memory"]
+        c = rec["collectives"]
         print(f"[{arch} x {shape_name} x {rec['mesh']}] build "
               f"{rec['build_s']}s, {rec['ops']} ops")
         print(f"  per device ({rec['partition']} partition): args="
@@ -270,17 +259,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"{m['alias_bytes']/2**30:.2f}GiB (~"
               f"{rec['live_bytes']/2**30:.2f}GiB live; fits "
               f"{rec['fits']})")
-        if rec["partition"] == "rank":
-            c = rec["collectives"]
-            print(f"  rank {rec['rank']} of {rec['traced_mesh']}: flops="
-                  f"{rec['flops']:.3e} bytes={rec['bytes_accessed']:.3e} "
-                  f"collectives={c['count']} ("
-                  f"{c['total']/2**20:.1f}MiB)")
-        else:
-            g = rec["global"]
-            print(f"  global: flops={g['flops']:.3e} "
-                  f"bytes={g['bytes_accessed']:.3e}"
-                  f" temp={g['temp_bytes']/2**30:.2f}GiB")
+        print(f"  rank {rec['rank']} of {rec['traced_mesh']}: flops="
+              f"{rec['flops']:.3e} bytes={rec['bytes_accessed']:.3e} "
+              f"collectives={c['count']} ({c['total']/2**20:.1f}MiB)")
     return rec
 
 

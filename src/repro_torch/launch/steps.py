@@ -43,10 +43,10 @@ is gathered over "data" where it runs), this data index's batch rows
 (all of them where B does not split over "data") and its cache blocks
 (`sharding.cache_pspecs`, e.g. `transformer.init_cache(..., mesh=)`;
 where B does not split, the sequence of the attention caches goes on
-"data"), and returns the rows' logits whole (gathered over "model" at
+"data"; the cross-attention cache's encoder positions follow their own
+length), and returns the rows' logits whole (gathered over "model" at
 the one position read) and the cache blocks. `args` keep the global
-shapes. A family tensor-parallel execution does not cover raises
-NotImplementedError naming ROADMAP Queue 1 item 13d.
+shapes. Every family of the registry builds these steps.
 """
 from __future__ import annotations
 
@@ -92,14 +92,6 @@ def _tensor_parallel(mesh) -> bool:
     return isinstance(mesh, ClientMesh) and mesh.size > 1
 
 
-def _check_family(cfg: ModelConfig, use: str) -> None:
-    """Raise NotImplementedError (naming item 13d) for a family that
-    tensor-parallel execution does not cover (`tp.covers`)."""
-    if not tp.covers(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel {use}: {tp.UNSUPPORTED}")
-
-
 def rows_split(mesh, batch: int) -> bool:
     """Whether a global batch of `batch` rows splits over the mesh's
     batch axes (else every data rank holds every row)."""
@@ -107,30 +99,36 @@ def rows_split(mesh, batch: int) -> bool:
     return batch % total == 0 and batch >= total
 
 
-def _seq_over_data(mesh, cache_sds) -> bool:
-    """Whether the cache rules put an attention cache's sequence on
-    "data" (a batch that does not split there)."""
+_CROSS = ("cross_k", "cross_v")  # the cross-attention cache's leaves
+
+
+def _seq_over_data(mesh, cache_sds, cross: bool) -> bool:
+    """Whether the cache rules put the sequence of an attention cache on
+    "data" (a batch that does not split there): of a self-attention
+    cache, or with `cross` of the cross-attention cache, whose encoder
+    positions follow their own length."""
     specs = sharding.cache_pspecs(cache_sds, mesh)
     return any(len(spec) > 2 and spec[2] == "data"
-               for spec in treemath.tree_leaves_like(cache_sds, specs))
+               for path, spec in zip(
+                   treemath.tree_paths(cache_sds),
+                   treemath.tree_leaves_like(cache_sds, specs))
+               if (path[-1] in _CROSS) == cross)
 
 
-def _serving_scope(cfg: ModelConfig, mesh, fsdp: bool, batch: int,
-                   p_sds, cache_sds):
+def _serving_scope(mesh, fsdp: bool, batch: int, p_sds, cache_sds):
     """A serving step's `tp.scope` as a callable: on a `ClientMesh` of
     more than one rank the step's rows over "data" where the batch
-    splits there, the params' FSDP specs with `fsdp`, and the cache's
-    sequence on "data" where its rules put it there; an empty scope
-    elsewhere. Raises NotImplementedError (naming item 13d) for a family
-    tensor-parallel execution does not cover."""
+    splits there, the params' FSDP specs with `fsdp`, and each
+    attention cache's sequence on "data" where its rules put it there;
+    an empty scope elsewhere."""
     if not _tensor_parallel(mesh):
         return lambda: tp.scope(None)
-    _check_family(cfg, "serving")
     split = rows_split(mesh, batch)
     specs = sharding.param_pspecs(p_sds, mesh, fsdp=True) if fsdp else None
-    seq = not split and _seq_over_data(mesh, cache_sds)
+    seq, cross = (not split and _seq_over_data(mesh, cache_sds, c)
+                  for c in (False, True))
     return lambda: tp.scope(mesh, rows_over_data=split, specs=specs,
-                            seq_over_data=seq)
+                            seq_over_data=seq, cross_over_data=cross)
 
 
 def local_batch(batch, in_specs, mesh):
@@ -237,7 +235,6 @@ def build_train_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
         else None
     )
     if tensor_parallel or fsdp_round:
-        _check_family(cfg, "training")
         round_fn = fl_mod.make_round_fn(
             loss, flcfg, delta_constraint, angle_pred, grad_constraint,
             mesh=mesh, param_specs=sharding.param_pspecs(
@@ -277,7 +274,7 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
     p_sds = params_sds(cfg)
     batch_sds = shapes_mod.token_batch_specs(cfg, B, T)
     cache_sds = shapes_mod.cache_specs(cfg, B, T + cfg.vision_prefix)
-    scope = _serving_scope(cfg, mesh, fsdp, B, p_sds, cache_sds)
+    scope = _serving_scope(mesh, fsdp, B, p_sds, cache_sds)
 
     def prefill_step(params, batch):
         with scope():
@@ -330,7 +327,7 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: shapes_mod.InputShape,
         fsdp = cfg.param_count() > SEQUENTIAL_THRESHOLD
     p_sds = params_sds(cfg)
     d = shapes_mod.decode_specs(cfg, B, S)
-    scope = _serving_scope(cfg, mesh, fsdp, B, p_sds, d["cache"])
+    scope = _serving_scope(mesh, fsdp, B, p_sds, d["cache"])
 
     def serve_step(params, token, cache, pos):
         # a meta position has no value; a decode step's shapes and work

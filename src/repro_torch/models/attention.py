@@ -19,6 +19,9 @@ cache's sequence on "data" (`tp.seq_over_data`), a rank's cache holds a
 block of the positions: the prefill stores those, a decode step writes
 the token's key and value on the rank that owns its slot, and the
 ranks' partial softmaxes are combined (`tp.combine_over_data`).
+Cross-attention runs on the same heads (`_tp_q`, `_tp_kv`); its cache
+holds the encoder positions whole, or a block of them where they lie on
+"data" (`tp.cross_over_data`), whatever the self-attention cache does.
 """
 from __future__ import annotations
 
@@ -175,48 +178,62 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
     blocks do not hold whole heads (H = 12 on M = 8), every projection's
     output is gathered (GSPMD pays a collective there too), attention
     runs on all heads on every rank, and `wo` reads this rank's rows of
-    its output. RoPE acts on whole heads: it rotates after a gather. A
+    its output. RoPE (or M-RoPE: cos / sin are per position, the same on
+    every rank) acts on whole heads: it rotates after a gather. A
     replicated tensor that feeds a rank's own blocks passes
     `tp.copy_to_model`, so its cotangent is summed over the ranks.
 
     The cache holds the KV heads the reference's cache rules give the
     rank (`sharding.cache_pspecs`): its G/M heads where G % M == 0, else
-    all G."""
-    hd, nh, ng = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    m, j = tp.model_size(), tp.model_index()
-    xc = tp.copy_to_model(x)
-
-    def whole(w, n):
-        """The projection's output over all n heads, replicated."""
-        if tp.split(w.shape[-1], n * hd) == 1:
-            return _split_heads(x @ w, n, hd)
-        return _split_heads(tp.gather_from_model(xc @ w, -1), n, hd)
-
+    all G. Cross-attention takes the same two halves with k and v from
+    the encoder's output and no rotation (`cross_attn_kv`,
+    `cross_attn_apply`)."""
     def rope(z):
         return z if cos is None else layers.rope_apply(z, cos, sin)
 
-    def same(z):
-        return z
+    xc = tp.copy_to_model(x)
+    q, out_proj, pick = _tp_q(p, cfg, x, xc, rope)
+    k, v = _tp_kv(p, cfg, x, xc, rope)
+    return q, k, v, out_proj, pick
 
-    local_q = tp.split(p["wq"].shape[-1], nh * hd) > 1 and nh % m == 0
-    pick = same
+
+def _no_rope(z):
+    return z
+
+
+def _tp_local_q(p: dict, cfg) -> bool:
+    """Whether this rank's q blocks hold whole heads (`_tp_qkv`)."""
+    return (tp.split(p["wq"].shape[-1], cfg.num_heads * cfg.hd) > 1
+            and cfg.num_heads % tp.model_size() == 0)
+
+
+def _tp_whole(w, n: int, hd: int, x, xc):
+    """The projection of x by `w` over all n heads, replicated: from a
+    replicated leaf computed whole, from this rank's columns gathered
+    over "model" (xc: x through `tp.copy_to_model`)."""
+    if tp.split(w.shape[-1], n * hd) == 1:
+        return _split_heads(x @ w, n, hd)
+    return _split_heads(tp.gather_from_model(xc @ w, -1), n, hd)
+
+
+def _tp_q(p: dict, cfg, x, xc, rope):
+    """`_tp_qkv`'s q of x (xc: x through `tp.copy_to_model`), its output
+    projection and its `pick`."""
+    hd, nh, ng = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    m, j = tp.model_size(), tp.model_index()
+    local_q = _tp_local_q(p, cfg)
     if local_q:
         hq = nh // m
         q = rope(_split_heads(xc @ p["wq"], hq, hd))
-        if tp.split(p["wk"].shape[-1], ng * hd) > 1 and ng % m == 0:
-            k = rope(_split_heads(xc @ p["wk"], ng // m, hd))
-            v = _split_heads(xc @ p["wv"], ng // m, hd)
-        else:
-            k, v = (tp.copy_to_model(z) for z in (
-                rope(whole(p["wk"], ng)), whole(p["wv"], ng)))
-            if ng % m == 0:  # a replicated leaf: the rank's KV heads
-                k, v = (z.narrow(2, j * (ng // m), ng // m) for z in (k, v))
-            else:
-                def pick(z):
-                    return _kv_for_heads(z, j * hq, hq, nh // ng)
     else:
-        q, k, v = (rope(whole(p["wq"], nh)), rope(whole(p["wk"], ng)),
-                   whole(p["wv"], ng))
+        q = rope(_tp_whole(p["wq"], nh, hd, x, xc))
+
+    def pick(z):
+        return z
+
+    if local_q and ng % m:  # every KV head on every rank (`_tp_kv`)
+        def pick(z):
+            return _kv_for_heads(z, j * hq, hq, nh // ng)
     wo = p["wo"]
     rows = wo.shape[0]
     if tp.split(rows, nh * hd) == 1:
@@ -229,7 +246,26 @@ def _tp_qkv(p: dict, cfg, x: torch.Tensor, cos, sin):
             if not local_q:
                 out = tp.copy_to_model(out).narrow(-1, j * rows, rows)
             return tp.reduce_from_model(out @ wo)
-    return q, k, v, out_proj, pick
+    return q, out_proj, pick
+
+
+def _tp_kv(p: dict, cfg, x, xc, rope):
+    """`_tp_qkv`'s k and v of x (xc: x through `tp.copy_to_model`): the
+    KV heads this rank's cache holds."""
+    hd, ng = cfg.hd, cfg.num_kv_heads
+    m, j = tp.model_size(), tp.model_index()
+    if not _tp_local_q(p, cfg):
+        return (rope(_tp_whole(p["wk"], ng, hd, x, xc)),
+                _tp_whole(p["wv"], ng, hd, x, xc))
+    if tp.split(p["wk"].shape[-1], ng * hd) > 1 and ng % m == 0:
+        return (rope(_split_heads(xc @ p["wk"], ng // m, hd)),
+                _split_heads(xc @ p["wv"], ng // m, hd))
+    k, v = (tp.copy_to_model(z) for z in (
+        rope(_tp_whole(p["wk"], ng, hd, x, xc)),
+        _tp_whole(p["wv"], ng, hd, x, xc)))
+    if ng % m == 0:  # a replicated leaf: the rank's KV heads
+        k, v = (z.narrow(2, j * (ng // m), ng // m) for z in (k, v))
+    return k, v
 
 
 def _kv_for_heads(z: torch.Tensor, first: int, count: int,
@@ -290,11 +326,19 @@ def attn_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int, cos,
     if tp.seq_over_data() is None:
         probs = _masked_softmax(scores, valid[None, None, None, None, :])
         return out_proj(_gqa_out(probs, pick(cv)).to(x.dtype)), cache
+    return out_proj(_combined(scores, valid, pick(cv)).to(x.dtype)), cache
+
+
+def _combined(scores, valid, v, cross: bool = False):
+    """A decode step's attention output (B, 1, H * hd) f32 over a cache
+    whose positions lie in blocks over "data": scores (B, G, Hg, 1, S_loc)
+    and `valid` (S_loc,) of this rank's block, v its values, the ranks'
+    partial softmaxes combined (`tp.combine_over_data`)."""
     out, sums = tp.combine_over_data(scores, valid,
-                                     lambda p_: _gqa_out(p_, pick(cv)))
+                                     lambda p_: _gqa_out(p_, v), cross)
     b, g, hg = sums.shape[:3]  # sums (B, G, Hg, 1), out (B, 1, H * hd)
     out = out.reshape(b, 1, g, hg, -1) / sums.permute(0, 3, 1, 2)[..., None]
-    return out_proj(out.reshape(b, 1, -1).to(x.dtype)), cache
+    return out.reshape(b, 1, -1)
 
 
 def _chunked_attention(q, k, v, scale, causal, window, q_chunk):
@@ -320,8 +364,13 @@ def cross_attn_init(cfg) -> dict:
 
 def cross_attn_kv(p: dict, cfg, enc: torch.Tensor) -> dict:
     """The encoder's K/V, computed once at prefill and reused by every
-    decode step: enc (B, S, d) -> {"k", "v"} (B, S, G, hd)."""
+    decode step: enc (B, S, d) -> {"k", "v"} (B, S, G, hd). Inside a
+    `tp.scope` the KV heads this rank's cross cache holds (`_tp_kv`:
+    G/M of them where G % M == 0, else all G), over all S positions."""
     hd = cfg.hd
+    if tp.active() is not None:
+        k, v = _tp_kv(p, cfg, enc, tp.copy_to_model(enc), _no_rope)
+        return {"k": k, "v": v}
     return {"k": _split_heads(enc @ p["wk"], cfg.num_kv_heads, hd),
             "v": _split_heads(enc @ p["wv"], cfg.num_kv_heads, hd)}
 
@@ -329,9 +378,29 @@ def cross_attn_kv(p: dict, cfg, enc: torch.Tensor) -> dict:
 def cross_attn_apply(p: dict, cfg, x: torch.Tensor, kv: dict
                      ) -> torch.Tensor:
     """Non-causal attention of x (B, T, d) over all S encoder positions,
-    no mask and no RoPE (the einsum path)."""
+    no mask and no RoPE (the einsum path). Inside a `tp.scope` on this
+    rank's q heads (`_tp_q`) over the KV heads of `kv`
+    (`cross_attn_kv`'s); where the cache holds a block of the encoder
+    positions over "data" (`tp.cross_over_data`, and in a decode step
+    its leaf is shorter than `cfg.encoder_len`), the ranks' partial
+    softmaxes are combined, every position valid."""
     hd = cfg.hd
-    q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
-    scores = _gqa_scores(q, kv["k"], _scale(hd))
-    probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, kv["v"]).to(x.dtype) @ p["wo"]
+    if tp.active() is not None:
+        q, out_proj, pick = _tp_q(p, cfg, x, tp.copy_to_model(x), _no_rope)
+    else:
+        q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
+
+        def out_proj(out):
+            return out @ p["wo"]
+
+        def pick(z):
+            return z
+    k, v = pick(kv["k"]), pick(kv["v"])
+    scores = _gqa_scores(q, k, _scale(hd))
+    s = k.shape[1]
+    if tp.cross_over_data() is not None and s != cfg.encoder_len:
+        out = _combined(scores, torch.ones((s,), dtype=torch.bool,
+                                           device=x.device), v, cross=True)
+    else:
+        out = _gqa_out(torch.softmax(scores, dim=-1), v)
+    return out_proj(out.to(x.dtype))

@@ -45,8 +45,10 @@ apart from the round's.
 
 A leaf's split is read from its local width against the config: the
 model code compares each leaf's shape with the global one and runs the
-sharded form only where the leaf is a block. Families whose blocks the
-port cannot split raise `NotImplementedError` (`check_supported`).
+sharded form only where the leaf is a block. Every family of the
+registry runs so: attention (GQA / MQA or MLA; Whisper's encoder and
+its cross-attention, Qwen2-VL's M-RoPE), Mamba and RWKV-6 blocks, each
+with a dense or MoE FFN.
 
 Training and serving run in the same scope. In serving the logits stay
 vocab-parallel through the model, and a step gathers only the positions
@@ -81,7 +83,10 @@ The sequential round and the FSDP serving steps enter such a scope
 (`core/fl.py`, `launch/steps.py`). With `seq_over_data` the decode
 cache's sequence dim is a block of positions over "data" (a batch that
 does not split there, long_500k's B = 1): attention combines its ranks'
-partial softmaxes as flash-decoding does (`combine_over_data`).
+partial softmaxes as flash-decoding does (`combine_over_data`). The
+cross-attention cache's encoder positions follow their own length
+(`cross_over_data`): on "data" where it divides there, else whole on
+every rank, whatever the self-attention cache does.
 """
 from __future__ import annotations
 
@@ -97,9 +102,6 @@ MODEL_AXES = ("model",)
 DATA_AXES = ("data",)
 SCOPE = "tp"
 FSDP_SCOPE = "fsdp"
-UNSUPPORTED = ("ROADMAP Queue 1 item 13d: tensor-parallel execution of "
-               "this family (Whisper's encoder and cross-attention, "
-               "Qwen2-VL's vision prefix and M-RoPE)")
 
 
 class _Scope(NamedTuple):
@@ -107,6 +109,7 @@ class _Scope(NamedTuple):
     rows_over_data: bool
     specs: object
     seq_over_data: bool
+    cross_over_data: bool
 
 
 _SCOPES: list = []  # the _Scopes entered
@@ -114,7 +117,7 @@ _SCOPES: list = []  # the _Scopes entered
 
 @contextlib.contextmanager
 def scope(mesh, *, rows_over_data: bool = False, specs=None,
-          seq_over_data: bool = False):
+          seq_over_data: bool = False, cross_over_data: bool = False):
     """Run model code inside with its model-sharded leaves as this
     rank's blocks over `mesh`'s "model" axis. With `rows_over_data` the
     batch rows are split over "data" (serving; the sequential round),
@@ -122,8 +125,10 @@ def scope(mesh, *, rows_over_data: bool = False, specs=None,
     index's rows. `specs`, the UNSTACKED spec tree of the params, puts
     their FSDP dims on "data": each group's leaves are gathered over
     "data" where it runs. With `seq_over_data` the decode cache holds a
-    block of the positions."""
-    _SCOPES.append(_Scope(mesh, rows_over_data, specs, seq_over_data))
+    block of the positions; with `cross_over_data` the cross-attention
+    cache a block of the encoder's."""
+    _SCOPES.append(_Scope(mesh, rows_over_data, specs, seq_over_data,
+                          cross_over_data))
     try:
         yield mesh
     finally:
@@ -160,6 +165,17 @@ def seq_over_data():
     return None
 
 
+def cross_over_data():
+    """The mesh of the innermost scope when the cross-attention cache's
+    encoder positions are split over a "data" axis of more than one
+    rank, else None."""
+    mesh = active()
+    if mesh is not None and _SCOPES[-1].cross_over_data \
+            and mesh.client_size > 1:
+        return mesh
+    return None
+
+
 def param_specs():
     """The innermost scope's UNSTACKED param spec tree where its "data"
     axis has more than one rank (FSDP), else None."""
@@ -189,30 +205,6 @@ def split(local: int, whole: int) -> int:
         raise ValueError(f"a block of {local} of a dim of {whole} is not "
                          f"one of {m} blocks over the model axis")
     return m
-
-
-def covers(cfg) -> bool:
-    """Whether tensor-parallel execution covers `cfg`'s family, in
-    training and in serving alike: the decoder-only configs of attention
-    (GQA / MQA or MLA), Mamba and RWKV-6 blocks, each attention or Mamba
-    block with a dense or MoE FFN."""
-    return (not cfg.encoder_layers and not cfg.vision_prefix
-            and cfg.rope_style != "mrope"
-            and all(kind in ("attn", "mamba", "rwkv")
-                    for kind, _ in cfg.layer_kinds()))
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError (naming item 13d) for a config whose
-    blocks tensor-parallel execution does not cover (`covers`), inside a
-    scope of more than one rank: the port never falls back to whole
-    models there. The step builders refuse first, naming the use."""
-    if active() is None or covers(cfg):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: tensor-parallel execution: {UNSUPPORTED}; the "
-        "decoder-only configs (GQA / MQA or MLA, Mamba, RWKV-6; dense or "
-        "MoE) run tensor-parallel")
 
 
 # ---------------------------------------------------- the collectives
@@ -574,10 +566,11 @@ def rows_mean(total: torch.Tensor, count: torch.Tensor,
                             + aux / mesh.client_size)
 
 
-def own_positions(c: torch.Tensor) -> torch.Tensor:
+def own_positions(c: torch.Tensor, cross: bool = False) -> torch.Tensor:
     """This rank's block of a prefill cache's positions (dim 1) where the
-    scope puts the sequence on "data"; the cache as it is otherwise."""
-    mesh = seq_over_data()
+    scope puts the sequence on "data" (`cross`: the cross-attention
+    cache's encoder positions); the cache as it is otherwise."""
+    mesh = cross_over_data() if cross else seq_over_data()
     if mesh is None:
         return c
     step = c.shape[1] // mesh.client_size
@@ -598,16 +591,18 @@ def seq_block(local: int) -> int:
     return 0 if mesh is None else mesh.client_index * local
 
 
-def combine_over_data(scores: torch.Tensor, valid: torch.Tensor, values):
+def combine_over_data(scores: torch.Tensor, valid: torch.Tensor, values,
+                      cross: bool = False):
     """The attention of a decode step over the positions of every data
-    rank, each holding a block of them (`seq_over_data`), as
-    flash-decoding combines its splits: scores (..., S_loc) f32 and
+    rank, each holding a block of them (`seq_over_data`; `cross`: the
+    encoder positions of the cross-attention cache, `cross_over_data`),
+    as flash-decoding combines its splits: scores (..., S_loc) f32 and
     `valid` masking this rank's positions; `values(p)` is this rank's
     partial output for weights p (..., S_loc). One all-reduce of the
     maxima over "data", then one of the exp-sums and the partial
     outputs. Returns (output, sums): the summed partial outputs and the
     summed exp-sums (...,), by which the caller divides them."""
-    mesh = seq_over_data()
+    mesh = cross_over_data() if cross else seq_over_data()
     scores = torch.where(valid, scores, -1e30)
     top = torch.amax(scores, dim=-1, keepdim=True)
     with mesh.scope(SCOPE):

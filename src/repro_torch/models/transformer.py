@@ -252,8 +252,10 @@ def _block(bp, cfg, kind, is_moe, x, ctx, cache, mode):
             kv = attention.cross_attn_kv(bp["cross"], cfg, ctx["enc"])
         x = x + attention.cross_attn_apply(bp["cross"], cfg, hc, kv)
         if mode == "prefill":
-            new_cache = dict(new_cache or {}, cross_k=kv["k"],
-                             cross_v=kv["v"])
+            # where the cross cache lies on "data", this rank's block
+            new_cache = dict(new_cache or {}, **{
+                f"cross_{n}": tp.own_positions(kv[n], cross=True)
+                for n in ("k", "v")})
     hf = layers.norm_apply(bp["norm2"], x)
     if is_moe:
         yf, aux = moe.moe_apply(bp["ffn"], cfg, hf)
@@ -270,7 +272,7 @@ def _encoder_block(bp, cfg, x):
                                   causal=False)
     x = x + y
     hf = layers.norm_apply(bp["norm2"], x)
-    return x + layers.mlp_apply(bp["ffn"], hf, cfg.mlp)
+    return x + layers.mlp_apply(bp["ffn"], hf, cfg.mlp, cfg.d_ff)
 
 
 def _run_stack(blocks, cfg, x, ctx, mode, cache=None, *, encoder=False):
@@ -311,10 +313,13 @@ _CTX_TENSORS = ("cos", "sin", "enc")  # the tensors of ctx a block reads
 
 def _group_specs(n: int, encoder: bool) -> list:
     """Each block position's part of the scope's UNSTACKED spec tree
-    under "blocks" inside an FSDP scope (`tp.param_specs`), else Nones."""
+    under "blocks" (the encoder's under "encoder") inside an FSDP scope
+    (`tp.param_specs`), else Nones."""
     specs = tp.param_specs()
-    if specs is None or encoder:
+    if specs is None:
         return [None] * n
+    if encoder:
+        specs = specs["encoder"]
     return [specs["blocks"][f"p{i}"] for i in range(n)]
 
 
@@ -385,14 +390,16 @@ def _embed(table, cfg, tokens):
     return table[tokens]
 
 
-def _whole(params, name: str):
-    """The top-level leaf (or subtree) `name` whole over "data" inside an
-    FSDP scope (`tp.gather_params` on its part of the scope's spec
+def _whole(params, *keys: str):
+    """The leaf (or subtree) at dict path `keys` whole over "data" inside
+    an FSDP scope (`tp.gather_params` on its part of the scope's spec
     tree), as it is otherwise: gathered at its use."""
     specs = tp.param_specs()
-    if specs is None:
-        return params[name]
-    return tp.gather_params(params[name], specs[name])
+    tree = params
+    for key in keys:
+        tree = tree[key]
+        specs = None if specs is None else specs[key]
+    return tree if specs is None else tp.gather_params(tree, specs)
 
 
 def embed_inputs(params, cfg, batch):
@@ -416,7 +423,6 @@ def _prologue(params, cfg, batch, table):
     """The embedded inputs (`table`: the embedding, whole over "data")
     with their positions, and the encoder's output for enc-dec models.
     Returns (x, text_offset, ctx)."""
-    tp.check_supported(cfg)
     x, text_offset = _embed_inputs(table, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, batch, b, t, device=x.device)
@@ -428,7 +434,8 @@ def _prologue(params, cfg, batch, table):
         enc = batch["enc_embeds"].to(x.dtype)  # stub frame embeddings
         enc, _, _ = _run_stack(params["encoder"]["blocks"], cfg, enc, {},
                                "train", encoder=True)
-        enc = layers.norm_apply(params["encoder"]["final_norm"], enc)
+        enc = layers.norm_apply(_whole(params, "encoder", "final_norm"),
+                                enc)
     ctx = {"cos": cos, "sin": sin, "pos": None,
            "window": cfg.sliding_window, "enc": enc, "max_len": t}
     return x, text_offset, ctx
@@ -582,7 +589,6 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int,
     Inside a `tp.scope` the cache is this rank's blocks and the logits
     its vocab block, as `forward`'s."""
     pos = int(pos)
-    tp.check_supported(cfg)
     table = _whole(params, "embed")
     x = _embed(table, cfg, token)
     if not cfg.tie_embeddings:

@@ -2,15 +2,18 @@
 `launch.mesh.make_trace_mesh`) against a real rank and against the JAX
 package's per-device program.
 
-Five steps at the smoke configs on a (2, 4) ("data", "model") mesh:
+Seven steps at the smoke configs on a (2, 4) ("data", "model") mesh:
 gemma-2b's parallel train step (flat_sharded, tensor-parallel over
 "model"), deepseek-v2-lite-16b's sequential train step (FSDP over
 "data", MLA + MoE, stale angles, T = 40 so that the MoE's gathered rows
 (80) and capacity (56) are dims no other product has), gemma-2b's
 `fsdp=True` prefill (B = 4, rows over "data") and its `fsdp=True`
-decode at B = 1 (the cache's sequence on "data"), and
+decode at B = 1 (the cache's sequence on "data"),
 jamba-1.5-large-398b's parallel train step (Mamba + attention + MoE
-tensor-parallel, the selective scan one op a pass).
+tensor-parallel, the selective scan one op a pass), whisper-small's
+parallel train step (the encoder stack and the cross-attention on the
+rank's heads) and qwen2-vl-2b's prefill (the vision prefix and M-RoPE
+on the rank's heads, its (3, B, T) positions cut on their B dim).
 
 (a) One gloo world of 8 CPU ranks (`torch.multiprocessing` spawn,
     `file://` store) runs the four steps for real under
@@ -30,9 +33,10 @@ tensor-parallel, the selective scan one op a pass).
     (`_counted`), with at most 5% left uncounted. The two collective
     histograms are printed side by side, not held equal: XLA's
     partitioner picks its own collectives.
-(c) A family tensor-parallel execution does not cover (whisper-smoke)
-    keeps the ideal partition, and its note names item 13d; a covered
-    recurrent one (rwkv6-smoke) takes the rank partition.
+(c) Whisper (whisper-smoke), which kept the ideal partition until its
+    encoder and cross-attention ran tensor-parallel, takes the rank
+    partition, with its "tp" collectives, as the recurrent rwkv6-smoke
+    does.
 (d) A trace-mesh collective on a CPU tensor raises.
 """
 import json
@@ -63,6 +67,8 @@ CASES = {
     "fsdp_prefill": ("gemma-2b", "prefill", 64, 4, {"fsdp": True}),
     "seq_decode": ("gemma-2b", "decode", 130, 1, {"fsdp": True}),
     "jamba_tp_train": ("jamba-1.5-large-398b", "train", 64, 4, {}),
+    "whisper_tp_train": ("whisper-small", "train", 64, 4, {}),
+    "qwen_prefill": ("qwen2-vl-2b", "prefill", 64, 4, {}),
 }
 DECODE_POS = 5
 
@@ -84,6 +90,23 @@ def _build(case, mesh):
     built = _builder(steps, kind)(cfg, mesh,
                                   shapes.InputShape(case, t, b, kind), **kw)
     return (cfg,) + tuple(built)
+
+
+def _batch(args_batch, cfg, rng) -> dict:
+    """Seeded numpy-drawn tensors of a step's batch shapes: token ids in
+    the vocab, M-RoPE positions in the sequence, the stub embeddings
+    normal."""
+    out = {}
+    for key, x in args_batch.items():
+        shape = tuple(x.shape)
+        if key == "tokens":
+            v = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        elif key == "positions":
+            v = rng.integers(0, shape[-1], shape).astype(np.int32)
+        else:
+            v = rng.standard_normal(shape).astype(np.float32)
+        out[key] = torch.from_numpy(v)
+    return out
 
 
 def _whole_batch(case, meta) -> bool:
@@ -116,8 +139,7 @@ def _real_rank(case, mesh) -> dict:
         state = state._replace(
             params=sharding.shard_params(state.params, mesh, specs),
             prev_delta=sharding.shard_params(state.prev_delta, mesh, specs))
-        whole = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, args[1]["tokens"].shape).astype(np.int32))}
+        whole = _batch(args[1], cfg, rng)
         rows = steps.local_batch(whole, ins[1], mesh)
         k = meta["K"]
         tail = (torch.arange(k, dtype=torch.int32),
@@ -126,12 +148,12 @@ def _real_rank(case, mesh) -> dict:
         call = (state, whole if _whole_batch(case, meta) else rows) + tail
         counted = (state, rows) + tail
     else:
-        specs = sharding.param_pspecs(args[0], mesh, fsdp=True)
+        specs = sharding.param_pspecs(args[0], mesh,
+                                      fsdp=CASES[case][4].get("fsdp", False))
         params = transformer.init_params(gen, cfg, mesh=mesh, specs=specs)
         if kind == "prefill":
-            call = (params, steps.local_batch({"tokens": torch.from_numpy(
-                rng.integers(0, cfg.vocab_size, args[1]["tokens"].shape)
-                .astype(np.int32))}, ins[1], mesh))
+            call = (params, steps.local_batch(_batch(args[1], cfg, rng),
+                                              ins[1], mesh))
         else:
             b, s = meta["B"], meta["S"]
             token = torch.from_numpy(rng.integers(
@@ -194,7 +216,8 @@ def _traced_rank(case, rank: int) -> dict:
             out["moe_flops"] = _moe_flops(
                 trace.ops, {out["moe_rows"], out["moe_capacity"]})
         out["cfg"] = {"groups": cfg.num_pattern_groups, "d": cfg.d_model,
-                      "d_ff": cfg.d_ff,
+                      "d_ff": cfg.d_ff, "encoder_layers": cfg.encoder_layers,
+                      "encoder_len": cfg.encoder_len,
                       "d_ff_expert": cfg.moe.d_ff_expert if cfg.moe else 0,
                       "shared": cfg.moe.num_shared if cfg.moe else 0,
                       "experts": cfg.moe.num_experts if cfg.moe else 0}
@@ -354,13 +377,15 @@ def _counted(case, traced) -> dict:
     data = MESH[0]
     t, b = CASES[case][2], CASES[case][3]
     out = {}
-    if case == "tp_train":
+    if case in ("tp_train", "whisper_tp_train"):
         # XLA's dead-code elimination drops each group's recomputed
         # w_down, whose output the backward never reads (as in
-        # test_torch_dryrun.py's (e)); the rank's block of it
-        tokens = (meta["K"] // data) * meta["B"] * t
-        out["recomputed w_down"] = (cfg["groups"] * 2 * tokens * cfg["d_ff"]
-                                    * cfg["d"] / MESH[1])
+        # test_torch_dryrun.py's (e)); the rank's block of it, in the
+        # encoder's groups too (over its encoder_len frames)
+        rows = (meta["K"] // data) * meta["B"]
+        out["recomputed w_down"] = (
+            (cfg["groups"] * t + cfg["encoder_layers"] * cfg["encoder_len"])
+            * rows * 2 * cfg["d_ff"] * cfg["d"] / MESH[1])
     if case == "fsdp_train":
         # the port routes every data index's rows together and runs the
         # experts (routed and shared) on all of them with the model
@@ -403,13 +428,18 @@ def test_record_flops_equal_the_jax_per_device_hlo(worlds, case):
 
 
 def test_uncovered_family_keeps_the_ideal_partition():
+    """Whisper, the family the dry run traced whole ("ideal") until its
+    encoder and cross-attention ran tensor-parallel: its record is rank
+    0's program, with its "tp" collectives (the cross cache's KV heads
+    on "model")."""
     from repro_torch.launch import dryrun
 
     rec = dryrun.run_one("whisper-small-smoke", "decode_32k", verbose=False)
-    assert rec["partition"] == "ideal" and rec["collectives"] == {}
-    assert "item 13d" in rec["collectives_note"]
-    assert rec["memory"]["temp_bytes"] == (
-        rec["global"]["temp_bytes"] // rec["devices"])
+    assert rec["partition"] == "rank" and rec["rank"] == 0
+    assert rec["collectives"]["by_scope"]["tp"]["count"] > 0
+    assert rec["live_bytes"] == (
+        rec["memory"]["argument_bytes"] + rec["memory"]["output_bytes"]
+        + rec["memory"]["temp_bytes"] - rec["memory"]["alias_bytes"])
 
 
 def test_recurrent_family_takes_the_rank_partition():

@@ -22,8 +22,10 @@ both axes. Held at 1e-5:
   jamba-1.5-large-398b cut to one Mamba and one attention layer (the
   selective scan and its backward on each rank's d_inner channels;
   the whole smoke config's sequential round takes the JAX package
-  minutes to compile); `stale_angles`, fedavg and
-  `angle_filter="dense_only"` cases.
+  minutes to compile) and whisper-small (its encoder's groups gathered
+  over "data" as the decoder's, the encoder's final norm's cotangent
+  summed over the split rows; each client's stub frame embeddings);
+  `stale_angles`, fedavg and `angle_filter="dense_only"` cases.
 * **Serving.** `build_prefill_step` / `build_decode_step` with
   `fsdp=True`: the prefill's last logits and 3 decode steps' logits
   against the JAX package's unsharded `forward(mode="prefill")` and
@@ -33,8 +35,15 @@ both axes. Held at 1e-5:
   ring wraps, and its slots cross the ranks' blocks),
   deepseek-v2-lite-16b at B = 4 and B = 1 (the MLA latents on "data"),
   jamba-1.5-large-398b at B = 4 (Mamba's state replicated over "data"
-  where the rows are, its attention cache's sequence on "data") and
-  rwkv6-3b at B = 1 (the WKV state replicated over "data").
+  where the rows are, its attention cache's sequence on "data"),
+  rwkv6-3b at B = 1 (the WKV state replicated over "data"),
+  whisper-small at B = 1 twice: with its encoder_len of 32 both caches'
+  sequences lie on "data" and each decode step combines the ranks'
+  partial softmaxes over the cross cache too; with an encoder_len of 33,
+  which divides no data axis, the cross cache is whole on every rank
+  while the self-attention cache lies on "data"; and qwen2-vl-2b at
+  B = 4 (explicit M-RoPE positions that differ by row, decoding at
+  P + T + i).
 
 Also held: the ranks bit for bit (every rank's round; the ranks of a
 data index's logits); every param, prev_delta and cache leaf of its
@@ -70,7 +79,7 @@ T = 64
 K = 16  # the step builder's clients a sequential round
 GLOBAL_B = 2 * K  # B = 2 rows a client: split over 2 data ranks only
 ARCHS = ("gemma-2b", "minitron-4b", "deepseek-v2-lite-16b", "rwkv6-3b",
-         "jamba-1.5-large-398b")
+         "jamba-1.5-large-398b", "whisper-small", "qwen2-vl-2b")
 # case -> (config, mesh, build_train_step keywords; "changes" cuts the
 # config, whose init is then the case's own)
 # (the rows split over "data" on 2x4, are replicated on 8x1 and 4x2;
@@ -87,8 +96,10 @@ ROUND_CASES = {
     "jamba-1.5-large-398b/2x4": (
         "jamba-1.5-large-398b", "2x4",
         {"changes": {"num_layers": 2, "block_pattern": ("mamba", "attn")}}),
+    "whisper-small/2x4": ("whisper-small", "2x4", {}),
 }
 METRIC_KEYS = ("loss", "theta", "weights", "divergence")
+MULTIMODAL = ("whisper-small", "qwen2-vl-2b")  # configs with stub inputs
 # serving: case -> (config, its changes, B)
 SERVE_CASES = {
     "gemma-2b/B4": ("gemma-2b", {}, 4),
@@ -98,6 +109,9 @@ SERVE_CASES = {
     "deepseek-v2-lite-16b/B1": ("deepseek-v2-lite-16b", {}, 1),
     "jamba-1.5-large-398b/B4": ("jamba-1.5-large-398b", {}, 4),
     "rwkv6-3b/B1": ("rwkv6-3b", {}, 1),
+    "whisper-small/B1": ("whisper-small", {}, 1),
+    "whisper-small-enc33/B1": ("whisper-small", {"encoder_len": 33}, 1),
+    "qwen2-vl-2b/B4": ("qwen2-vl-2b", {}, 4),
 }
 STEPS = 3
 EDGE = 65  # a rank's positions of a cache split over "data"
@@ -113,9 +127,10 @@ SERVE_MESHES = ("8x1", "2x4", "4x2")  # every mesh with a data axis
 
 def case_seed(case):
     """A round case's seed: its place in name order, the cut configs'
-    cases after the others."""
+    cases after the others, the families with stub inputs last."""
     return 3 + sorted(ROUND_CASES, key=lambda c: (
-        "changes" in ROUND_CASES[c][2], c)).index(case)
+        ROUND_CASES[c][0] in MULTIMODAL, "changes" in ROUND_CASES[c][2],
+        c)).index(case)
 
 
 def arch_seed(arch):
@@ -142,6 +157,13 @@ def cache_len(mname):
 def round_tokens(case, vocab):
     rng = np.random.default_rng(case_seed(case))
     return rng.integers(0, vocab, (K, 1, GLOBAL_B // K, T)).astype(np.int32)
+
+
+def round_batch(case, cfg) -> dict:
+    """A round case's batches (numpy): the tokens and the family's stub
+    inputs (`test_torch_tp.extras`)."""
+    return {"tokens": round_tokens(case, cfg.vocab_size),
+            **tpt.extras(cfg, (K, 1), GLOBAL_B // K, T, case_seed(case))}
 
 
 def prev_delta0(params, case):
@@ -180,6 +202,14 @@ def decode_tokens(case):
     _, _, b = SERVE_CASES[case]
     rng = np.random.default_rng(200 + serve_seed(case))
     return rng.integers(0, 512, (STEPS, b, 1)).astype(np.int32)
+
+
+def prompt_batch(case, cfg) -> dict:
+    """A serving case's prefill batch (numpy): the prompt and the
+    family's stub inputs."""
+    _, _, b = SERVE_CASES[case]
+    return {"tokens": prompt(case),
+            **tpt.extras(cfg, (), b, T, serve_seed(case))}
 
 
 # ------------------------------------------------------------ the JAX side
@@ -233,9 +263,9 @@ def jax_main(out_dir):
             angle=AngleState(jnp.asarray(sm0), jnp.asarray(cnt0)),
             prev_delta=jax.tree.map(jnp.asarray,
                                     prev_delta0(inits[init_key], case)))
-        st, m = rf(st, {"tokens": jnp.asarray(round_tokens(
-            case, cfg.vocab_size))}, jnp.arange(K, dtype=jnp.int32),
-            jnp.asarray(sizes()))
+        st, m = rf(st, {k: jnp.asarray(v)
+                        for k, v in round_batch(case, cfg).items()},
+                   jnp.arange(K, dtype=jnp.int32), jnp.asarray(sizes()))
         res[f"round/{case}/params"] = np.asarray(jtm.tree_ravel(
             st.params)[0])
         res[f"round/{case}/prev_delta"] = np.asarray(jtm.tree_ravel(
@@ -247,15 +277,17 @@ def jax_main(out_dir):
     for case, (arch, changes, _) in SERVE_CASES.items():
         cfg = _jax_cfg(arch, changes)
         params = jax.tree.map(jnp.asarray, inits[arch])
-        logits, _, cache = jax.jit(lambda p, t, cfg=cfg: jtr.forward(
-            p, cfg, {"tokens": t}, mode="prefill", max_len=T + STEPS + 1))(
-            params, jnp.asarray(prompt(case)))
+        p = cfg.vision_prefix
+        logits, _, cache = jax.jit(lambda prm, bt, cfg=cfg: jtr.forward(
+            prm, cfg, bt, mode="prefill", max_len=p + T + STEPS + 1))(
+            params, {k: jnp.asarray(v)
+                     for k, v in prompt_batch(case, cfg).items()})
         out = [np.asarray(logits[:, -1:])]
-        step = jax.jit(lambda p, tok, c, pos, cfg=cfg: jtr.decode_step(
-            p, cfg, tok, c, pos))
+        step = jax.jit(lambda prm, tok, c, pos, cfg=cfg: jtr.decode_step(
+            prm, cfg, tok, c, pos))
         for i, tok in enumerate(decode_tokens(case)):
             logits, cache = step(params, jnp.asarray(tok), cache,
-                                 jnp.int32(T + i))
+                                 jnp.int32(p + T + i))
             out.append(np.asarray(logits))
         res[f"serve/{case}"] = np.concatenate(out, axis=1)
     tpt._save(os.path.join(out_dir, "jax.npz"), res)
@@ -286,8 +318,8 @@ def fsdp_collectives(shapes, specs, mesh, trainings, split) -> dict:
     """{op: (count, bytes)} of a rank's "fsdp" collectives over
     `trainings` client trainings of one local step, from the shapes: per
     training the embedding and the head gathered once and each block
-    leaf with an FSDP dim twice (the forward, the group's backward
-    rerun); where the rows are `split` over "data", also each of those
+    leaf (the encoder's too) with an FSDP dim twice (the forward, the
+    group's backward rerun); where the rows are `split` over "data", also each of those
     leaves' gathered cotangent reduce-scattered, every leaf with no FSDP
     dim's cotangent all-reduced over "data", and the loss's token count
     and value (4 B each); replicated rows take their slice of a
@@ -309,12 +341,12 @@ def fsdp_collectives(shapes, specs, mesh, trainings, split) -> dict:
     for path, x, spec in zip(treemath.tree_paths(shapes),
                              treemath.tree_leaves(shapes),
                              treemath.tree_leaves_like(shapes, specs)):
-        groups = x.shape[0] if path[0] == "blocks" else 1
+        stacked = "blocks" in path  # the decoder's or the encoder's groups
+        groups = x.shape[0] if stacked else 1
         nbytes = math.prod(NamedSpec(mesh, spec).shard_shape(
             tuple(x.shape))) * x.element_size() // groups
         if tp.data_dim(spec) >= 0:
-            add("all_gather", (2 if path[0] == "blocks" else 1) * groups,
-                nbytes)
+            add("all_gather", (2 if stacked else 1) * groups, nbytes)
             if split:
                 add("reduce_scatter", groups, nbytes * mesh.client_size)
         elif split:
@@ -347,8 +379,9 @@ def _port_round(case, mesh, params_np):
     st = st._replace(params=sharding.shard_params(st.params, mesh, specs),
                      prev_delta=sharding.shard_params(st.prev_delta, mesh,
                                                       specs))
-    batch = steps.local_batch({"tokens": torch.from_numpy(round_tokens(
-        case, cfg.vocab_size))}, in_specs[1], mesh)
+    batch = steps.local_batch({k: torch.from_numpy(v) for k, v in
+                               round_batch(case, cfg).items()},
+                              in_specs[1], mesh)
     with mesh.recording() as log:
         st, m = fn(st, batch, torch.arange(K, dtype=torch.int32),
                    torch.from_numpy(sizes()))
@@ -397,15 +430,17 @@ def _port_serve(case, mname, mesh, params_np):
     decode, dargs, din, _, _ = steps.build_decode_step(
         cfg, mesh, shapes.InputShape("decode", s, b, "decode"), fsdp=True)
     cspecs = sharding.cache_pspecs(dargs[2], mesh)
-    tokens = steps.local_batch({"tokens": torch.from_numpy(prompt(case))},
-                               pin[1], mesh)
+    batch = steps.local_batch({k: torch.from_numpy(v) for k, v in
+                               prompt_batch(case, cfg).items()},
+                              pin[1], mesh)
     out = []
     with torch.no_grad():
-        logits, cache = prefill(params, tokens)
+        logits, cache = prefill(params, batch)
         out.append(logits)
         for tok in decode_tokens(case):
             tok = sharding.block(torch.from_numpy(tok), mesh, din[1].spec)
-            logits, cache = decode(params, tok, cache, T + len(out) - 1)
+            logits, cache = decode(params, tok, cache,
+                                   cfg.vision_prefix + T + len(out) - 1)
             out.append(logits)
     prefix = f"serve/{case}/{mname}"
     rows = sharding.block(torch.arange(b)[:, None], mesh,
@@ -417,14 +452,22 @@ def _port_serve(case, mname, mesh, params_np):
                 and _shapes_ok(params, meta_params, specs, mesh)),
             f"{prefix}/seq_on_data": np.asarray(any(
                 len(sp) > 2 and sp[2] == "data"
-                for sp in _leaf_specs(cspecs)))}
+                for sp in _leaf_specs(cspecs))),
+            f"{prefix}/cross_on_data": np.asarray(any(
+                sp[2] == "data" for key, sp in _named_specs(cspecs)
+                if key.startswith("cross_")))}
 
 
 def _leaf_specs(tree):
     """The spec tuples of a spec tree's part."""
+    return [s for _, s in _named_specs(tree)]
+
+
+def _named_specs(tree, name=""):
+    """(leaf name, spec tuple) of each leaf of a spec tree's part."""
     if isinstance(tree, dict):
-        return [s for v in tree.values() for s in _leaf_specs(v)]
-    return [tree]
+        return [p for k, v in tree.items() for p in _named_specs(v, k)]
+    return [(name, tree)]
 
 
 def _reduce_scatter_check(mesh):
@@ -564,6 +607,11 @@ def test_fsdp_prefill_and_decode_match_the_jax_model(worlds, case, mname):
         # cache's sequence there (the recurrent state has none)
         assert bool(p[f"{prefix}/seq_on_data"]) == (
             attention and b % MESHES[mname][0] != 0), prefix
+        # the cross cache's encoder positions follow their own length
+        cfg = port_cfg(arch, changes)
+        assert bool(p[f"{prefix}/cross_on_data"]) == (
+            cfg.encoder_layers > 0 and b % MESHES[mname][0] != 0
+            and cfg.encoder_len % MESHES[mname][0] == 0), prefix
 
 
 @pytest.mark.parametrize("mname", SERVE_MESHES)

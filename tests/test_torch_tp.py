@@ -17,8 +17,14 @@ from the JAX init (written first, read by the world). Held:
   (MLA + MoE: E = 4 expert-parallel on M = 2 and 4, each expert's last
   dim split on M = 8; also with `angle_filter="dense_only"` on (2, 4)),
   jamba-1.5-large-398b (Mamba + attention + MoE: the selective scan on
-  each rank's d_inner channels) and rwkv6-3b (the chunked WKV on each
-  rank's heads), against the JAX package's
+  each rank's d_inner channels), rwkv6-3b (the chunked WKV on each
+  rank's heads), whisper-small (the encoder stack and each block's
+  cross-attention on the rank's heads, flash in the decoder; also with
+  an odd vocab of 515, which divides no model axis, so the tied
+  embedding and head split on d_model) and qwen2-vl-2b (the vision
+  prefix, M-RoPE from explicit (3, B, T) position streams that differ
+  by row), each client's batch with its seeded stub embeddings, against
+  the JAX package's
   unsharded tree round jitted, over 2 rounds at 1e-5 (rwkv6's second
   at `LATER_ROUND_TOL`): params, prev_delta, the smoothed angles, loss,
   theta, weights, divergence.
@@ -44,11 +50,11 @@ from the JAX init (written first, read by the world). Held:
   metrics, bit for bit (ranks past 0 hand in a large array's digest); no all_gather outside the "tp" scope is as
   large as the smallest model-sharded block; each rank's params and
   prev_delta leaves have their `NamedSpec(mesh, spec).shard_shape`.
-* **Refusals**, in this process: NotImplementedError naming item 13d
-  for a family it leaves out (Whisper: the step builder and the model;
-  RWKV-6 and Jamba build),
-  and for buffered rounds, a quantized downlink and FedProx's sequential
-  round with `param_specs`.
+* **In this process:** the tensor-parallel train step builds for
+  Whisper, RWKV-6 and Jamba, and Whisper's loss runs on a rank's blocks
+  over a trace mesh with its "tp" collectives; NotImplementedError
+  naming item 13d for buffered rounds, a quantized downlink and
+  FedProx's sequential round with `param_specs`.
 
 The launcher off the host mesh runs on a second gloo world of 2 CPU
 ranks: its losses equal the host-mesh launcher's at 1e-5, a resumed run
@@ -90,15 +96,20 @@ ARCHS = {
     "deepseek-v2-lite-16b": ({}, "xla"),
     "jamba-1.5-large-398b": ({}, "xla"),
     "rwkv6-3b": ({}, "xla"),
+    "whisper-small": ({}, "flash"),
+    "whisper-small-v515": ({"vocab_size": 515}, "flash"),
+    "qwen2-vl-2b": ({}, "xla"),
 }
+VARIANT_OF = {"whisper-small-v515": "whisper-small"}  # case -> config
 STEP_CASES = [(a, m) for a in ARCHS for m in MESHES]
 # build_train_step(angle_filter="dense_only"): the angles over the
 # params outside the routed experts
 DENSE_ONLY_CASES = [("deepseek-v2-lite-16b", "2x4")]
 RECURRENT = ("jamba-1.5-large-398b", "rwkv6-3b")
+MULTIMODAL = ("whisper-small", "whisper-small-v515", "qwen2-vl-2b")
 SEED_ORDER = sorted(a for a in ARCHS if not a.startswith("deepseek")
-                    and a not in RECURRENT) + [
-    "deepseek-v2-lite-16b", *RECURRENT]
+                    and a not in RECURRENT + MULTIMODAL) + [
+    "deepseek-v2-lite-16b", *RECURRENT, *MULTIMODAL]
 INT8_CASES = {"gemma-2b": "2x4", "minitron-4b": "4x2"}
 INT8_K, INT8_TAU = 4, 2
 WHOLE_CASES = [("gemma-2b", "2x4"), ("starcoder2-15b", "4x2"),
@@ -125,6 +136,39 @@ def client_count(mname):
 def tokens(seed, r, k, tau, b, vocab):
     rng = np.random.default_rng(1000 * seed + r)
     return rng.integers(0, vocab, (k, tau, b, T)).astype(np.int32)
+
+
+def extras(cfg, lead: tuple, b: int, t: int, seed: int) -> dict:
+    """The stub inputs of `cfg`'s family for a batch of b rows of t text
+    tokens under the leading dims `lead` (numpy, from `seed`): Whisper's
+    (..., b, encoder_len, d) frame embeddings; Qwen2-VL's (..., b, P, d)
+    patch embeddings and (..., 3, b, P + t) M-RoPE position streams,
+    explicit and different in each row, so that rows taken on a wrong
+    dim show; {} for the other families."""
+    rng = np.random.default_rng(7000 + seed)
+    out = {}
+    if cfg.encoder_layers:
+        out["enc_embeds"] = rng.standard_normal(
+            lead + (b, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    p = cfg.vision_prefix
+    if p:
+        out["vision_embeds"] = rng.standard_normal(
+            lead + (b, p, cfg.d_model)).astype(np.float32)
+        n = np.arange(p + t)
+        rows = np.arange(b)[:, None]
+        pos = np.stack([np.broadcast_to(n, (b, p + t)),
+                        np.broadcast_to(n // 4, (b, p + t)),
+                        n % 4 + 3 * rows]).astype(np.int32)
+        out["positions"] = np.ascontiguousarray(
+            np.broadcast_to(pos, lead + pos.shape))
+    return out
+
+
+def round_batch(cfg, seed, r, k, tau, b) -> dict:
+    """A round's batches (numpy): `tokens` and the family's stub inputs
+    (`extras`), each leaf (K, tau, ...)."""
+    return {"tokens": tokens(seed, r, k, tau, b, cfg.vocab_size),
+            **extras(cfg, (k, tau), b, T, 100 * seed + r)}
 
 
 def case_seed(arch, mname):
@@ -190,18 +234,20 @@ def _jax_cfg(arch):
         cfg = ModelConfig(name="fl-lm-tp", arch_type="dense",
                           tie_embeddings=True, dtype="float32", **LM_PRESET)
     else:
-        cfg = jregistry.smoke(arch)
+        cfg = jregistry.smoke(VARIANT_OF.get(arch, arch))
     return dataclasses.replace(cfg, **changes)
 
 
-JAX_PARTS = {"": lambda arch: arch not in RECURRENT,  # file suffix -> archs
-             "_recurrent": lambda arch: arch in RECURRENT}
+JAX_PARTS = {  # file suffix -> archs
+    "": lambda arch: arch not in RECURRENT + MULTIMODAL,
+    "_recurrent": lambda arch: arch in RECURRENT,
+    "_multimodal": lambda arch: arch in MULTIMODAL}
 
 
 def jax_main(out_dir, part=""):
     """The reference's rounds: the unsharded tree round per (config, K),
-    and the int8 tree round on a device mesh; params first. Two
-    subprocesses run the two `JAX_PARTS` side by side, each writing
+    and the int8 tree round on a device mesh; params first. Three
+    subprocesses run the `JAX_PARTS` side by side, each writing
     params{part}.npz and jax{part}.npz (the recurrent families' rounds
     take the longest to compile)."""
     mine = JAX_PARTS[part]
@@ -242,6 +288,8 @@ def jax_main(out_dir, part=""):
         res = {}
         for r in range(rounds):
             toks = tokens(seed, r, k, tau, b, jcfg.vocab_size)
+            batch = {key: jnp.asarray(v) for key, v in round_batch(
+                jcfg, seed, r, k, tau, b).items()}
             if transport != "f32":
                 # each client's largest |delta|: its largest wire step is
                 # at most that / 127
@@ -260,8 +308,7 @@ def jax_main(out_dir, part=""):
                     st.angle.smoothed)
                 res[f"{prefix}/r{r}/start/count"] = np.asarray(
                     st.angle.count)
-            st, m = rf(st, {"tokens": jnp.asarray(toks)},
-                       jnp.arange(k, dtype=jnp.int32),
+            st, m = rf(st, batch, jnp.arange(k, dtype=jnp.int32),
                        jnp.asarray(sizes_of(k)))
             res[f"{prefix}/r{r}/params"] = np.asarray(
                 jtm.tree_ravel(st.params)[0])
@@ -309,7 +356,7 @@ def port_cfg(arch):
         cfg = ModelConfig(name="fl-lm-tp", arch_type="dense",
                           tie_embeddings=True, dtype="float32", **LM_PRESET)
     else:
-        cfg = registry.smoke(arch)
+        cfg = registry.smoke(VARIANT_OF.get(arch, arch))
     return dataclasses.replace(cfg, attention_impl=impl, **changes)
 
 
@@ -401,14 +448,14 @@ def _port_step(arch, mname, mesh, params_np, angle_filter="all"):
     whole_rf = (tfl.make_round_fn(_loss(cfg), fc, mesh=mesh)
                 if arch in LATER_ROUND_TOL and not dense_only else None)
     for r in range(ROUNDS):
-        toks = tokens(seed, r, k, TAU, b, cfg.vocab_size)
+        batch = {key: torch.from_numpy(v) for key, v in round_batch(
+            cfg, seed, r, k, TAU, b).items()}
         if whole_rf is not None:
             whole, wm = whole_rf(st._replace(
                 params=sharding.gather_params(st.params, mesh, specs),
                 prev_delta=sharding.gather_params(st.prev_delta, mesh,
                                                   specs)),
-                {"tokens": torch.from_numpy(toks)},
-                torch.arange(k, dtype=torch.int32),
+                batch, torch.arange(k, dtype=torch.int32),
                 torch.from_numpy(sizes_of(k)))
             at = f"step_whole/{arch}/{mname}/r{r}"
             res.update({f"{at}/params": _ravel(whole.params),
@@ -417,8 +464,7 @@ def _port_step(arch, mname, mesh, params_np, angle_filter="all"):
             res.update({f"{at}/m/{key}": wm[key].detach().numpy()
                         for key in METRIC_KEYS})
         with mesh.recording() as log:
-            st, m = fn(st, {"tokens": torch.from_numpy(toks)},
-                       torch.arange(k, dtype=torch.int32),
+            st, m = fn(st, batch, torch.arange(k, dtype=torch.int32),
                        torch.from_numpy(sizes_of(k)))
         res.update(_state_of(st, mesh, specs, f"{prefix}/r{r}"))
         res.update({f"{prefix}/r{r}/m/{key}": m[key].detach().numpy()
@@ -766,7 +812,7 @@ def test_state_stays_in_blocks(worlds, group):
                 "'tp'")
 
 
-# ------------------------------------------------ refusals, in this process
+# ----------------------------------------- builds and refusals, in this process
 
 
 def _fake_2d_mesh():
@@ -780,27 +826,35 @@ def _fake_2d_mesh():
 
 
 def test_a_moe_config_names_item_13d():
-    """A family item 13d still leaves out (Whisper's encoder and
-    cross-attention; the MoE and MLA of the DeepSeek family, Mamba and
-    RWKV-6 now train tensor-parallel): the step builder and the model
-    refuse it."""
+    """Whisper, the family item 13d left out last (its encoder and
+    cross-attention): the step builder builds its tensor-parallel round,
+    and its loss runs on rank 0's blocks of a (2, 2) trace mesh, on
+    meta, with the "tp" collectives of the encoder's and the
+    cross-attention's heads (the rounds run in the world above)."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
-    from repro_torch.models import tp, transformer
+    from repro_torch.launch.mesh import make_trace_mesh
+    from repro_torch.models import sharding, tp, transformer
 
     cfg = registry.smoke("whisper-small")
-    mesh = _fake_2d_mesh()
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        steps.build_train_step(cfg, mesh,
-                               shapes.InputShape("train_4k", T, 4, "train"))
-    params = transformer.init_params(None, cfg, device="meta")
+    fn, _, _, _, meta = steps.build_train_step(
+        cfg, _fake_2d_mesh(), shapes.InputShape("train_4k", T, 4, "train"))
+    assert callable(fn) and meta["flcfg"]["engine"] == "flat_sharded"
+    mesh = make_trace_mesh((2, 2))
+    whole = transformer.init_params(None, cfg, device="meta")
+    params = sharding.shard_params(whole, mesh,
+                                   sharding.param_pspecs(whole, mesh))
     batch = {"tokens": torch.zeros((2, T), dtype=torch.int32,
                                    device="meta"),
              "enc_embeds": torch.zeros((2, cfg.encoder_len, cfg.d_model),
                                        device="meta")}
-    with tp.scope(mesh), pytest.raises(NotImplementedError,
-                                       match="item 13d"):
-        transformer.loss_fn(params, cfg, batch)
+    with tp.scope(mesh), mesh.recording() as log:
+        loss = transformer.loss_fn(params, cfg, batch)
+    assert loss.shape == () and loss.device.type == "meta"
+    # the vocab-parallel embedding and loss, and per encoder and decoder
+    # layer at least the all-reduces after wo and w_down (cross: wo too)
+    layers = cfg.encoder_layers + cfg.num_layers
+    assert sum(c.scope == "tp" for c in log) >= 2 * layers + cfg.num_layers
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

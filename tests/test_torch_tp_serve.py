@@ -5,8 +5,9 @@ ranks, against the JAX package's unsharded prefill and decode.
 One gloo world of 8 CPU ranks (`torch.multiprocessing` spawn, `file://`
 store) builds a (2, 4), a (4, 2) and a (1, 8) ("data", "model") mesh;
 one JAX subprocess writes its init of every config first, then its
-unsharded `forward(mode="prefill")` on the global batch (B = 4, T = 64,
-a cache of T + 4) and 3 `decode_step`s on seeded tokens. Each rank
+unsharded `forward(mode="prefill")` on the global batch (B = 4, T = 64
+and the family's stub inputs, a cache of P + T + 4 for a vision prefix
+of P) and 3 `decode_step`s on seeded tokens at P + T + i. Each rank
 starts from the JAX init, cut to its blocks, and runs the steps' fns on
 its data index's rows and its cache blocks. Held at 1e-5 (the
 recurrent families at 5e-5: `RECURRENT_TOL`): the
@@ -19,8 +20,13 @@ wraps it), deepseek-v2-lite-16b (MLA + MoE: E = 4 expert-parallel on
 M = 2 and 4, the last-dim split on M = 8, whose blocks do not hold whole
 MLA heads) and its `q_lora_rank=32` variant, jamba-1.5-large-398b
 (Mamba + attention + MoE: each rank's d_inner channels, `in_proj`'s
-column blocks gathered) and rwkv6-3b (each rank's whole heads, the
-channel mix reduce-scattered). Also held: the ranks of a
+column blocks gathered), rwkv6-3b (each rank's whole heads, the
+channel mix reduce-scattered), whisper-small (the encoder stack and the
+cross-attention on the rank's heads, the cross cache in the rank's KV
+heads; flash in the decoder) and its variant with an odd vocab of 515
+(the tied embedding and head split on d_model), and qwen2-vl-2b (the
+vision prefix, M-RoPE from explicit position streams that differ by
+row). Also held: the ranks of a
 data index bit for bit, the gathered caches on every rank bit for bit;
 each cache and param leaf of its `shard_shape`; `shard_params` of the
 gathered cache gives the blocks back bit for bit; the MoE routing of
@@ -30,9 +36,9 @@ read (no "tp" all_gather of (B, T, V)).
 The serving launcher (`python -m repro_torch.launch.serve --smoke
 --shape decode_32k --batch 2 --seq 64 --steps 3`) on a gloo world of 2
 ranks emits the host-mesh launcher's tokens. In this process: the block
-init is bit for bit the whole init cut to blocks, and serving refuses
-the families item 13d leaves out (Whisper, Qwen2-VL: with FSDP, with
-B = 1 on two data ranks, and at the model's decode), where Mamba and
+init is bit for bit the whole init cut to blocks, and the serving
+builders (FSDP, B = 1 on two data ranks) and the model's decode run
+Whisper and Qwen2-VL on a rank's blocks of a trace mesh, as Mamba and
 RWKV-6 build. Torch runs one intra-op thread a rank.
 """
 import hashlib
@@ -61,7 +67,7 @@ TOL = 1e-5
 # exp(+-cumsum log w) over the sequence
 RECURRENT_TOL = {"jamba-1.5-large-398b": 5e-5, "rwkv6-3b": 5e-5}
 T, B, STEPS = 64, 4, 3
-S = T + STEPS + 1  # the cache's positions
+S = T + STEPS + 1  # the cache's positions (and a vision prefix's)
 # case -> (registry config, its changes, the port's attention_impl)
 CASES = {
     "gemma-2b": ("gemma-2b", {}, "xla"),
@@ -74,6 +80,9 @@ CASES = {
                                {"mla": {"q_lora_rank": 32}}, "xla"),
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {}, "xla"),
     "rwkv6-3b": ("rwkv6-3b", {}, "xla"),
+    "whisper-small": ("whisper-small", {}, "flash"),
+    "whisper-small-v515": ("whisper-small", {"vocab_size": 515}, "flash"),
+    "qwen2-vl-2b": ("qwen2-vl-2b", {}, "xla"),
 }
 SERVE_CASES = [(c, m) for c in CASES for m in MESHES]
 
@@ -90,6 +99,18 @@ def prompt(case):
 def decode_tokens(case):
     rng = np.random.default_rng(100 + case_seed(case))
     return rng.integers(0, 512, (STEPS, B, 1)).astype(np.int32)
+
+
+def prompt_batch(case, cfg) -> dict:
+    """The prefill's batch (numpy): the prompt and the family's stub
+    inputs (`test_torch_tp.extras`)."""
+    return {"tokens": prompt(case),
+            **tpt.extras(cfg, (), B, T, case_seed(case))}
+
+
+def start(cfg) -> int:
+    """The first decode position, P + T."""
+    return cfg.vision_prefix + T
 
 
 # ------------------------------------------------------------ the JAX side
@@ -126,9 +147,10 @@ def jax_main(out_dir):
     for case in CASES:
         cfg = _jax_cfg(case)
         params = jax.tree.map(jnp.asarray, inits[case])
-        logits, _, cache = jax.jit(lambda p, t: jtr.forward(
-            p, cfg, {"tokens": t}, mode="prefill", max_len=S))(
-            params, jnp.asarray(prompt(case)))
+        logits, _, cache = jax.jit(lambda p, bt: jtr.forward(
+            p, cfg, bt, mode="prefill", max_len=cfg.vision_prefix + S))(
+            params, {k: jnp.asarray(v)
+                     for k, v in prompt_batch(case, cfg).items()})
         res[f"{case}/prefill/logits"] = np.asarray(logits[:, -1:])
         res.update(tpt._flat_paths(f"{case}/prefill/cache",
                                    jax.tree.map(np.asarray, cache)))
@@ -136,7 +158,7 @@ def jax_main(out_dir):
             p, cfg, tok, c, pos))
         for i, tok in enumerate(decode_tokens(case)):
             logits, cache = step(params, jnp.asarray(tok), cache,
-                                 jnp.int32(T + i))
+                                 jnp.int32(start(cfg) + i))
             res[f"{case}/decode{i}/logits"] = np.asarray(logits)
         res.update(tpt._flat_paths(f"{case}/decode/cache",
                                    jax.tree.map(np.asarray, cache)))
@@ -190,10 +212,11 @@ def _port_serve(case, mname, mesh, params_np):
     specs = sharding.param_pspecs(meta_params, mesh)
     params = sharding.shard_params(whole, mesh, specs)
     del whole
-    prefill, pargs, _, _, _ = steps.build_prefill_step(
-        cfg, mesh, shapes.InputShape("prefill", S, B, "prefill"))
+    s = cfg.vision_prefix + S
+    prefill, pargs, pin, _, _ = steps.build_prefill_step(
+        cfg, mesh, shapes.InputShape("prefill", s, B, "prefill"))
     decode, dargs, _, _, _ = steps.build_decode_step(
-        cfg, mesh, shapes.InputShape("decode", S, B, "decode"))
+        cfg, mesh, shapes.InputShape("decode", s, B, "decode"))
     cspecs = sharding.cache_pspecs(dargs[2], mesh)
     rows = B // mesh.client_size
     r0 = mesh.client_index * rows
@@ -201,8 +224,9 @@ def _port_serve(case, mname, mesh, params_np):
     res = {f"{prefix}/rows": np.asarray([r0, rows])}
     with torch.no_grad(), moe.record_routing() as routing, \
             mesh.recording() as log:
-        logits, cache = prefill(params, {"tokens": torch.from_numpy(
-            prompt(case)[r0:r0 + rows])})
+        logits, cache = prefill(params, steps.local_batch(
+            {k: torch.from_numpy(v)
+             for k, v in prompt_batch(case, cfg).items()}, pin[1], mesh))
         res[f"{prefix}/prefill/logits"] = logits.numpy()
         res[f"{prefix}/prefill/cache_shapes_ok"] = np.asarray(
             _shapes_ok(cache, dargs[2], cspecs, mesh))
@@ -219,7 +243,7 @@ def _port_serve(case, mname, mesh, params_np):
                 treemath.tree_leaves(cache))))
         for i, tok in enumerate(decode_tokens(case)):
             logits, cache = decode(params, torch.from_numpy(
-                tok[r0:r0 + rows]), cache, T + i)
+                tok[r0:r0 + rows]), cache, start(cfg) + i)
             res[f"{prefix}/decode{i}/logits"] = logits.numpy()
     res[f"{prefix}/decode/cache_shapes_ok"] = np.asarray(
         _shapes_ok(cache, dargs[2], cspecs, mesh))
@@ -454,6 +478,12 @@ def test_block_init_is_the_whole_init_cut(arch, mname):
             assert torch.equal(b, c[0])
 
 
+def _shape(kind: str, b: int):
+    from repro_torch.configs import shapes
+
+    return shapes.InputShape(kind, S, b, kind)
+
+
 def _fake_mesh(data=2, model=2):
     from repro_torch.launch.mesh import ClientMesh
 
@@ -463,19 +493,41 @@ def _fake_mesh(data=2, model=2):
                       data_group=g if data > 1 else None, model_group=g)
 
 
+def _trace_step(build, cfg, kind: str, b: int, **kw):
+    """`build`'s step of `cfg` on rank 0 of a (2, 2) trace mesh, run on
+    the rank's blocks of its meta arguments: (its outputs, the specs of
+    its outputs, the mesh, the collectives it recorded)."""
+    from repro_torch.configs import shapes
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_trace_mesh
+
+    mesh = make_trace_mesh((2, 2))
+    fn, args, ins, outs, _ = build(cfg, mesh,
+                                   shapes.InputShape(kind, S, b, kind), **kw)
+    with mesh.recording() as log:
+        out = fn(*steps.rank_blocks(ins, args, mesh))
+    return out, outs, mesh, log
+
+
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_fsdp_serving_names_item_13d(kind):
-    """FSDP serving runs for the decoder-only families
-    (`tests/test_torch_fsdp.py`); whisper-small, whose encoder and
-    cross-attention have no tensor-parallel form, refuses it."""
-    from repro_torch.configs import registry, shapes
+    """FSDP serving of whisper-small, which item 13d left out until its
+    encoder and cross-attention ran tensor-parallel: both builders build
+    on a (2, 2) mesh, and each step runs on rank 0's blocks of a trace
+    mesh with its params gathered over "data" ("fsdp") and its heads'
+    collectives over "model" ("tp"); the values are held in
+    `tests/test_torch_fsdp.py`."""
+    from repro_torch.configs import registry
     from repro_torch.launch import steps
 
     build = {"prefill": steps.build_prefill_step,
              "decode": steps.build_decode_step}[kind]
-    with pytest.raises(NotImplementedError, match="whisper.*item 13d"):
-        build(registry.smoke("whisper-small"), _fake_mesh(),
-              shapes.InputShape(kind, S, B, kind), fsdp=True)
+    cfg = registry.smoke("whisper-small")
+    assert callable(build(cfg, _fake_mesh(),
+                          _shape(kind, B), fsdp=True)[0])
+    _, _, _, log = _trace_step(build, cfg, kind, B, fsdp=True)
+    scopes = {c.scope for c in log}
+    assert {"tp", "fsdp"} <= scopes, scopes
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -496,17 +548,32 @@ def test_fsdp_serving_builds_for_jamba(kind):
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_a_batch_that_does_not_split_over_data_names_item_13d(kind):
     """B = 1 on two data ranks (long_500k's case) puts the cache's
-    sequence on "data" for the attention families
-    (`tests/test_torch_fsdp.py`); Qwen2-VL, whose vision prefix and
-    M-RoPE have no tensor-parallel form, refuses it."""
-    from repro_torch.configs import registry, shapes
+    sequence on "data": Qwen2-VL, which item 13d left out until its
+    vision prefix and M-RoPE ran tensor-parallel, builds both steps on a
+    (2, 2) mesh; on rank 0 of a trace mesh the prefill's cache comes out
+    in its blocks (a block of the P + T positions), and the decode step
+    combines the ranks' partial softmaxes over "data" under "tp"."""
+    from repro_torch.configs import registry
     from repro_torch.launch import steps
+    from repro_torch.models import sharding
 
     build = {"prefill": steps.build_prefill_step,
              "decode": steps.build_decode_step}[kind]
-    with pytest.raises(NotImplementedError, match="qwen.*item 13d"):
-        build(registry.smoke("qwen2-vl-2b"), _fake_mesh(),
-              shapes.InputShape(kind, S, 1, kind))
+    cfg = registry.smoke("qwen2-vl-2b")
+    assert callable(build(cfg, _fake_mesh(), _shape(kind, 1))[0])
+    out, outs, mesh, log = _trace_step(build, cfg, kind, 1)
+    cache, cspecs = out[1], outs[1]
+    pairs = steps.spec_leaves(cspecs, cache)
+    assert pairs and all(spec.spec[2] == "data" for spec, _ in pairs)
+    if kind == "prefill":  # the prompt's P + T positions, in blocks
+        s = cfg.vision_prefix + S
+        assert all(x.shape[2] == s // 2 for _, x in pairs)
+    else:
+        assert all(x.shape[2] == S // 2 for _, x in pairs)
+        combine = [c for c in log if c.scope == "tp"
+                   and c.axes == ("data",) and c.op == "all_reduce"]
+        assert len(combine) == 2 * cfg.num_layers  # the maxima, the sums
+    assert sharding.batch_total(mesh) == 2
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -523,33 +590,41 @@ def test_a_batch_that_does_not_split_over_data_builds_for_rwkv(kind):
     assert callable(fn)
 
 
-def _left_out_refuses(arch):
-    """Serving (both step builders, and the model's decode) and training
-    refuse `arch`, naming item 13d."""
+def _builds_and_decodes(arch):
+    """Serving (both step builders) and training build `arch` on a (2, 2)
+    mesh, and the model's decode runs on rank 0's blocks of its params
+    and cache on a (2, 2) trace mesh, with "tp" collectives."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
-    from repro_torch.models import tp, transformer
+    from repro_torch.launch.mesh import make_trace_mesh
+    from repro_torch.models import sharding, tp, transformer
 
     cfg = registry.smoke(arch)
     mesh = _fake_mesh()
     for build, kind in ((steps.build_prefill_step, "prefill"),
                         (steps.build_decode_step, "decode"),
                         (steps.build_train_step, "train")):
-        with pytest.raises(NotImplementedError, match="item 13d"):
-            build(cfg, mesh, shapes.InputShape(kind, S, B, kind))
-    params = transformer.init_params(None, cfg, device="meta")
-    cache = transformer.init_cache(cfg, B, S, device="meta")
-    tok = torch.zeros((B, 1), dtype=torch.int32, device="meta")
-    with tp.scope(mesh), pytest.raises(NotImplementedError,
-                                       match="tensor-parallel.*item 13d"):
-        transformer.decode_step(params, cfg, tok, cache, 0)
+        assert callable(build(cfg, mesh,
+                              shapes.InputShape(kind, S, B, kind))[0])
+    mesh = make_trace_mesh((2, 2))
+    whole = transformer.init_params(None, cfg, device="meta")
+    params = sharding.shard_params(whole, mesh,
+                                   sharding.param_pspecs(whole, mesh))
+    cache = transformer.init_cache(cfg, B, S, device="meta", mesh=mesh)
+    tok = torch.zeros((B // 2, 1), dtype=torch.int32, device="meta")
+    with tp.scope(mesh, rows_over_data=True), mesh.recording() as log:
+        logits, _ = transformer.decode_step(params, cfg, tok, cache, 0)
+    assert logits.shape == (B // 2, 1, cfg.vocab_size // 2)
+    assert any(c.scope == "tp" for c in log)
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-2b"])
 def test_the_families_left_out_name_item_13d(arch):
-    """Serving (both step builders, and the model's decode) and
-    training refuse the families item 13d leaves out."""
-    _left_out_refuses(arch)
+    """The families item 13d left out until their tensor-parallel forms
+    ran (Whisper's encoder and cross-attention, Qwen2-VL's vision prefix
+    and M-RoPE) build both serving steps and the train step, and decode
+    on a rank's blocks."""
+    _builds_and_decodes(arch)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
@@ -558,10 +633,8 @@ def test_the_recurrent_families_build_over_model(arch):
     training builder build on a (2, 2) mesh."""
     from repro_torch.configs import registry, shapes
     from repro_torch.launch import steps
-    from repro_torch.models import tp
 
     cfg = registry.smoke(arch)
-    assert tp.covers(cfg)
     for build, kind in ((steps.build_prefill_step, "prefill"),
                         (steps.build_decode_step, "decode"),
                         (steps.build_train_step, "train")):
